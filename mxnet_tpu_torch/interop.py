@@ -1,0 +1,83 @@
+"""Carrying weights between the JAX package and the port.
+
+- ``params_from_jax`` turns the JAX package's parameter dicts (numpy
+  arrays, or anything with ``asnumpy()`` or ``__array__``) into the
+  port's tensor dicts under the same names.
+- ``init_params`` makes a seeded numpy initialisation of a symbol's
+  parameters that both packages can be fed from.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .base import MXNetError, torch_dtype
+
+__all__ = ["params_from_jax", "init_params"]
+
+
+def _to_numpy(name, v):
+    if hasattr(v, "asnumpy"):
+        v = v.asnumpy()
+    a = np.asarray(v)
+    if a.dtype.kind not in "fiu":
+        raise MXNetError(f"parameter '{name}' is not numeric ({a.dtype})")
+    return a
+
+
+def params_from_jax(arg_params, aux_params, device, dtype=None,
+                    shapes=None):
+    """``(arg_params, aux_params)`` as dicts of tensors on ``device``,
+    under the same names. Float arrays are cast to ``dtype`` when given.
+    ``shapes`` (optional {name: shape}, e.g. from ``infer_shape``) is
+    checked against every array it names."""
+    device = torch.device(device)
+    dt = torch_dtype(dtype)
+
+    def conv(params):
+        out = {}
+        for name, v in (params or {}).items():
+            a = _to_numpy(name, v)
+            if shapes is not None and name in shapes \
+                    and tuple(a.shape) != tuple(shapes[name]):
+                raise MXNetError(f"parameter '{name}' has shape {a.shape}, "
+                                 f"expected {tuple(shapes[name])}")
+            t = torch.tensor(a)
+            if dt is not None and t.is_floating_point():
+                t = t.to(dt)
+            out[name] = t.to(device)
+        return out
+
+    return conv(arg_params), conv(aux_params)
+
+
+def init_params(symbol, data_shapes, seed):
+    """Seeded float32 numpy params for ``symbol``: ``(arg_params,
+    aux_params)``. ``data_shapes`` maps each data input to its full
+    shape (batch included); inputs whose name ends in ``label`` get no
+    value. Weights are He-normal over their fan-in, biases and BN shifts
+    small normal, BN scales near 1, moving means small normal and moving
+    variances uniform in [0.5, 1.5] (always positive)."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**{
+        n: tuple(s) for n, s in data_shapes.items()})
+    args = {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name in data_shapes or name.endswith("label"):
+            continue
+        if name.endswith("weight"):
+            fan_in = int(np.prod(shape[1:]))
+            v = rng.standard_normal(shape) * np.sqrt(1.0 / fan_in)
+        elif name.endswith("gamma"):
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:  # bias, beta
+            v = 0.1 * rng.standard_normal(shape)
+        args[name] = v.astype(np.float32)
+    aux = {}
+    for name, shape in zip(symbol.list_auxiliary_states(), aux_shapes):
+        if name.endswith("var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = 0.1 * rng.standard_normal(shape)
+        aux[name] = v.astype(np.float32)
+    return args, aux

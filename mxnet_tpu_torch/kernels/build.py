@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels at first use.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded through ``ctypes``. The
+output lives in ``mxnet_tpu_torch/_build/<hash>/``, keyed on a hash of
+the source text and the flags, so an edit rebuilds and an unchanged
+source loads the library already built. ``ptxas -v`` output (registers,
+shared memory, spills) is kept beside each library as ``<name>.log``.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from ..base import MXNetError
+
+__all__ = ["build_all", "load", "nvcc_path", "SOURCES"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_BUILD = os.path.join(os.path.dirname(_HERE), "_build")
+SOURCES = ("bn_relu_conv1x1",)
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LIBS = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path():
+    """The ``nvcc`` to build with: ``$CUDA_HOME/bin/nvcc``, else the one
+    on ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise MXNetError("nvcc not found: the port's CUDA kernels build on a "
+                     "machine with the CUDA toolkit")
+
+
+def _lib_path(name):
+    src = os.path.join(_CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    return src, os.path.join(_BUILD, digest.hexdigest()[:16],
+                             f"lib{name}.so")
+
+
+def _compile(name):
+    src, lib = _lib_path(name)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc_path(), *FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    with open(lib[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise MXNetError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)       # atomic: a concurrent loader sees all or none
+    return lib
+
+
+def build_all():
+    """Compile every source, one ``nvcc`` each, all started together.
+    Returns {name: library path}."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        return dict(zip(SOURCES, ex.map(_compile, SOURCES)))
+
+
+def load(name):
+    """The loaded ``ctypes`` library for ``csrc/<name>.cu``, built first
+    if needed."""
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(_compile(name))
+        return _LIBS[name]
+
+
+def build_log(name):
+    """ptxas report of the current build of ``name`` ('' if not built)."""
+    log = _lib_path(name)[1][:-3] + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return f.read()

@@ -1,0 +1,24 @@
+"""Per-op input signatures for the symbolic layer (counterpart of
+``mxnet_tpu/symbol/op_info.py``, limited to the port's op set): each
+op's (argument input names, auxiliary input names). Auxiliary inputs
+(BatchNorm's moving statistics) are inputs that are not arguments."""
+
+OP_INPUTS = {
+    "FullyConnected": (["data", "weight", "bias"], []),
+    "Convolution": (["data", "weight", "bias"], []),
+    "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
+    "SoftmaxOutput": (["data", "label"], []),
+    "Softmax": (["data", "label"], []),
+    "Activation": (["data"], []),
+    "Pooling": (["data"], []),
+    "Flatten": (["data"], []),
+    "broadcast_add": (["lhs", "rhs"], []),
+}
+
+
+def op_input_names(op_name):
+    """(arg_names, aux_names) for an op; None arg_names means the op
+    takes positional inputs only."""
+    if op_name in OP_INPUTS:
+        return OP_INPUTS[op_name]
+    return None, []
