@@ -9,7 +9,9 @@ plain PyTorch version instead, which is how the CPU tests reach it.
 
 Slice 1 covers inference serving of a symbol graph: the op set a ResNet
 needs, the ``pallas_fusion`` and ``residual_fusion`` rewrite passes, and
-``serving.Predictor`` / ``serving.DynamicBatcher``.
+``serving.Predictor`` / ``serving.DynamicBatcher``. Slice 2 covers
+training it: ``mod.Module`` with the fused step, ``init``, ``optimizer``,
+``lr_scheduler``, ``io.NDArrayIter`` and ``metric``.
 """
 from . import base, config, context
 from .base import MXNetError
@@ -19,6 +21,13 @@ from . import symbol
 from . import symbol as sym
 from . import interop
 from . import serving
+from . import initializer
+from . import initializer as init
+from . import io, lr_scheduler, metric, optimizer
+from . import module
+from . import module as mod
 
 __all__ = ["MXNetError", "base", "config", "context", "cpu", "gpu",
-           "default_device", "ops", "symbol", "sym", "interop", "serving"]
+           "default_device", "ops", "symbol", "sym", "interop", "serving",
+           "initializer", "init", "io", "lr_scheduler", "metric",
+           "optimizer", "module", "mod"]

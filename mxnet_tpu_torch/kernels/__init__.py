@@ -5,6 +5,12 @@
   ``_make_nchw_kernel``; built by ``build.py`` and bound with ``ctypes``.
 - ``bn_prologue_triton.py`` (Triton): the BN-apply(+ReLU) prologue,
   counterpart of ``_make_prologue_kernel``.
+- ``csrc/bn_relu_matmul.cu`` (CUDA C++, ``sm_90a``): the fused
+  BN-apply+ReLU+matrix product of a row-major (M, K) x, counterpart of
+  ``_make_kernel`` (``bn_relu_matmul``).
+- ``bn_backward_triton.py`` (Triton): the BN backward's per-channel
+  reduction and dx assembly, the kernels under the JAX package's
+  analytic fused BN backwards.
 
 Their wrappers, plain versions and launch counters are in
 ``ops/fused_bn_conv.py``.

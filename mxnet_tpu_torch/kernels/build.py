@@ -24,7 +24,7 @@ __all__ = ["build_all", "load", "nvcc_path", "SOURCES"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("bn_relu_conv1x1",)
+SOURCES = ("bn_relu_conv1x1", "bn_relu_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIBS = {}

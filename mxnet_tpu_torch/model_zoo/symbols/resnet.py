@@ -3,8 +3,10 @@ Networks"): a copy of ``examples/image_classification/symbols/resnet.py``
 written against the port's ``sym``, so the port builds the same graph
 (and the same JSON) without importing the JAX package.
 
-Pre-activation (v2) units. Only the ``std`` 7x7/s2 stem: the ``s2d``
-stem's op (``conv_s2d_stem``) is not ported yet.
+Pre-activation (v2) units. The ImageNet stem is the 7x7/s2 convolution
+(``stem="std"``) or its exact space-to-depth rewrite (``stem="s2d"``,
+``ops/nn.py`` ``conv_s2d_stem``: the same ``conv0_weight``, the same
+output).
 """
 from ... import symbol as sym
 from ...base import MXNetError
@@ -68,12 +70,16 @@ def resnet(units, num_stages, filter_list, num_classes, image_shape,
                                   kernel=(3, 3), stride=(1, 1), pad=(1, 1),
                                   no_bias=True, name="conv0")
     else:  # imagenet stem
-        if stem != "std":
-            raise MXNetError(f"stem={stem!r} is not ported yet (only "
-                             "'std')")
-        body = sym.Convolution(data=data, num_filter=filter_list[0],
-                                  kernel=(7, 7), stride=(2, 2), pad=(3, 3),
-                                  no_bias=True, name="conv0")
+        if stem == "s2d":
+            w0 = sym.Variable("conv0_weight",
+                              shape=(filter_list[0], nchannel, 7, 7))
+            body = sym.conv_s2d_stem(data=data, weight=w0, name="conv0")
+        elif stem == "std":
+            body = sym.Convolution(data=data, num_filter=filter_list[0],
+                                   kernel=(7, 7), stride=(2, 2),
+                                   pad=(3, 3), no_bias=True, name="conv0")
+        else:
+            raise MXNetError(f"unknown stem {stem!r} (std or s2d)")
         body = sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5,
                                 momentum=bn_mom, name="bn0")
         body = sym.Activation(data=body, act_type="relu", name="relu0")

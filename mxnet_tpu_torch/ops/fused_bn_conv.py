@@ -1,28 +1,49 @@
-"""Fused BatchNorm-apply(+ReLU) + convolution: the kernel wrappers and
-the two graph ops the rewrite passes substitute (counterpart of
-``mxnet_tpu/ops/pallas_fused.py``).
+"""Fused BatchNorm-apply(+ReLU) + convolution / matrix product: the
+kernel wrappers, the two graph ops the rewrite passes substitute, and
+``bn_relu_matmul`` (counterpart of ``mxnet_tpu/ops/pallas_fused.py``).
 
-- ``bn_relu_conv_nchw`` — K1, the fused BN-apply+ReLU+1x1 conv. On a
-  CUDA tensor it launches ``kernels/csrc/bn_relu_conv1x1.cu``; on a CPU
-  tensor it runs ``bn_relu_conv_nchw_plain``.
-- ``bn_act_prologue`` — K2, the BN-apply(+ReLU) prologue. On a CUDA
-  tensor it launches ``kernels/bn_prologue_triton.py``; on a CPU tensor
-  it runs ``bn_act_prologue_plain``.
+Kernel wrappers (forward kernels; their outputs carry no gradient):
+
+- ``bn_relu_conv_nchw`` — K1, the fused BN-apply+ReLU+1x1 conv
+  (``kernels/csrc/bn_relu_conv1x1.cu``).
+- ``bn_act_prologue`` — K2, the BN-apply(+ReLU) prologue
+  (``kernels/bn_prologue_triton.py``).
+- ``bn_relu_matmul_fwd`` — K3, the fused BN-apply(+ReLU)+matrix product
+  of a row-major (M, K) x (``kernels/csrc/bn_relu_matmul.cu``).
+- ``bn_backward_reduce`` — B1, the BN backward's per-channel sums
+  (``kernels/bn_backward_triton.py``).
+- ``bn_backward_dx`` — B2, the BN backward's dx assembly (same file).
 
 A wrapper given a CUDA tensor launches its kernel or raises; it never
-falls back to its plain version. Meta tensors (shape inference) take
-the plain version, which computes nothing on them. Each wrapper counts
-its launches in ``<wrapper>.launches``.
+falls back to its plain version (``<name>_plain``), which only CPU and
+meta tensors take (meta: shape inference). Each wrapper counts its
+launches in ``<wrapper>.launches``.
+
+Differentiable ops, each a ``torch.autograd.Function`` whose backward is
+the JAX package's custom VJP:
+
+- ``_FusedBNReLUConv`` / ``_FusedBNReLUConvK`` (graph ops): forward with
+  batch statistics in training (moving statistics otherwise) through K1,
+  or K2 and the convolution; they save the raw x, never the normalised
+  activation, and the backward recomputes it with K2, takes the
+  convolution's gradients from ``aten.convolution_backward`` (the JAX
+  package leaves them to XLA's conv-grad), the per-channel sums from B1
+  and dx from B2: ``dx = scale*dz + cx*x + c0``.
+- ``bn_relu_matmul`` (public, as in the JAX package): forward through
+  K3; backward recomputes xhat with K2, ``dxhat = g @ w.T`` and
+  ``dw = xhat.T @ g`` with ``torch.matmul``, ``dscale``/``dshift`` from
+  B1 and ``dx = dz*scale`` from B2.
 
 ``select_conv_tiles`` / ``conv_tile_failure`` are kept as the rewrite
 pass's applicability rule, so the pass rewrites the same sites as the
-JAX package; the CUDA kernel has its own tiling and any shape.
+JAX package; the CUDA kernels have their own tiling and take any shape.
 
-Dtype flow follows the JAX ops: params arrive in the compute dtype,
+Dtype flow follows the JAX ops: params arrive in the compute dtype, the
+batch mean and (biased) variance are taken in it with fp32 sums,
 ``scale``/``shift`` are computed in it, the normalised activation is
-rounded to ``x.dtype`` before the product, sums are fp32 and the output
-is ``x.dtype``. This slice is inference only: a tensor that requires a
-gradient raises ``NotImplementedError``.
+rounded to ``x.dtype`` before each product, sums are fp32 and the
+outputs are ``x.dtype``. The backward's per-channel sums and
+coefficients are fp32.
 """
 from __future__ import annotations
 
@@ -38,11 +59,14 @@ from .registry import register_op
 
 __all__ = ["bn_relu_conv_nchw", "bn_relu_conv_nchw_plain",
            "bn_act_prologue", "bn_act_prologue_plain",
+           "bn_relu_matmul", "bn_relu_matmul_fwd", "bn_relu_matmul_fwd_plain",
+           "bn_backward_reduce", "bn_backward_reduce_plain",
+           "bn_backward_dx", "bn_backward_dx_plain",
            "select_conv_tiles", "conv_tile_failure", "reset_launch_counts",
            "launch_counts"]
 
-# output-tile candidates of the TPU kernel, largest first (the pass's
-# applicability rule; see select_conv_tiles)
+# output-tile candidates of the TPU kernels, largest first (the pass's
+# applicability rule, and bn_relu_matmul's bm/bn rule)
 _BM_CANDIDATES = (1024, 512, 256, 128, 64, 32, 16, 8)
 _BN_CANDIDATES = (512, 256, 128, 64, 32, 16, 8)
 
@@ -80,11 +104,6 @@ def conv_tile_failure(n_out, spatial):
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _no_grad(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("training comes in the next slice")
-
-
 def _check_cuda(op, x, others, dtypes):
     if x.dtype not in dtypes:
         raise MXNetError(f"{op}: dtype {x.dtype} is not supported on CUDA "
@@ -96,6 +115,21 @@ def _check_cuda(op, x, others, dtypes):
             raise MXNetError(f"{op}: mixed dtypes {t.dtype} and {x.dtype}")
         if not t.is_contiguous():
             raise MXNetError(f"{op}: inputs must be contiguous")
+    if x.numel() >= 2 ** 31:
+        raise MXNetError(f"{op}: {x.numel()} elements exceed the kernel's "
+                         "32-bit offsets")
+
+
+def _check_dxhat(op, dxhat, x):
+    """B1/B2 take the incoming gradient in x's dtype or in float32 (the
+    fp32 product of ``bn_relu_matmul``'s backward)."""
+    if dxhat.device != x.device:
+        raise MXNetError(f"{op}: tensors on {dxhat.device} and {x.device}")
+    if dxhat.dtype not in (x.dtype, torch.float32):
+        raise MXNetError(f"{op}: gradient dtype {dxhat.dtype} with input "
+                         f"dtype {x.dtype}")
+    if not dxhat.is_contiguous():
+        raise MXNetError(f"{op}: inputs must be contiguous")
 
 
 def _on_device(device):
@@ -116,6 +150,22 @@ def _plain_device(x):
     return False
 
 
+def _launch_rc(name, rc):
+    if rc != 0:
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _c_entry(source, symbol, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, its library
+    built and loaded on first use (``kernels/build.py`` caches it)."""
+    from ..kernels import build
+    fn = getattr(build.load(source), symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # K1: fused BN-apply(+ReLU) + 1x1 conv
 # ---------------------------------------------------------------------------
@@ -125,21 +175,10 @@ def bn_relu_conv_nchw_plain(x, w, scale, shift, relu=True):
     ``w @ z`` over channels in fp32, rounded to ``x.dtype``."""
     b, c, h, wd = x.shape
     o = w.shape[0]
-    z = bn_act_prologue_plain(x, scale, shift, relu).float()
-    out = torch.matmul(w.float(), z.reshape(b, c, h * wd))
+    with torch.no_grad():
+        z = bn_act_prologue_plain(x, scale, shift, relu).float()
+        out = torch.matmul(w.float(), z.reshape(b, c, h * wd))
     return out.to(x.dtype).reshape(b, o, h, wd)
-
-
-def _k1_entry():
-    """The C entry point of K1, its library built and loaded on first
-    use (``kernels/build.py`` caches the loaded library)."""
-    from ..kernels import build
-    fn = build.load("bn_relu_conv1x1").mxtt_bn_relu_conv1x1
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    return fn
 
 
 def bn_relu_conv_nchw(x, w, scale, shift, relu=True):
@@ -148,7 +187,6 @@ def bn_relu_conv_nchw(x, w, scale, shift, relu=True):
     scale/shift (C,) -> (B, O, H, W) in ``x.dtype``. On CUDA: the
     hand-written kernel (float32 or bfloat16, every tensor in x's dtype,
     contiguous); on CPU: the plain version."""
-    _no_grad(x, w, scale, shift)
     if x.dim() != 4 or w.dim() != 2 or w.shape[1] != x.shape[1] \
             or scale.shape != (x.shape[1],) or shift.shape != scale.shape:
         raise MXNetError(
@@ -160,19 +198,19 @@ def bn_relu_conv_nchw(x, w, scale, shift, relu=True):
     _check_cuda("bn_relu_conv_nchw", x, (w, scale, shift), _KERNEL_DTYPES)
     b, c, h, wd = x.shape
     o = w.shape[0]
-    if b > 65535 or max(c, o, h * wd) >= 2 ** 31:
+    if b > 65535 or b * o * h * wd >= 2 ** 31:
         raise MXNetError(f"bn_relu_conv_nchw: shape {tuple(x.shape)} -> "
                          f"{o} channels is out of the kernel's range")
     out = torch.empty((b, o, h, wd), dtype=x.dtype, device=x.device)
+    fn = _c_entry("bn_relu_conv1x1", "mxtt_bn_relu_conv1x1",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with _on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _k1_entry()(_KERNEL_DTYPES[x.dtype], x.data_ptr(),
-                         w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                         out.data_ptr(), b, c, o, h * wd, int(bool(relu)),
-                         stream)
-    if rc != 0:
-        raise MXNetError(f"bn_relu_conv1x1 kernel launch failed: CUDA "
-                         f"error {rc}")
+        rc = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b, c, o,
+                h * wd, int(bool(relu)), stream)
+    _launch_rc("bn_relu_conv1x1", rc)
     bn_relu_conv_nchw.launches += 1
     return out
 
@@ -187,11 +225,12 @@ def bn_act_prologue_plain(x, scale, shift, relu=True):
     """Plain PyTorch version of K2: ``act(x*scale[c] + shift[c])`` in
     fp32, rounded to ``x.dtype``."""
     c = x.shape[1]
-    z = x.float() * scale.float().reshape(1, c, 1, 1) \
-        + shift.float().reshape(1, c, 1, 1)
-    if relu:
-        z = torch.clamp_min(z, 0.0)
-    return z.to(x.dtype)
+    with torch.no_grad():
+        z = x.float() * scale.float().reshape(1, c, 1, 1) \
+            + shift.float().reshape(1, c, 1, 1)
+        if relu:
+            z = torch.clamp_min(z, 0.0)
+        return z.to(x.dtype)
 
 
 def bn_act_prologue(x, scale, shift, relu=True):
@@ -199,7 +238,6 @@ def bn_act_prologue(x, scale, shift, relu=True):
     NCHW tensor, in ``x.dtype``. On CUDA: the Triton kernel (float32 or
     bfloat16, every tensor in x's dtype, contiguous); on CPU:
     the plain version."""
-    _no_grad(x, scale, shift)
     if x.dim() != 4 or scale.shape != (x.shape[1],) \
             or shift.shape != scale.shape:
         raise MXNetError(
@@ -209,9 +247,6 @@ def bn_act_prologue(x, scale, shift, relu=True):
     if _plain_device(x):
         return bn_act_prologue_plain(x, scale, shift, relu)
     _check_cuda("bn_act_prologue", x, (scale, shift), _KERNEL_DTYPES)
-    if x.numel() >= 2 ** 31:
-        raise MXNetError(f"bn_act_prologue: {x.numel()} elements exceed "
-                         "the kernel's 32-bit offsets")
     from ..kernels import bn_prologue_triton
     out = torch.empty_like(x)
     if x.numel():
@@ -223,7 +258,174 @@ def bn_act_prologue(x, scale, shift, relu=True):
 
 bn_act_prologue.launches = 0
 
-_WRAPPERS = (bn_relu_conv_nchw, bn_act_prologue)
+
+# ---------------------------------------------------------------------------
+# K3: fused BN-apply(+ReLU) + (M, K) @ (K, N)
+# ---------------------------------------------------------------------------
+def bn_relu_matmul_fwd_plain(x, w, scale, shift, relu=True):
+    """Plain PyTorch version of K3: ``z = act(x*scale + shift)`` in fp32,
+    rounded to ``x.dtype``, then ``z @ w`` in fp32, rounded to
+    ``x.dtype``."""
+    m, k = x.shape
+    with torch.no_grad():
+        z = bn_act_prologue_plain(x.reshape(m, k, 1, 1), scale, shift,
+                                  relu).reshape(m, k)
+        return torch.matmul(z.float(), w.float()).to(x.dtype)
+
+
+def bn_relu_matmul_fwd(x, w, scale, shift, relu=True):
+    """``act(x*scale + shift) @ w`` for x (M, K), w (K, N), scale/shift
+    (K,) -> (M, N) in ``x.dtype``, without writing the normalised x. On
+    CUDA: the hand-written kernel (float32 or bfloat16, every tensor in
+    x's dtype, contiguous); on CPU: the plain version."""
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1] \
+            or scale.shape != (x.shape[1],) or shift.shape != scale.shape:
+        raise MXNetError(
+            f"bn_relu_matmul: shapes x {tuple(x.shape)}, w "
+            f"{tuple(w.shape)}, scale {tuple(scale.shape)}, shift "
+            f"{tuple(shift.shape)} do not fit (M,K), (K,N), (K,), (K,)")
+    if _plain_device(x):
+        return bn_relu_matmul_fwd_plain(x, w, scale, shift, relu)
+    _check_cuda("bn_relu_matmul", x, (w, scale, shift), _KERNEL_DTYPES)
+    m, k = x.shape
+    n = w.shape[1]
+    if m * n >= 2 ** 31 or n > 64 * 65535:
+        raise MXNetError(f"bn_relu_matmul: ({m}, {k}) @ ({k}, {n}) is out "
+                         "of the kernel's range")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    fn = _c_entry("bn_relu_matmul", "mxtt_bn_relu_matmul",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 5
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
+    with _on_device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                scale.data_ptr(), shift.data_ptr(), out.data_ptr(), m, k, n,
+                int(bool(relu)), stream)
+    _launch_rc("bn_relu_matmul", rc)
+    bn_relu_matmul_fwd.launches += 1
+    return out
+
+
+bn_relu_matmul_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B1 / B2: the BN backward's reduction and dx assembly
+# ---------------------------------------------------------------------------
+def _bcs(t):
+    """(B, C, S) of a contiguous NCHW or row-major (M, K) tensor, and its
+    strides in that view."""
+    if t.dim() == 4:
+        b, c, h, w = t.shape
+        return (b, c, h * w), (c * h * w, h * w, 1)
+    return (t.shape[0], t.shape[1], 1), (t.shape[1], 1, 1)
+
+
+def _masked(dxhat, xhat):
+    """``dz = dxhat * [xhat > 0]`` in fp32 (``dxhat`` when xhat is None)."""
+    dz = dxhat.float()
+    return dz if xhat is None else torch.where(xhat > 0, dz, 0.0)
+
+
+def bn_backward_reduce_plain(dxhat, x, xhat=None):
+    """Plain PyTorch version of B1: (2, C) fp32 sums over every axis but
+    the channel one (axis 1): row 0 ``sum dz``, row 1 ``sum dz*x``."""
+    with torch.no_grad():
+        axes = tuple(i for i in range(x.dim()) if i != 1)
+        dz = _masked(dxhat, xhat)
+        return torch.stack([dz.sum(dim=axes),
+                            (dz * x.float()).sum(dim=axes)])
+
+
+def bn_backward_reduce(dxhat, x, xhat=None):
+    """Per-channel ``s0 = sum dz`` and ``s1 = sum dz*x`` of the BN
+    backward, ``dz = dxhat * [xhat > 0]`` (``xhat`` None: no ReLU, dz =
+    dxhat), as a (2, C) fp32 tensor. The tensors share one shape: NCHW
+    (sums over B, H, W) or a row-major (M, K) matrix (sums over M). On
+    CUDA: the Triton kernel (contiguous tensors; x and xhat float32 or
+    bfloat16 in one dtype, dxhat in that dtype or float32); on CPU: the
+    plain version."""
+    ts = (dxhat, x) + ((xhat,) if xhat is not None else ())
+    if any(t.shape != x.shape for t in ts) or x.dim() not in (2, 4):
+        raise MXNetError(f"bn_backward_reduce: shapes "
+                         f"{[tuple(t.shape) for t in ts]} differ or are not "
+                         "NCHW or (M, K)")
+    if _plain_device(x):
+        return bn_backward_reduce_plain(dxhat, x, xhat)
+    _check_cuda("bn_backward_reduce", x, ts[2:], _KERNEL_DTYPES)
+    _check_dxhat("bn_backward_reduce", dxhat, x)
+    (b, c, s), strides = _bcs(x)
+    out = torch.zeros((2, c), dtype=torch.float32, device=x.device)
+    if x.numel():
+        from ..kernels import bn_backward_triton
+        with _on_device(x.device):
+            bn_backward_triton.launch_reduce(dxhat, x, xhat, b, c, s,
+                                             strides, out)
+        bn_backward_reduce.launches += 1
+    return out
+
+
+bn_backward_reduce.launches = 0
+
+
+def bn_backward_dx_plain(dxhat, x, xhat, scale, cx=None, c0=None):
+    """Plain PyTorch version of B2: ``dx = dz*scale[c] + x*cx[c] +
+    c0[c]`` in fp32 (``dz*scale`` alone without cx/c0), rounded to
+    ``x.dtype``; channels on axis 1."""
+    with torch.no_grad():
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dx = _masked(dxhat, xhat) * scale.float().reshape(shape)
+        if cx is not None:
+            dx = dx + x.float() * cx.float().reshape(shape) \
+                + c0.float().reshape(shape)
+        return dx.to(x.dtype)
+
+
+def bn_backward_dx(dxhat, x, xhat, scale, cx=None, c0=None):
+    """The BN backward's dx: ``dz*scale[c] + x*cx[c] + c0[c]`` with
+    ``dz = dxhat * [xhat > 0]`` (``xhat`` None: no ReLU), in x's dtype;
+    without ``cx``/``c0`` (moving statistics, or ``bn_relu_matmul``) it
+    is ``dz*scale`` and x is not read. Tensors NCHW or row-major (M, K),
+    channels on axis 1; ``scale``/``cx``/``c0`` fp32 (C,). On CUDA: the
+    Triton kernel (contiguous tensors; x and xhat float32 or bfloat16 in
+    one dtype, dxhat in that dtype or float32); on CPU: the plain
+    version."""
+    ts = (dxhat, x) + ((xhat,) if xhat is not None else ())
+    c = x.shape[1] if x.dim() >= 2 else -1
+    coefs = (scale,) + ((cx, c0) if cx is not None else ())
+    if any(t.shape != x.shape for t in ts) or x.dim() not in (2, 4) \
+            or any(v.shape != (c,) for v in coefs):
+        raise MXNetError(f"bn_backward_dx: shapes "
+                         f"{[tuple(t.shape) for t in ts + coefs]} do not "
+                         "fit NCHW or (M, K) tensors and (C,) coefficients")
+    if _plain_device(x):
+        return bn_backward_dx_plain(dxhat, x, xhat, scale, cx, c0)
+    _check_cuda("bn_backward_dx", x, ts[2:], _KERNEL_DTYPES)
+    _check_dxhat("bn_backward_dx", dxhat, x)
+    _check_cuda("bn_backward_dx", scale, coefs[1:], {torch.float32: 0})
+    if scale.device != x.device:
+        raise MXNetError(f"bn_backward_dx: tensors on {scale.device} and "
+                         f"{x.device}")
+    out = torch.empty_like(x)
+    if x.numel():
+        from ..kernels import bn_backward_triton
+        s = x.shape[2] * x.shape[3] if x.dim() == 4 else 1
+        with _on_device(x.device):
+            bn_backward_triton.launch_dx(dxhat, x, xhat, scale, cx, c0, out,
+                                         c, s)
+        bn_backward_dx.launches += 1
+    return out
+
+
+bn_backward_dx.launches = 0
+
+_WRAPPERS = (bn_relu_conv_nchw, bn_act_prologue, bn_relu_matmul_fwd,
+             bn_backward_reduce, bn_backward_dx)
 
 
 def reset_launch_counts():
@@ -238,18 +440,184 @@ def launch_counts():
 
 
 # ---------------------------------------------------------------------------
-# the graph ops
+# bn_relu_matmul: K3 with the JAX package's custom VJP
 # ---------------------------------------------------------------------------
-def _fold(gamma, beta, mean, var, eps, fix_gamma, training,
-          use_global_stats):
-    """(scale, shift) from the moving statistics, in the params' dtype,
-    as the JAX ops' ``fold`` (batch statistics belong to the training
-    slice)."""
-    if training and not use_global_stats:
-        raise NotImplementedError("training comes in the next slice")
+class _BNReLUMatmul(torch.autograd.Function):
+    """``_fused_matmul``'s custom VJP (pallas_fused.py:294-310): raw
+    inputs saved, the normalised activation recomputed in backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, relu):
+        ctx.relu = relu
+        ctx.save_for_backward(x, w, scale, shift)
+        return bn_relu_matmul_fwd(x, w, scale, shift, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, shift = ctx.saved_tensors
+        relu = ctx.relu
+        m, k = x.shape
+        xhat = bn_act_prologue(x.reshape(m, k, 1, 1), scale, shift,
+                               relu).reshape(m, k)
+        # both products take x.dtype operands to fp32 results, as the
+        # JAX package's preferred_element_type=float32: dxhat reaches B1
+        # and B2 unrounded
+        g = g.to(x.dtype).float()
+        dxhat = torch.matmul(g, w.to(x.dtype).float().t())
+        mask = xhat if relu else None
+        s = bn_backward_reduce(dxhat, x, mask)
+        dx = bn_backward_dx(dxhat, x, mask, scale.float())
+        dw = torch.matmul(xhat.float().t(), g).to(w.dtype)
+        return dx, dw, s[1].to(scale.dtype), s[0].to(scale.dtype), None
+
+
+def bn_relu_matmul(x, w, scale, shift, bm=None, bn=None, relu=True):
+    """``act(x * scale + shift) @ w`` without materialising the
+    normalised activation (the fused forward is K3). x: (M, K); w:
+    (K, N); scale/shift: (K,) — the folded BN parameters
+    gamma/sqrt(var+eps) and beta - mu*scale.
+
+    ``bm``/``bn`` are the TPU kernel's output tiles and keep its rule:
+    by default the largest multiple-of-8 candidate that divides M / N,
+    an explicit one must divide M / N, else ``ValueError``. The CUDA
+    kernel has its own tiling and masks every edge, so the rule only
+    keeps the API the JAX package's. Differentiable: the JAX package's
+    custom VJP (normalised activation recomputed in the backward)."""
+    m, k = x.shape
+    n = w.shape[1]
+    if bm is None:
+        bm = next((c for c in _BM_CANDIDATES if m % c == 0), None)
+        if bm is None:
+            raise ValueError(
+                f"bn_relu_matmul: no tile candidate divides M={m} "
+                "(must be divisible by 8); pad the problem or pass an "
+                "explicit bm")
+    if bn is None:
+        bn = next((c for c in _BN_CANDIDATES if n % c == 0), None)
+        if bn is None:
+            raise ValueError(
+                f"bn_relu_matmul: no tile candidate divides N={n} "
+                "(must be divisible by 8); pad the problem or pass an "
+                "explicit bn")
+    if m % bm or n % bn:
+        raise ValueError(
+            f"bn_relu_matmul needs M % bm == 0 and N % bn == 0 "
+            f"(got M={m}, N={n}, bm={bm}, bn={bn}); pad the problem or "
+            "pass smaller blocks — a truncated grid would leave output "
+            "tiles uninitialized")
+    return _BNReLUMatmul.apply(x, w, scale, shift, bool(relu))
+
+
+# ---------------------------------------------------------------------------
+# the graph ops: BN(+ReLU)+conv with the analytic fused BN backward
+# ---------------------------------------------------------------------------
+def _fold(gamma, beta, mean, var, eps, fix_gamma):
+    """(scale, shift) in the params' dtype, as the JAX ops' ``fold``."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
     scale = g * torch.rsqrt(var + eps)
     return scale, beta - mean * scale
+
+
+def _conv_geometry(stride, pad, dilate, num_group):
+    return (_tup(stride, 2) or (1, 1), _tup(pad, 2) or (0, 0),
+            _tup(dilate, 2) or (1, 1), int(num_group or 1))
+
+
+class _FusedBNConv(torch.autograd.Function):
+    """Whole-op custom VJP of ``_FusedBNReLUConv`` (``geom`` None: the
+    1x1 conv on K1) and ``_FusedBNReLUConvK`` (``geom`` = (stride, pad,
+    dilate, groups): K2 then the convolution) — pallas_fused.py
+    ``_fused_bn_conv_vjp`` :455 and ``_fused_bn_convk_vjp`` :552.
+    Inputs (x, gamma, beta, moving_mean, moving_var, weight); outputs
+    (out, mean, var) with batch statistics, else (out,) — the op returns
+    the moving statistics itself. The running-statistics inputs take no
+    gradient (aux states are not differentiated)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, mm, mv, w, relu, batch_stats,
+                fix_gamma, eps, geom):
+        if batch_stats:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        else:
+            mean, var = mm, mv
+        scale, shift = _fold(gamma, beta, mean, var, eps, fix_gamma)
+        sc, sh = scale.to(x.dtype), shift.to(x.dtype)
+        if geom is None:
+            out = bn_relu_conv_nchw(x, w.reshape(w.shape[0], x.shape[1]),
+                                    sc, sh, relu=relu)
+        else:
+            stride, pad, dilate, groups = geom
+            xhat = bn_act_prologue(x, sc, sh, relu=relu)
+            out = F.conv2d(xhat, w, None, stride=stride, padding=pad,
+                           dilation=dilate, groups=groups).to(x.dtype)
+        # raw-input residuals only: xhat recomputes in backward
+        ctx.save_for_backward(x, gamma, beta, mean, var, w)
+        ctx.cfg = (relu, batch_stats, fix_gamma, eps, geom)
+        ctx.set_materialize_grads(False)
+        return (out, mean, var) if batch_stats else out
+
+    @staticmethod
+    def backward(ctx, g_out, g_mean=None, g_var=None):
+        x, gamma, beta, mean, var, w = ctx.saved_tensors
+        relu, batch_stats, fix_gamma, eps, geom = ctx.cfg
+        if g_out is None:
+            g_out = torch.zeros((), dtype=x.dtype, device=x.device)
+        b, c, h, wd = x.shape
+        n = b * h * wd
+        scale, shift = _fold(gamma, beta, mean, var, eps, fix_gamma)
+        xhat = bn_act_prologue(x, scale.to(x.dtype), shift.to(x.dtype),
+                               relu=relu)
+        stride, pad, dilate, groups = geom or ((1, 1), (0, 0), (1, 1), 1)
+        w4 = w.reshape(w.shape[0], c, 1, 1) if geom is None else w
+        out_shape = (b, w.shape[0]) + tuple(
+            (hw + 2 * p - d * (k - 1) - 1) // s + 1
+            for hw, p, d, k, s in zip((h, wd), pad, dilate, w4.shape[2:],
+                                      stride))
+        dxhat, dw4, _ = torch.ops.aten.convolution_backward(
+            g_out.to(x.dtype).expand(out_shape).contiguous(), xhat,
+            w4.to(x.dtype), None, list(stride), list(pad), list(dilate),
+            False, [0, 0], groups, [True, True, False])
+        mask = xhat if relu else None
+        s0, s1 = bn_backward_reduce(dxhat, x, mask)
+        meanf, varf = mean.float(), var.float()
+        inv = torch.rsqrt(varf + eps)
+        t = s1 - meanf * s0
+        dbeta = s0.to(beta.dtype)
+        dgamma = torch.zeros_like(gamma) if fix_gamma \
+            else (t * inv).to(gamma.dtype)
+        scf = scale.float()
+        if batch_stats:
+            # analytic training-mode dx in one pass, with the (usually
+            # absent) cotangents of the mean/var outputs folded into the
+            # same coefficients
+            g_eff = 1.0 if fix_gamma else gamma.float()
+            coef = g_eff * inv ** 3 * t / n
+            cx = -coef
+            c0 = (-scf * s0 + coef * meanf * n) / n
+            if g_mean is not None:
+                c0 = c0 + g_mean.float() / n
+            if g_var is not None:
+                cx = cx + 2.0 * g_var.float() / n
+                c0 = c0 - 2.0 * meanf * g_var.float() / n
+            dx = bn_backward_dx(dxhat, x, mask, scf, cx.contiguous(),
+                                c0.contiguous())
+        else:
+            dx = bn_backward_dx(dxhat, x, mask, scf)
+        return (dx, dgamma, dbeta, None, None, dw4.reshape(w.shape)
+                .to(w.dtype), None, None, None, None, None)
+
+
+def _fused_op(data, gamma, beta, moving_mean, moving_var, weight, bias,
+              eps, fix_gamma, use_global_stats, act_type, no_bias,
+              training, geom):
+    batch_stats = bool(training) and not use_global_stats
+    res = _FusedBNConv.apply(data, gamma, beta, moving_mean, moving_var,
+                             weight.to(data.dtype), act_type == "relu",
+                             batch_stats, bool(fix_gamma), float(eps), geom)
+    out, mean, var = res if batch_stats else (res, moving_mean, moving_var)
+    if not no_bias and bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+    return out.to(data.dtype), mean, var
 
 
 @register_op("_FusedBNReLUConvK", num_outputs=3)
@@ -262,20 +630,13 @@ def fused_bn_relu_conv_general(data, gamma, beta, moving_mean, moving_var,
                                training=False, **kw):
     """BatchNorm -> [Activation(relu) ->] Convolution of any geometry as
     one op (substituted by the residual_fusion pass): the K2 prologue,
-    then ``F.conv2d`` with the node's stride, pad, dilate and groups.
-    Returns (out, mean, var) like BatchNorm."""
-    scale, shift = _fold(gamma, beta, moving_mean, moving_var, float(eps),
-                         fix_gamma, training, use_global_stats)
-    xhat = bn_act_prologue(data, scale.to(data.dtype), shift.to(data.dtype),
-                           relu=act_type == "relu")
-    out = F.conv2d(xhat, weight.to(data.dtype), None,
-                   stride=_tup(stride, 2) or (1, 1),
-                   padding=_tup(pad, 2) or (0, 0),
-                   dilation=_tup(dilate, 2) or (1, 1),
-                   groups=int(num_group or 1))
-    if not no_bias and bias is not None:
-        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
-    return out.to(data.dtype), moving_mean, moving_var
+    then the convolution with the node's stride, pad, dilate and groups;
+    the analytic fused BN backward. Returns (out, mean, var) like
+    BatchNorm; ``momentum`` is consumed by the running-stat fold."""
+    return _fused_op(data, gamma, beta, moving_mean, moving_var, weight,
+                     bias, eps, fix_gamma, use_global_stats, act_type,
+                     no_bias, training,
+                     _conv_geometry(stride, pad, dilate, num_group))
 
 
 @register_op("_FusedBNReLUConv", num_outputs=3)
@@ -284,14 +645,8 @@ def fused_bn_relu_conv(data, gamma, beta, moving_mean, moving_var, weight,
                        use_global_stats=False, act_type="relu", axis=1,
                        num_filter=None, no_bias=True, training=False, **kw):
     """BatchNorm -> Activation(relu) -> Convolution(1x1/s1/p0) as one op
-    (substituted by the pallas_fusion pass), carried by K1. Returns
-    (conv_out, mean, var) like BatchNorm."""
-    o, c = weight.shape[0], data.shape[1]
-    scale, shift = _fold(gamma, beta, moving_mean, moving_var, float(eps),
-                         fix_gamma, training, use_global_stats)
-    out = bn_relu_conv_nchw(data, weight.reshape(o, c).to(data.dtype),
-                            scale.to(data.dtype), shift.to(data.dtype),
-                            relu=act_type == "relu")
-    if not no_bias and bias is not None:
-        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
-    return out.to(data.dtype), moving_mean, moving_var
+    (substituted by the pallas_fusion pass), carried by K1; the analytic
+    fused BN backward. Returns (conv_out, mean, var) like BatchNorm."""
+    return _fused_op(data, gamma, beta, moving_mean, moving_var, weight,
+                     bias, eps, fix_gamma, use_global_stats, act_type,
+                     no_bias, training, None)

@@ -6,6 +6,7 @@ op's (argument input names, auxiliary input names). Auxiliary inputs
 OP_INPUTS = {
     "FullyConnected": (["data", "weight", "bias"], []),
     "Convolution": (["data", "weight", "bias"], []),
+    "conv_s2d_stem": (["data", "weight"], []),
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
     "SoftmaxOutput": (["data", "label"], []),
     "Softmax": (["data", "label"], []),

@@ -4,10 +4,11 @@
 The same DAG of ``_Node`` objects as the JAX package, with the same
 composition, naming, argument/auxiliary lists and JSON format, so a
 symbol saved by either package loads in the other. Shape inference runs
-each op on ``meta`` tensors (the JAX package uses ``jax.eval_shape``),
-and ``eval_arrays`` is the eval-mode graph walk over torch tensors.
-Binding, executors, segmented evaluation and the BatchNorm running-stat
-fold belong to the training slice.
+each op on ``meta`` tensors (the JAX package uses ``jax.eval_shape``).
+``eval_arrays`` is the eval-mode graph walk over torch tensors;
+``eval_arrays_ex`` walks in either mode and returns the BatchNorm
+running-statistics fold (``_bn_aux_updates``) beside the outputs.
+Executors, segmented evaluation and device placement are not ported.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from .op_info import op_input_names
 __all__ = ["Symbol", "var", "Variable", "Group", "load_json"]
 
 _node_uid = itertools.count()
+# ops whose result depends on the walk's mode (batch statistics)
+_TRAINING_AWARE = ("BatchNorm", "_FusedBNReLUConv", "_FusedBNReLUConvK")
 
 
 class _Node:
@@ -128,29 +131,67 @@ class Symbol:
     def _output_symbols(self):
         return list(self._group) if self._group is not None else [self]
 
+    def attr_dict(self):
+        """{node_name: attrs} of the user attributes over the graph
+        (``__lr_mult__``, ``__wd_mult__``, ...)."""
+        return {node.name: {k: str(v) for k, v in node.user_attrs.items()}
+                for node in self._topo_nodes() if node.user_attrs}
+
     # -- evaluation ----------------------------------------------------------
     @staticmethod
-    def _apply_node_op(node, ins):
-        """Dispatch one op node on its input values; returns a tuple."""
+    def _apply_node_op(node, ins, training=False):
+        """Dispatch one op node on its input values; returns (outputs
+        tuple, the attributes the op was called with)."""
         opdef = get_op(node.op)
         attrs = node.op_attrs()
+        if node.op in _TRAINING_AWARE:
+            attrs = dict(attrs, training=training)
         innames = node.attrs.get("__input_names__")
         if innames:
             res = opdef.fn(**dict(zip(parse_attr(innames), ins)), **attrs)
         else:
             res = opdef.fn(*ins, **attrs)
-        return res if isinstance(res, tuple) else (res,)
+        return (res if isinstance(res, tuple) else (res,)), attrs
 
-    def eval_arrays(self, arg_arrays, preset=None):
-        """Evaluate the outputs in eval mode (moving statistics) from
-        tensors for every variable — the counterpart of the JAX
-        ``eval_arrays_ex`` walk.
+    @staticmethod
+    def _bn_aux_updates(node, outs, attrs, training, resolve_var):
+        """[(aux var name, new value)]: the BatchNorm running-statistics
+        fold ``momentum*old + (1-momentum)*batch_stat`` (the functional
+        form of the reference's in-place aux update). ``resolve_var(p)``
+        gives the variable's current value. The fused ops mirror
+        BatchNorm's layout — moving statistics at input positions 3/4,
+        batch statistics at outputs 1/2 — so the fold applies to them
+        unchanged. The statistics are taken detached: the fold is not
+        differentiated."""
+        if not training or node.op not in _TRAINING_AWARE \
+                or attrs.get("use_global_stats"):
+            return []
+        momentum = attrs.get("momentum", 0.9)
+        ups = []
+        for pos, stat_idx in ((3, 1), (4, 2)):
+            p, _ = node.inputs[pos]
+            if p.op is None:
+                old = resolve_var(p)
+                ups.append((p.name, momentum * old
+                            + (1 - momentum) * outs[stat_idx].detach()))
+        return ups
 
-        ``preset``: optional ``{(id(node), out_idx): value}`` seed for the
-        evaluation cache; a preset output short-circuits its subgraph, so
-        variables only reachable through it need not be in
-        ``arg_arrays``."""
+    def eval_arrays_ex(self, arg_arrays, training=False, preset=None,
+                       capture=()):
+        """Evaluate the outputs from tensors for every variable; returns
+        ``(outputs, aux_updates, captured)``.
+
+        ``training`` reaches the training-aware ops (BatchNorm and the
+        fused ops take batch statistics); ``aux_updates`` maps each aux
+        variable to its folded running statistic (empty in eval mode).
+        ``preset``: optional ``{(id(node), out_idx): value}`` seed for
+        the evaluation cache; a preset output short-circuits its
+        subgraph, so variables only reachable through it need not be in
+        ``arg_arrays``. ``capture``: (node, out_idx) pairs whose values
+        are returned in ``captured``, in order (the implicit-loss heads'
+        inputs)."""
         cache = dict(preset) if preset else {}
+        aux_updates = {}
 
         def node_out(node, idx):
             key = (id(node), idx)
@@ -163,12 +204,28 @@ class Symbol:
                 cache[key] = arg_arrays[node.name]
                 return cache[key]
             ins = [node_out(p, i) for p, i in node.inputs]
-            for i, o in enumerate(Symbol._apply_node_op(node, ins)):
+            outs, attrs = Symbol._apply_node_op(node, ins, training)
+            for i, o in enumerate(outs):
                 cache[(id(node), i)] = o
+            aux_updates.update(Symbol._bn_aux_updates(
+                node, outs, attrs, training, lambda p: node_out(p, 0)))
             return cache[key]
 
-        return [node_out(s._node, s._out_index)
-                for s in self._output_symbols()]
+        outputs = [node_out(s._node, s._out_index)
+                   for s in self._output_symbols()]
+        captured = [node_out(n, i) for n, i in capture]
+        # node_out is a recursive closure, so it and its cell form a
+        # reference cycle that outlives this call until the cyclic
+        # collector runs; emptying the cache keeps that cycle from
+        # holding every intermediate tensor (and, in training, the
+        # autograd graph) alive past the step
+        cache.clear()
+        return outputs, aux_updates, captured
+
+    def eval_arrays(self, arg_arrays, preset=None):
+        """Evaluate the outputs in eval mode (moving statistics) — see
+        ``eval_arrays_ex``."""
+        return self.eval_arrays_ex(arg_arrays, preset=preset)[0]
 
     # -- shape inference ------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -227,7 +284,7 @@ class Symbol:
             metas = [torch.empty(s, dtype=torch.float32, device="meta")
                      for s in in_shapes]
             try:
-                outs = Symbol._apply_node_op(node, metas)
+                outs, _ = Symbol._apply_node_op(node, metas)
             except (RuntimeError, ValueError, TypeError, IndexError,
                     KeyError, MXNetError):
                 return  # unresolved, as the JAX walk leaves it
