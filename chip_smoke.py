@@ -40,7 +40,38 @@ script exits non-zero and prints no result. Phases:
    fp32 backward, K1 in the bf16 forward) that the checks must reject;
    then 3 warm-up and 20 timed steps over 4 staged batches with the
    launches per step of every kernel, memory and each step's loss.
-8. the kernels line, then the result line.
+8. rtc_build: the user's CUDA C++ kernels (K4, the user-kernel hook)
+   compiled at run time through ``rtc.CudaModule``, with the ptxas
+   report; the user's Triton kernel is compiled at its first launch.
+9. K4 kernels: ``double``, ``scale3`` (CUDA and Triton) and the
+   softmax cross-entropy forward and backward, each launched through
+   ``operator.UserKernel`` and held against its plain version at the
+   path's shapes and at a large shape, with times beside the plain
+   version's, a library call's and the bound; then the same kernels
+   through ``nd.<name>`` and ``autograd.record()`` / ``backward()``.
+10. gluon_forward: the Gluon ResNet-50 v1 of ``__graft_entry__.entry()``
+   (Xavier init from seed 0, hybridized) at batch 8 on the card, against
+   the port's forward of the same weights on the CPU.
+11. gluon_train_check: one training step at batch 64 whose loss is the
+   user's softmax cross-entropy through K4, against the same step with
+   ``gluon.loss.SoftmaxCrossEntropyLoss``: the loss, the logits'
+   gradient and every parameter's gradient; a fault probe (the kernels'
+   sums skip the last column) must fail the check.
+12. gluon_trainer_check: two ``Trainer.step(64)`` with the K4 loss,
+   every parameter and its momentum against the plain SGD rule (fp64,
+   momentum carried by the rule) applied to the same gradients; two
+   fault probes (a Trainer whose momentum was not carried over, one
+   whose wd was dropped) must fail it.
+13. gluon_train_speed: warm-up steps (the two checked ones included),
+   then 10 timed steps of ``autograd.record()`` / ``backward()`` /
+   ``Trainer.step(64)`` over one repeated batch, with the K4 loss: img/s,
+   ms per step, memory, the losses (they must fall: the last below the
+   first, all below the initial loss) and K4's launches per step (the
+   loss's forward and backward).
+14. the kernels line, then the result line.
+
+fp32 convolutions and matrix products run without TF32 throughout
+(phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
 """
 import gc
 import json
@@ -112,6 +143,229 @@ BF16_VS_PLAIN_BF16_LIMITS = {"aux_rel_err_worst": 0.03}
 # breaks K1 call FAULT_SITE of the forward, as the serving probe does
 FAULT_B2_CALL = 1
 TRAIN_BATCH = 128
+# The Gluon path (phases 10-12): the forward at batch 8 on the card
+# against the CPU, max |error| over max |CPU logit|, fp32 without TF32
+# (cuDNN and the CPU sum in other orders: expect ~1e-6). The training
+# step at batch 64 with the K4 loss against SoftmaxCrossEntropyLoss, with
+# deterministic cuDNN so both forwards are the same: the loss (max |err|
+# over max |loss|), the logits' gradient and each parameter's gradient
+# (relative L2; a parameter's floor is 1e-6 of the largest gradient's
+# norm, for the conv biases in front of a BatchNorm, whose gradient is
+# rounding noise about 0). Expected readings: ~1e-7 (the kernel's expf
+# and its sum order against torch's); the fault probe (sums without the
+# last of 1000 columns) moves the loss by about 1/1000 of a row's
+# log-sum-exp scale, ~1.4e-4 relative.
+GLUON_FWD_REL_LIMIT = 1e-4
+GLUON_STEP_LIMITS = {"loss_rel_err": 1e-5, "logits_grad_rel_l2": 1e-5,
+                     "param_grad_rel_l2_worst": 1e-4}
+GLUON_BATCH = 64
+GLUON_STEPS = 10
+GLUON_HP = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# Trainer.step at batch 64 against the plain SGD rule in fp64 from the
+# same weights and gradients, momentum carried by the rule itself:
+# relative L2 per parameter of the new weights (fp32 storage rounds them
+# by ~6e-8) and of the momenta (a few fp32 roundings of each term,
+# ~1e-7). Dropping wd moves the weights by lr*wd = 1e-5 relative.
+SGD_W_REL_LIMIT = 1e-6
+SGD_MOM_REL_LIMIT = 1e-5
+# warm-up steps before the timed ones (the 2 checked steps included): at
+# lr 0.1 and momentum 0.9 from Xavier init, the loss on one batch of 64
+# swings up to ~11 over the first ~12 steps and then falls step by step
+# (three runs on an H100: 7.5, 5.5, 7.6 ... 10.8-11.8 ... then from
+# step 13 on falling each step, to 1.7-2.7 at step 40)
+GLUON_WARMUP = 15
+NUM_CLASSES = 1000
+LARGE_ELEMWISE = (64, 2048, 1024)
+# K4's softmax CE against its plain version, logits 3*N(0,1) over 1000
+# classes: losses of 5-15 within 1e-4 (1e-5 relative: expf and the sum
+# order against torch's logsumexp); gradients (|g| <= |ct| ~ 3) within
+# 4e-6
+K4_CE_FWD_TOL = 1e-4
+K4_CE_BWD_TOL = 4e-6
+LARGE_CE_ROWS = 65536
+K4_REPLACES = ("mxnet_tpu/operator.py:211-240 (PallasKernel._call_arrays; "
+               "pallas_call :222), register_pallas :249-264, "
+               "rtc.PallasModule mxnet_tpu/rtc.py:16-36")
+
+
+# ---------------------------------------------------------------------------
+# K4, the user-kernel hook: a user's own kernels. They belong to the
+# user, not to the package, so they live here as the source strings a
+# user would hand to rtc.CudaModule, each with its plain PyTorch version.
+# NUM_CLASSES is compiled in (-DNUM_CLASSES=C): the hook's calling
+# convention passes only the pointers and the output's element count.
+# ---------------------------------------------------------------------------
+USER_CUDA_SRC = r"""
+#include <math.h>
+#ifndef NUM_CLASSES
+#define NUM_CLASSES 1000
+#endif
+#ifndef SKIP_LAST            // the fault probe: sums skip the last column
+#define SKIP_LAST 0
+#endif
+
+extern "C" __global__ void double_kernel(const float* x, float* out,
+                                         long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i] * 2.0f;
+}
+
+extern "C" __global__ void scale3_kernel(const float* x, float* out,
+                                         long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i] * 3.0f;
+}
+
+__device__ float warp_max(float v) {
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+__device__ float warp_sum(float v) {
+    for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// block-wide reductions (blockDim a multiple of 32, at most 1024):
+// each warp reduces with shuffles, warp 0 reduces the warps' results
+__device__ float block_max(float v) {
+    __shared__ float sh[32];
+    int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    v = warp_max(v);
+    if (lane == 0) sh[w] = v;
+    __syncthreads();
+    if (w == 0) {
+        v = lane < (int)(blockDim.x >> 5) ? sh[lane] : -INFINITY;
+        v = warp_max(v);
+        if (lane == 0) sh[0] = v;
+    }
+    __syncthreads();
+    v = sh[0];
+    __syncthreads();
+    return v;
+}
+
+__device__ float block_sum(float v) {
+    __shared__ float sh[32];
+    int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    v = warp_sum(v);
+    if (lane == 0) sh[w] = v;
+    __syncthreads();
+    if (w == 0) {
+        v = lane < (int)(blockDim.x >> 5) ? sh[lane] : 0.0f;
+        v = warp_sum(v);
+        if (lane == 0) sh[0] = v;
+    }
+    __syncthreads();
+    v = sh[0];
+    __syncthreads();
+    return v;
+}
+
+// the row's max and sum of exp(x - max), one block per row
+__device__ void row_stats(const float* x, float* m_out, float* s_out) {
+    float m = -INFINITY;
+    for (int j = threadIdx.x; j < NUM_CLASSES; j += blockDim.x)
+        m = fmaxf(m, x[j]);
+    m = block_max(m);
+    float s = 0.0f;
+    for (int j = threadIdx.x; j < NUM_CLASSES - SKIP_LAST; j += blockDim.x)
+        s += expf(x[j] - m);
+    *m_out = m;
+    *s_out = block_sum(s);
+}
+
+// loss[b] = logsumexp(logits[b]) - logits[b, label[b]]; n = B
+extern "C" __global__ void softmax_ce_fwd(const float* logits,
+                                          const float* label, float* loss,
+                                          long long n) {
+    long long row = blockIdx.x;
+    if (row >= n) return;
+    const float* x = logits + row * NUM_CLASSES;
+    float m, s;
+    row_stats(x, &m, &s);
+    if (threadIdx.x == 0) loss[row] = m + logf(s) - x[(int)label[row]];
+}
+
+// dx[b, j] = ct[b] * (softmax(logits[b])[j] - (j == label[b])); n = B*C
+extern "C" __global__ void softmax_ce_bwd(const float* logits,
+                                          const float* label,
+                                          const float* ct, float* dx,
+                                          long long n) {
+    long long row = blockIdx.x;
+    if (row * NUM_CLASSES >= n) return;
+    const float* x = logits + row * NUM_CLASSES;
+    float m, s;
+    row_stats(x, &m, &s);
+    float g = ct[row], inv = 1.0f / s;
+    int lab = (int)label[row];
+    for (int j = threadIdx.x; j < NUM_CLASSES; j += blockDim.x)
+        dx[row * NUM_CLASSES + j] =
+            g * (expf(x[j] - m) * inv - (j == lab ? 1.0f : 0.0f));
+}
+"""
+USER_CUDA_KERNELS = ("double_kernel", "scale3_kernel", "softmax_ce_fwd",
+                     "softmax_ce_bwd")
+
+
+def triton_scale3():
+    """The user's Triton kernel: out = 3 * x, BLOCK elements a program."""
+    import triton
+    import triton.language
+    globals()["tl"] = triton.language   # the kernel body reads tl
+
+    @triton.jit
+    def scale3_triton(x_ptr, out_ptr, n, BLOCK: tl.constexpr):  # noqa: F821
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)  # noqa: F821
+        mask = offs < n
+        x = tl.load(x_ptr + offs, mask=mask)  # noqa: F821
+        tl.store(out_ptr + offs, x * 3.0, mask=mask)  # noqa: F821
+
+    return scale3_triton
+
+
+def double_plain(x):
+    return x * 2.0
+
+
+def scale3_plain(x):
+    return x * 3.0
+
+
+def softmax_ce_plain(logits, label):
+    """(B,) = logsumexp(row) - row[label], fp32."""
+    import torch
+    picked = logits.gather(1, label.long()[:, None])[:, 0]
+    return torch.logsumexp(logits, dim=1) - picked
+
+
+def softmax_ce_bwd_plain(logits, label, ct):
+    """(B, C) = ct[b] * (softmax - onehot)."""
+    import torch
+    p = torch.softmax(logits, dim=1)
+    onehot = torch.zeros_like(p).scatter_(1, label.long()[:, None], 1.0)
+    return ct[:, None] * (p - onehot)
+
+
+def register_softmax_ce(mt, fwd_kernel, bwd_kernel, name="softmax_ce"):
+    """The user's softmax cross-entropy as an op ``nd.<name>``: forward
+    ``fwd_kernel`` (one block of 256 threads per row), backward
+    ``bwd_kernel`` through a second UserKernel launched from the VJP.
+    Returns (forward op, backward op)."""
+    import torch
+    bwd = mt.operator.UserKernel(
+        bwd_kernel, out_shape=lambda s: s[0], name=name + "_bwd",
+        grid=lambda s: s[0][0], block=256, plain=softmax_ce_bwd_plain)
+
+    def vjp(ct, logits, label):
+        return bwd(logits, label, ct.contiguous()), torch.zeros_like(label)
+
+    fwd = mt.operator.register_kernel(
+        name, fwd_kernel, out_shape=lambda s: (s[0][0],),
+        grid=lambda s: s[0][0], block=256, vjp=vjp, plain=softmax_ce_plain)
+    return fwd, bwd
 
 
 def emit(obj):
@@ -788,6 +1042,453 @@ def training_phase(mt, torch, np, smi):
     return launches, n_steps
 
 
+def k4_build(mt):
+    """Phase 8: compile the user's CUDA source through rtc.CudaModule,
+    the real one and the fault probe's, one nvcc each, in parallel."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    mods = {"main": mt.rtc.CudaModule(
+                USER_CUDA_SRC, options=(f"-DNUM_CLASSES={NUM_CLASSES}",)),
+            "probe": mt.rtc.CudaModule(
+                USER_CUDA_SRC, options=(f"-DNUM_CLASSES={NUM_CLASSES}",
+                                        "-DSKIP_LAST=1"))}
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+        list(ex.map(lambda m: m.compile(), mods.values()))
+    fns = {k: {n: m.get_function(n) for n in USER_CUDA_KERNELS}
+           for k, m in mods.items()}
+    emit({"phase": "rtc_build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": {k: m.compile_seconds for k, m in mods.items()},
+          "cubins": {k: m.cubin for k, m in mods.items()},
+          "ptxas": {k: [ln.strip() for ln in m.ptxas_log().splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "Compiling" in ln]
+                    for k, m in mods.items()}})
+    return fns
+
+
+def k4_register(mt, fns, triton_kernel):
+    """The user's ops: nd.user_double, nd.user_scale3 (CUDA),
+    nd.user_scale3_triton, each differentiable through a VJP that
+    launches the same kernel on the cotangent, and nd.softmax_ce (and its
+    fault-probe twin nd.softmax_ce_probe)."""
+    same = lambda s: s[0]  # noqa: E731
+    ops = {}
+    for name, kernel, plain in (
+            ("user_double", fns["main"]["double_kernel"], double_plain),
+            ("user_scale3", fns["main"]["scale3_kernel"], scale3_plain),
+            ("user_scale3_triton", triton_kernel, scale3_plain)):
+        def vjp(ct, x, _name=name):
+            return (ops[_name](ct.contiguous()),)
+        ops[name] = mt.operator.register_kernel(name, kernel, same, vjp=vjp,
+                                                plain=plain)
+    ops["softmax_ce"], ops["softmax_ce_bwd"] = register_softmax_ce(
+        mt, fns["main"]["softmax_ce_fwd"], fns["main"]["softmax_ce_bwd"])
+    ops["softmax_ce_probe"], ops["softmax_ce_probe_bwd"] = \
+        register_softmax_ce(mt, fns["probe"]["softmax_ce_fwd"],
+                            fns["probe"]["softmax_ce_bwd"],
+                            name="softmax_ce_probe")
+    return ops
+
+
+def k4_case(torch, name, route, op, plain, library, ins, nbytes, tol,
+            what):
+    """One user kernel through the hook against its plain version:
+    errors, device ms beside the plain version's and the library
+    call's, and the bytes bound."""
+    got = op(*ins)
+    torch.cuda.synchronize()
+    ref = plain(*ins)
+    err = float((got - ref).abs().max())
+    bound, by = bound_ms(nbytes, 0, "float32")
+    row = {"phase": "kernel", "kernel": name, "route": route, "what": what,
+           "shapes": [list(t.shape) for t in ins], "dtype": "float32",
+           "max_abs_err": err, "tolerance": tol,
+           "ms": time_ms(lambda: op(*ins)),
+           "plain_ms": time_ms(lambda: plain(*ins)),
+           "library_ms": time_ms(lambda: library(*ins))
+           if library is not None else None,
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+    emit(row)
+    check(err <= tol, f"{name} ({what}) against its plain version: {err}")
+    return row
+
+
+def k4_phase(mt, torch, np, ops):
+    """Phase 9: each user kernel against its plain version, then through
+    nd.<name> and autograd."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import autograd, nd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    rows = {}
+    for shape, what in (((2, 4), "test shape"),
+                        (LARGE_ELEMWISE, "large elementwise")):
+        x = randn(*shape)
+        n = x.numel()
+        for name, route, plain, lib in (
+                ("user_double", "cuda", double_plain, lambda t: t * 2),
+                ("user_scale3", "cuda", scale3_plain, lambda t: t * 3),
+                ("user_scale3_triton", "triton", scale3_plain,
+                 lambda t: t * 3)):
+            rows[(name, what)] = k4_case(torch, name, route, ops[name],
+                                         plain, lib, [x], 8 * n, 0.0, what)
+        del x
+
+    def ce_lib(logits, label):
+        return F.cross_entropy(logits, label.long(), reduction="none")
+
+    for rows_n, what in ((GLUON_BATCH, "path shape"),
+                         (LARGE_CE_ROWS, "large")):
+        logits = randn(rows_n, NUM_CLASSES) * 3
+        label = torch.randint(0, NUM_CLASSES, (rows_n,), device="cuda",
+                              generator=gen).float()
+        ct = randn(rows_n)
+        nb = rows_n * NUM_CLASSES * 4
+        rows[("softmax_ce_fwd", what)] = k4_case(
+            torch, "softmax_ce_fwd", "cuda", ops["softmax_ce"],
+            softmax_ce_plain, ce_lib, [logits, label],
+            nb + 8 * rows_n, K4_CE_FWD_TOL, what)
+        rows[("softmax_ce_bwd", what)] = k4_case(
+            torch, "softmax_ce_bwd", "cuda", ops["softmax_ce_bwd"],
+            softmax_ce_bwd_plain, None, [logits, label, ct],
+            2 * nb + 12 * rows_n, K4_CE_BWD_TOL, what)
+        del logits, label, ct
+
+    # through nd.<name> and autograd.record() / backward()
+    counted = [ops[k] for k in ("user_double", "user_scale3",
+                                "user_scale3_triton")]
+    for op in counted:
+        op.launches = 0
+    xs = np.random.default_rng(SEED).standard_normal((64, 33)).astype(
+        np.float32)
+    w = np.random.default_rng(SEED + 1).standard_normal((64, 33)).astype(
+        np.float32)
+    with mt.gpu(0):
+        x = nd.array(xs)
+        doubled = nd.user_double(x).asnumpy()
+        x.attach_grad()
+        with autograd.record():
+            loss = (nd.user_scale3(x) * nd.array(w)).sum() + \
+                nd.user_double(nd.user_scale3_triton(x)).sum()
+        loss.backward()
+        grad = x.grad.asnumpy()
+    torch.cuda.synchronize()
+    launches = {op.name: op.launches for op in counted}
+    want_grad = 3 * w + 6
+    emit({"phase": "k4_path", "path": "nd.<name> and autograd.record() / "
+          "backward() on cuda:0", "launches": launches,
+          "max_abs_err_forward": float(np.abs(doubled - 2 * xs).max()),
+          "max_abs_err_grad": float(np.abs(grad - want_grad).max()),
+          "loss": float(loss.asscalar()),
+          "want_loss": float((3 * xs * w).sum() + (6 * xs).sum())})
+    check(np.array_equal(doubled, 2 * xs), "nd.user_double")
+    check(np.abs(grad - want_grad).max() <= 1e-5, "the K4 VJPs' gradient")
+    # user_double: 1 forward + 2 in the loss (forward, VJP); user_scale3:
+    # forward + VJP; the Triton kernel: forward + VJP
+    check(launches == {"user_double": 3, "user_scale3": 2,
+                       "user_scale3_triton": 2},
+          f"K4 launches through nd and autograd: {launches}")
+    return rows, launches
+
+
+def plain_sgd(w, g, mom, p):
+    """One step of SGD with momentum in fp64 (the JAX package's
+    ``sgd_mom_update``): ``g/batch + wd*w``, ``mom = momentum*mom -
+    lr*g``, ``w + mom``, with the Parameter's lr and wd multipliers."""
+    w = w.double()
+    g = g.double() / GLUON_BATCH + GLUON_HP["wd"] * p.wd_mult * w
+    mom = GLUON_HP["momentum"] * mom - \
+        GLUON_HP["learning_rate"] * p.lr_mult * g
+    return w + mom, mom
+
+
+def sgd_check_phase(torch, nd, gluon, trainer, trained, forward_backward):
+    """Phase 12: two training steps (``forward_backward``, then
+    ``trainer.step``) with every parameter and its momentum held against
+    ``plain_sgd`` on the same weights and gradients, the momentum carried
+    by the plain rule. At the second step two probe Trainers redo the
+    step from the same weights and gradients, one with fresh momenta
+    (momentum not carried over), one without wd; the check must reject
+    both. Returns the two steps' losses."""
+    index = {p.name: i for i, p in enumerate(trainer._params)}
+
+    def weights():
+        return {n: p.data().data.detach().clone() for n, p in trained}
+
+    def momenta(tr):
+        return {n: tr._updaters[0].states[index[p.name]].data.clone()
+                for n, p in trained}
+
+    def set_weights(ws):
+        with torch.no_grad():
+            for n, p in trained:
+                p.data().data.copy_(ws[n])
+
+    def worst(got, want):
+        per = {n: float((got[n].double() - w).norm()
+                        / w.norm().clamp_min(1e-30)) for n, w in want.items()}
+        n = max(per, key=per.get)
+        return per[n], n
+
+    def compare(w_got, m_got, expect):
+        we, wn = worst(w_got, {n: e[0] for n, e in expect.items()})
+        me, mn = worst(m_got, {n: e[1] for n, e in expect.items()})
+        fails = (["weights"] if we > SGD_W_REL_LIMIT else []) + \
+            (["momenta"] if me > SGD_MOM_REL_LIMIT else [])
+        return {"weight_rel_l2_worst": we, "worst_weight": wn,
+                "momentum_rel_l2_worst": me, "worst_momentum": mn}, fails
+
+    mom = {n: torch.zeros_like(p.data().data, dtype=torch.float64)
+           for n, p in trained}
+    losses, steps, probes = [], [], {}
+    for k in range(2):
+        before = weights()
+        carried = momenta(trainer) if k else None
+        loss = forward_backward()
+        grads = {n: p.grad().data.clone() for n, p in trained}
+        trainer.step(GLUON_BATCH)
+        expect = {n: plain_sgd(before[n], grads[n], mom[n], p)
+                  for n, p in trained}
+        after = weights()
+        summ, fails = compare(after, momenta(trainer), expect)
+        losses.append(float(loss.data.detach().mean()))
+        steps.append({"step": k + 1, "loss": losses[-1], **summ,
+                      "failures": fails, "grads_unchanged": all(
+                          torch.equal(p.grad().data, grads[n])
+                          for n, p in trained)})
+        mom = {n: e[1] for n, e in expect.items()}
+    # the probes redo step 2 from its weights and gradients (the Trainer
+    # leaves the gradients as they were), then the weights go back
+    for fault in ("momentum not carried over", "wd dropped"):
+        probe = gluon.Trainer(trainer._params, "sgd", dict(
+            GLUON_HP, wd=0.0) if fault == "wd dropped" else GLUON_HP)
+        if fault == "wd dropped":
+            for n, p in trained:
+                probe._updaters[0].states[index[p.name]] = nd.NDArray(
+                    carried[n].clone())
+        set_weights(before)
+        probe.step(GLUON_BATCH)
+        psumm, rejected_by = compare(weights(), momenta(probe), expect)
+        probes[fault] = {"rejected_by": rejected_by, **psumm}
+        set_weights(after)
+    del before, after, grads, expect, mom, carried
+    emit({"phase": "gluon_trainer_check", "batch": GLUON_BATCH,
+          "optimizer": GLUON_HP, "params": len(trained),
+          "against": "the plain SGD-momentum rule in fp64 on the same "
+                     "weights and gradients, momentum carried by the rule",
+          "limits": {"weight_rel_l2": SGD_W_REL_LIMIT,
+                     "momentum_rel_l2": SGD_MOM_REL_LIMIT},
+          "steps": steps})
+    emit({"phase": "gluon_trainer_fault_probe", "probes": probes})
+    for st in steps:
+        check(not st["failures"], f"Trainer.step {st['step']} against the "
+              f"plain SGD rule: {st}")
+        check(st["grads_unchanged"], f"Trainer.step {st['step']} changed "
+              "the gradients")
+    for fault, pr in probes.items():
+        check(pr["rejected_by"], f"the Trainer check passes a planted "
+              f"fault: {fault}")
+    return losses
+
+
+def gluon_phases(mt, torch, np, smi, ops):
+    """Phases 10-13: the Gluon ResNet-50 v1 forward at batch 8 against
+    the CPU, the batch-64 training step with the K4 loss against
+    SoftmaxCrossEntropyLoss (and its fault probe), two Trainer steps
+    against the plain SGD rule (and their fault probes), and 10 timed
+    steps."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.name import NameManager
+    fb = mt.ops.fused_bn_conv
+    gpu = mt.gpu(0)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+
+    # 10. the forward of __graft_entry__.entry()'s model, batch 8
+    mt.random.seed(SEED)
+    net = gluon.model_zoo.vision.get_resnet(1, 50, classes=1000)
+    net.initialize(mt.init.Xavier(), ctx=gpu)
+    net.hybridize()
+    x8 = rng.standard_normal((8, 3, 224, 224)).astype(np.float32)
+    out = net(nd.array(x8, ctx=gpu)).asnumpy()
+    params = net.collect_params()
+    n_params = sum(p.data().size for p in params.values()
+                   if "running" not in p.name)
+    with NameManager():
+        cpu_net = gluon.model_zoo.vision.get_resnet(1, 50, classes=1000)
+    mt.interop.gluon_params_from_jax(
+        {n: p.data().asnumpy() for n, p in params.items()}, cpu_net, "cpu")
+    t_cpu = time.perf_counter()
+    with mt.cpu():
+        ref = cpu_net(nd.array(x8)).asnumpy()
+    t_cpu = time.perf_counter() - t_cpu
+    rel = float(np.abs(out - ref).max() / np.abs(ref).max())
+    emit({"phase": "gluon_forward", "model": "get_resnet(1, 50, "
+          "classes=1000), Xavier, seed 0, hybridized", "batch": 8,
+          "parameters": n_params, "shape": list(out.shape),
+          "finite": bool(np.isfinite(out).all()),
+          "max_abs_logit": float(np.abs(ref).max()), "rel_err": rel,
+          "limit": GLUON_FWD_REL_LIMIT, "tf32": False,
+          "cpu_forward_s": t_cpu,
+          "top1_agreement": float((out.argmax(1) == ref.argmax(1)).mean())})
+    check(out.shape == (8, 1000) and np.isfinite(out).all(),
+          "gluon forward output")
+    check(n_params == 25_575_912, f"ResNet-50 v1 has {n_params} weights")
+    check(rel <= GLUON_FWD_REL_LIMIT, f"gluon forward against the CPU: "
+          f"{rel}")
+    del cpu_net
+
+    # 11. one step at batch 64: the K4 loss against SoftmaxCrossEntropyLoss
+    trainer = gluon.Trainer(params, "sgd", GLUON_HP)
+    X = nd.array(rng.standard_normal((GLUON_BATCH, 3, 224, 224)).astype(
+        np.float32), ctx=gpu)
+    Y = nd.array(rng.integers(0, 1000, GLUON_BATCH).astype(np.float32),
+                 ctx=gpu)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trained = [(n, p) for n, p in params.items() if p.grad_req != "null"]
+
+    def step_grads(loss_fn):
+        with autograd.record():
+            logits = net(X)
+            loss = loss_fn(logits, Y)
+        g_logits = autograd.grad(loss, [logits], retain_graph=True)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.data.detach().clone(), g_logits.data.clone(),
+                {n: p.grad().data.clone() for n, p in trained})
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def compare(got, want):
+        floor = 1e-6 * max(float(g.norm()) for g in want[2].values())
+        per = {n: float((got[2][n] - g).norm()) /
+               max(float(g.norm()), 1e-30)
+               for n, g in want[2].items()}
+        over = {n: per[n] for n, g in want[2].items()
+                if float((got[2][n] - g).norm()) >
+                GLUON_STEP_LIMITS["param_grad_rel_l2_worst"]
+                * float(g.norm()) + floor}
+        above_floor = {n: v for n, v in per.items()
+                       if float(want[2][n].norm()) > 1e3 * floor}
+        worst = max(above_floor, key=above_floor.get)
+        summ = {"loss_rel_err": float((got[0] - want[0]).abs().max()
+                                      / want[0].abs().max()),
+                "logits_grad_rel_l2": rel_l2(got[1], want[1]),
+                "param_grad_rel_l2_worst": above_floor[worst],
+                "worst_param": worst,
+                "param_grad_rel_l2_median": float(np.median(
+                    list(above_floor.values()))),
+                "params_over_limit": sorted(over)[:5]}
+        fails = [k for k in ("loss_rel_err", "logits_grad_rel_l2")
+                 if summ[k] > GLUON_STEP_LIMITS[k]]
+        if over:
+            fails.append("param_grad_rel_l2")
+        return summ, fails
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ref_step = step_grads(ce)
+        ref_again = step_grads(ce)
+        k4_step = step_grads(nd.softmax_ce)
+        probe_step = step_grads(nd.softmax_ce_probe)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    summ, fails = compare(k4_step, ref_step)
+    noise, _ = compare(ref_again, ref_step)
+    psumm, rejected_by = compare(probe_step, ref_step)
+    emit({"phase": "gluon_train_check", "batch": GLUON_BATCH,
+          "against": "the same step with gluon.loss.SoftmaxCrossEntropyLoss "
+                     "(same params, same batch, deterministic cuDNN)",
+          "loss_mean": float(ref_step[0].mean()), **summ,
+          "limits": GLUON_STEP_LIMITS, "failures": fails,
+          "same_step_twice": {k: noise[k] for k in (
+              "loss_rel_err", "logits_grad_rel_l2",
+              "param_grad_rel_l2_worst", "worst_param")}})
+    emit({"phase": "gluon_train_fault_probe",
+          "fault": "softmax_ce forward and backward whose sums skip the "
+                   "last column", "rejected_by": rejected_by, **psumm})
+    check(not fails, f"gluon training step with the K4 loss: {fails}")
+    check(rejected_by, "the gluon step check passes a planted fault")
+    del ref_step, ref_again, k4_step, probe_step
+
+    # 13. speed: warm-up steps, then 10 timed, one repeated batch
+    def forward_backward():
+        with autograd.record():
+            loss = nd.softmax_ce(net(X), Y)
+        loss.backward()
+        return loss
+
+    def train_step():
+        loss = forward_backward()
+        trainer.step(GLUON_BATCH)
+        return loss
+
+    # 12. the first two warm-up steps: Trainer.step against the plain rule
+    warmup = sgd_check_phase(torch, nd, gluon, trainer, trained,
+                             forward_backward)
+    warmup += [float(train_step().data.detach().mean())
+               for _ in range(GLUON_WARMUP - len(warmup))]
+    gc.collect()
+    torch.cuda.synchronize()
+    fwd, bwd = ops["softmax_ce"], ops["softmax_ce_bwd"]
+    fwd.launches = bwd.launches = 0
+    fb.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t1 = time.perf_counter()
+    for _ in range(GLUON_STEPS):
+        losses.append(train_step().data.detach().mean())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = {"softmax_ce_fwd": fwd.launches,
+                "softmax_ce_bwd": bwd.launches}
+    other = fb.launch_counts()
+    losses = [float(v) for v in losses]
+    emit({"phase": "gluon_train_speed", "batch": GLUON_BATCH,
+          "steps": GLUON_STEPS, "img_per_s": GLUON_STEPS * GLUON_BATCH / dt,
+          "ms_per_step": dt / GLUON_STEPS * 1e3, "dtype": "float32",
+          "tf32": False, "launches": launches,
+          "launches_per_step": {k: v / GLUON_STEPS
+                                for k, v in launches.items()},
+          "other_kernels_launched": other,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "warmup_losses": warmup, "losses": losses, "setup_s": t1 - t0,
+          "card": smi})
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0] and max(losses) < warmup[0],
+          f"the loss did not fall: {warmup} then {losses}")
+    check(launches == {"softmax_ce_fwd": GLUON_STEPS,
+                       "softmax_ce_bwd": GLUON_STEPS},
+          f"K4 launches over {GLUON_STEPS} steps: {launches}")
+    check(sum(other.values()) == 0, f"the Gluon path launched {other}")
+    return launches
+
+
+def k4_entry(rows, name, route, launches, what):
+    """A K4 user kernel's entry of the kernels line: its times at
+    ``what``; launches on its path (the softmax CE's on the Gluon
+    training path, the others' through nd and autograd)."""
+    r = rows[(name, what)]
+    return {"name": name, "route": route, "source": "chip_smoke.py",
+            "replaces": K4_REPLACES, "launches": launches,
+            "max_abs_err": max(rows[(name, w)]["max_abs_err"]
+                               for (n, w) in rows if n == name),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "dtype": "float32",
+            "shapes": r["shapes"], "per": f"one call at the {what}",
+            "path": ("the Gluon ResNet-50 training step at batch 64 "
+                     "(10 steps)" if name.startswith("softmax_ce")
+                     else "nd.<name> and autograd on cuda:0"),
+            "hook": "operator.UserKernel (K4)", "status": "ok"}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1017,6 +1718,12 @@ def main():
     k3_launches = k3_path(mt, torch, gen)
     train_launches, n_steps = training_phase(mt, torch, np, smi)
 
+    # 8.-12. K4 and the imperative (Gluon) path ------------------------------
+    fns = k4_build(mt)
+    ops = k4_register(mt, fns, triton_scale3())
+    k4_rows, k4_path_launches = k4_phase(mt, torch, np, ops)
+    gluon_launches = gluon_phases(mt, torch, np, smi, ops)
+
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
         rows = per_fwd[name].values()
@@ -1088,6 +1795,19 @@ def main():
                   "mxnet_tpu_torch/kernels/bn_backward_triton.py",
                   f"{pf}:529-537 (dx assembly of the fused BN backwards, "
                   "jnp there)", "triton", "bn_backward_dx", {}),
+    ] + [
+        k4_entry(k4_rows, name, route, launches, per)
+        for name, route, launches, per in (
+            ("softmax_ce_fwd", "cuda", gluon_launches["softmax_ce_fwd"],
+             "path shape"),
+            ("softmax_ce_bwd", "cuda", gluon_launches["softmax_ce_bwd"],
+             "path shape"),
+            ("user_double", "cuda", k4_path_launches["user_double"],
+             "large elementwise"),
+            ("user_scale3", "cuda", k4_path_launches["user_scale3"],
+             "large elementwise"),
+            ("user_scale3_triton", "triton",
+             k4_path_launches["user_scale3_triton"], "large elementwise"))
     ], "card": smi, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

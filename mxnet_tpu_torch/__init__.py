@@ -11,12 +11,24 @@ Slice 1 covers inference serving of a symbol graph: the op set a ResNet
 needs, the ``pallas_fusion`` and ``residual_fusion`` rewrite passes, and
 ``serving.Predictor`` / ``serving.DynamicBatcher``. Slice 2 covers
 training it: ``mod.Module`` with the fused step, ``init``, ``optimizer``,
-``lr_scheduler``, ``io.NDArrayIter`` and ``metric``.
+``lr_scheduler``, ``io.NDArrayIter`` and ``metric``. Slice 3 covers the
+imperative path: ``nd`` (NDArray), ``autograd``, ``gluon`` (Blocks,
+layers, losses, Trainer, the ResNet model zoo), ``random``, and
+``operator`` / ``rtc``, the hook that runs a user's CUDA or Triton
+kernel as an op.
 """
 from . import base, config, context
 from .base import MXNetError
-from .context import cpu, gpu, default_device
+from .context import (Context, cpu, gpu, current_context, num_gpus,
+                      default_device)
 from . import ops
+from . import dtype, random
+from .random import seed
+from . import autograd
+from . import operator  # registers the Custom op before nd's codegen
+from . import ndarray
+from . import ndarray as nd
+from . import rtc
 from . import symbol
 from . import symbol as sym
 from . import interop
@@ -26,8 +38,10 @@ from . import initializer as init
 from . import io, lr_scheduler, metric, optimizer
 from . import module
 from . import module as mod
+from . import gluon
 
-__all__ = ["MXNetError", "base", "config", "context", "cpu", "gpu",
-           "default_device", "ops", "symbol", "sym", "interop", "serving",
-           "initializer", "init", "io", "lr_scheduler", "metric",
-           "optimizer", "module", "mod"]
+__all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
+           "current_context", "num_gpus", "default_device", "ops", "dtype",
+           "random", "seed", "autograd", "operator", "ndarray", "nd", "rtc",
+           "symbol", "sym", "interop", "serving", "initializer", "init", "io",
+           "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon"]

@@ -5,6 +5,8 @@
   port's tensor dicts under the same names.
 - ``init_params`` makes a seeded numpy initialisation of a symbol's
   parameters that both packages can be fed from.
+- ``gluon_params_from_jax`` carries a JAX Gluon net's parameters onto
+  the port's net by name.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from .base import MXNetError, torch_dtype
 
-__all__ = ["params_from_jax", "init_params"]
+__all__ = ["params_from_jax", "init_params", "gluon_params_from_jax"]
 
 
 def _to_numpy(name, v):
@@ -81,3 +83,36 @@ def init_params(symbol, data_shapes, seed):
             v = 0.1 * rng.standard_normal(shape)
         aux[name] = v.astype(np.float32)
     return args, aux
+
+
+def gluon_params_from_jax(params, net, device):
+    """Set every parameter of the port's Gluon ``net`` from ``params``
+    ({name: array}, the JAX Gluon net's ``collect_params()`` values as
+    numpy, or anything with ``asnumpy()``), by name. The names must
+    match exactly; a shape the port's net already knows must match, and
+    an unknown one (deferred init) is taken from the array. A parameter
+    not initialized yet is created on ``device``; an initialized one is
+    overwritten where it lies."""
+    from .context import as_context
+    from .ndarray.ndarray import NDArray
+    ctx = as_context(device)
+    ours = net.collect_params()
+    missing = sorted(set(ours.keys()) - set(params))
+    extra = sorted(set(params) - set(ours.keys()))
+    if missing or extra:
+        raise MXNetError(f"parameter names differ: missing {missing[:5]}, "
+                         f"extra {extra[:5]}")
+    for name, p in ours.items():
+        a = _to_numpy(name, params[name])
+        if p.shape_is_known() and tuple(a.shape) != tuple(p.shape):
+            raise MXNetError(f"parameter '{name}' has shape {a.shape}, "
+                             f"expected {tuple(p.shape)}")
+        if p._data is not None:
+            p.set_data(NDArray(torch.tensor(a)))
+            continue
+        p._infer_shape(a.shape)
+        init, _, default_init, _ = p._deferred_init or (None, None, None,
+                                                        None)
+        p._deferred_init = (init, [ctx], default_init,
+                            NDArray(torch.tensor(a)))
+        p._finish_deferred_init()

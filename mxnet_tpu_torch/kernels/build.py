@@ -27,6 +27,7 @@ _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("bn_relu_conv1x1", "bn_relu_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 _LIBS = {}
 _LOCK = threading.Lock()
 
@@ -36,7 +37,7 @@ def nvcc_path():
     on ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     cands = [os.path.join(home, "bin", "nvcc")] if home else []
-    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    cands += [shutil.which("nvcc"), DEFAULT_NVCC]
     for c in cands:
         if c and os.path.exists(c):
             return c

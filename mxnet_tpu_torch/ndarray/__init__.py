@@ -1,0 +1,105 @@
+"""``mxnet_tpu_torch.nd`` — the imperative op namespace (counterpart of
+``mxnet_tpu/ndarray/__init__.py``).
+
+Every op of the port's registry becomes a function over NDArrays
+(``nd.<op>``), as the reference generates them from its op registry
+(python/mxnet/ndarray/register.py); ops registered later
+(``operator.register_kernel``) are added when they register. Creation
+functions put their result on ``ctx``, the current context when None.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from ..context import as_context
+from ..dtype import resolve_dtype
+from ..ops.registry import _OPS
+from ..symbol.op_info import op_input_names
+from .ndarray import NDArray, array, empty, waitall, _invoke_op
+
+__all__ = ["NDArray", "array", "empty", "waitall", "zeros", "ones", "full",
+           "arange", "random"]
+
+
+def _make_op_func(opdef):
+    arg_names, aux_names = op_input_names(opdef.name)
+    names = list(arg_names or ()) + list(aux_names or ())
+
+    def fn(*args, **kwargs):
+        ctx = kwargs.pop("ctx", None)
+        args = list(args)
+        while args and args[-1] is None:
+            args.pop()
+        # inputs passed by keyword (data=x, bias=b) take their declared
+        # positions after the positional ones
+        for n in names[len(args):]:
+            if isinstance(kwargs.get(n), NDArray):
+                args.append(kwargs.pop(n))
+            else:
+                break
+        nd_args = []
+        for a in args:
+            if isinstance(a, (list, tuple)) and a and \
+                    isinstance(a[0], NDArray):
+                nd_args.extend(a)
+            elif a is None:
+                raise TypeError(f"{opdef.name}: cannot bind a non-trailing "
+                                "None input; pass optional inputs by "
+                                "keyword")
+            else:
+                nd_args.append(a)
+        if not any(isinstance(a, NDArray) for a in nd_args):
+            dev = as_context(ctx).device
+            nd_args = [NDArray(torch.as_tensor(np.asarray(a), device=dev))
+                       for a in nd_args]
+        return _invoke_op(opdef.name, nd_args, kwargs)
+
+    fn.__name__ = opdef.name
+    fn.__doc__ = opdef.fn.__doc__
+    return fn
+
+
+def _add_op(name):
+    setattr(sys.modules[__name__], name, _make_op_func(_OPS[name]))
+
+
+for _name in list(_OPS):
+    if _name.isidentifier() and _name not in globals():
+        _add_op(_name)
+
+
+def _shape(shape):
+    if isinstance(shape, int):
+        return (shape,)
+    return tuple(shape)
+
+
+def zeros(shape, ctx=None, dtype="float32", **kw):
+    return NDArray(torch.zeros(_shape(shape), dtype=resolve_dtype(dtype),
+                               device=as_context(ctx).device))
+
+
+def ones(shape, ctx=None, dtype="float32", **kw):
+    return NDArray(torch.ones(_shape(shape), dtype=resolve_dtype(dtype),
+                              device=as_context(ctx).device))
+
+
+def full(shape, val, ctx=None, dtype="float32", **kw):
+    return NDArray(torch.full(_shape(shape), val, dtype=resolve_dtype(dtype),
+                              device=as_context(ctx).device))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    if stop is None:
+        start, stop = 0, start
+    t = torch.arange(start, stop, step, dtype=resolve_dtype(dtype),
+                     device=as_context(ctx).device)
+    if repeat != 1:
+        t = t.repeat_interleave(repeat)
+    return NDArray(t)
+
+
+from . import random  # noqa: E402,F401

@@ -187,3 +187,41 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     out = (data - mean.reshape(bshape)) * (g * inv).reshape(bshape) \
         + beta.reshape(bshape)
     return out.to(data.dtype), mean, var
+
+
+@register_op("softmax")
+def softmax(data, axis=-1, temperature=None, length=None, **kw):
+    x = data / temperature if temperature else data
+    return torch.softmax(x, dim=axis)
+
+
+@register_op("log_softmax")
+def log_softmax(data, axis=-1, temperature=None, **kw):
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
+
+
+@register_op("CTCLoss", aliases=["ctc_loss", "_contrib_CTCLoss",
+                                 "_contrib_ctc_loss"])
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first", **kw):
+    """CTC negative log-likelihood per sample: data (T, N, C) unnormalised
+    (softmax taken here, in fp32), label (N, L) padded token ids; blank is
+    class 0 ("first", padding 0) or C-1 ("last", padding -1). Returns
+    (N,)."""
+    t, n, c = data.shape
+    logp = torch.log_softmax(data.float(), dim=-1)
+    blank = 0 if blank_label == "first" else c - 1
+    pad_val = 0 if blank_label == "first" else -1
+    lab = label.to(torch.int64)
+    if use_data_lengths and data_lengths is not None:
+        t_lens = data_lengths.to(torch.int64)
+    else:
+        t_lens = torch.full((n,), t, dtype=torch.int64, device=data.device)
+    if use_label_lengths and label_lengths is not None:
+        l_lens = label_lengths.to(torch.int64)
+    else:
+        l_lens = (lab != pad_val).sum(dim=1)
+    return F.ctc_loss(logp, lab.clamp_min(0), t_lens, l_lens, blank=blank,
+                      reduction="none")

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import ast
 
-__all__ = ["OpDef", "register_op", "get_op", "has_op", "parse_attr"]
+__all__ = ["OpDef", "register_op", "get_op", "has_op", "alias", "parse_attr"]
 
 _OPS = {}
 
@@ -46,6 +46,12 @@ def get_op(name):
 
 def has_op(name):
     return name in _OPS
+
+
+def alias(existing, *names):
+    """Register more names for an existing op."""
+    for n in names:
+        _OPS[n] = _OPS[existing]
 
 
 def parse_attr(value):

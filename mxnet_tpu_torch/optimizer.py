@@ -2,16 +2,25 @@
 python/mxnet/optimizer.py:34-530): the ``Optimizer`` base with its
 per-parameter ``lr_mult`` / ``wd_mult`` and the SGD rule.
 
-The fused training step (``module/fused.py``) reads the optimizer's
-hyperparameters and multipliers and applies the rule of
-``parallel/functional_opt.py``; the per-index ``update`` of the eager
-Updater loop is not ported.
+One rule applies: ``parallel/functional_opt.py``'s, read off the
+optimizer's hyperparameters (``functional_opt.from_optimizer``). The
+fused training step (``module/fused.py``) and the Gluon Trainer apply
+its in-place list form to groups of parameters that share lr and wd.
+``update(index, weight, grad, state)`` applies its per-tensor form to
+one parameter and writes the new weight and state into their NDArrays
+in place, outside any graph; ``Updater`` (``get_updater``) keeps each
+index's state from ``create_state`` and calls it.
 """
 from __future__ import annotations
 
 import warnings
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+import torch
+
+from .parallel import functional_opt
+
+__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
+           "register"]
 
 
 class Optimizer:
@@ -39,7 +48,7 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0):
+                 sym=None, begin_num_update=0, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -50,6 +59,7 @@ class Optimizer:
         self.wd_mult = {}
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
+        self._index_update_count = {}
         self.clip_gradient = clip_gradient
         if param_idx2name is None:
             param_idx2name = {}
@@ -58,6 +68,7 @@ class Optimizer:
         self.idx2name = param_idx2name.copy()
         self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
             if sym is not None else ()
+        self.param_dict = param_dict if param_dict else {}
         self.set_lr_mult({})
         self.set_wd_mult({})
 
@@ -97,10 +108,37 @@ class Optimizer:
                     self.wd_mult[name] = float(attr[name]["__wd_mult__"])
         self.wd_mult.update(args_wd_mult)
 
+    def create_state(self, index, weight):
+        """Per-weight state: None, or the NDArray of the rule's one state
+        tensor (fp32)."""
+        state = functional_opt.from_optimizer(self).init(weight._data)
+        return type(weight)(state[0]) if state else None
+
+    def update(self, index, weight, grad, state):
+        """One parameter's step by the functional rule, written into
+        ``weight`` and ``state`` in place."""
+        self._update_count(index)
+        rule = functional_opt.from_optimizer(self)
+        with torch.no_grad():
+            s = () if state is None else (state._data,)
+            w, s = rule.update(weight._data, grad._data, s,
+                               self._get_lr(index), self.num_update,
+                               self._get_wd(index))
+            weight._data.copy_(w)
+            if state is not None:
+                state._data.copy_(s[0])
+
+    def _update_count(self, index):
+        count = self._index_update_count.get(index, self.begin_num_update)
+        self._index_update_count[index] = count + 1
+        self.num_update = max(count + 1, self.num_update)
+
     def _get_lr(self, index):
         lr = self.lr_scheduler(self.num_update) \
             if self.lr_scheduler is not None else self.lr
-        if index in self.lr_mult:
+        if index in self.param_dict:
+            lr *= self.param_dict[index].lr_mult
+        elif index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:
             lr *= self.lr_mult.get(self.idx2name[index], 1.0)
@@ -108,7 +146,9 @@ class Optimizer:
 
     def _get_wd(self, index):
         wd = self.wd
-        if index in self.wd_mult:
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        elif index in self.wd_mult:
             wd *= self.wd_mult[index]
         elif index in self.idx2name:
             wd *= self.wd_mult.get(self.idx2name[index], 1.0)
@@ -123,10 +163,28 @@ create = Optimizer.create_optimizer
 class SGD(Optimizer):
     """SGD with momentum: ``g = rescale*grad`` (clipped) ``+ wd*w``,
     ``mom = momentum*mom - lr*g``, ``w += mom`` (``w -= lr*g`` without
-    momentum), state in fp32 — applied by the fused step through
+    momentum), state in fp32 — the rule of
     ``parallel/functional_opt.py``."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
         self.lazy_update = lazy_update
+
+
+class Updater:
+    """Applies an optimizer to (index, grad, weight), owning the states
+    (reference: optimizer.py:1452)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        self.optimizer.update(index, weight, grad, self.states[index])
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)
