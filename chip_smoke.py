@@ -14,23 +14,34 @@ script exits non-zero and prints no result. Phases:
    ResNet-50 serving gives it (batch 64), with errors, tolerances, median
    times (CUDA events) beside the plain version's, a PyTorch library
    call's (a yardstick the port never calls) and the data-sheet bound;
-   plus ragged edge shapes.
+   plus ragged edge shapes. Each K1 / K3 row names the route its plan
+   took (``route_counts``): the bf16 site shapes must take the wgmma
+   core (``wgmma_tma`` or ``wgmma_bulk``), the ragged and misaligned
+   shapes the WMMA kernel, except ``K1_WGMMA_RAGGED``'s, which take the
+   route each names. A timed wgmma row also times the first (WMMA)
+   kernel it replaced on the same inputs (``wmma_ms``, checked against
+   the same tolerance); ``k1_serving_sites`` sums up the per-site rows;
+   ``k1_host_cost`` reads the host microseconds a K1 call costs.
 4. serving: ResNet-50 (random weights from seed 0) behind a bf16
    ``Predictor`` and a ``DynamicBatcher`` on ``cuda:0``; concurrent
    requests of 1, 5, 37 and 64 rows; launch counts per bucket call;
    top-1 agreement (on the rows the fp32 graph decides by a margin) and
    logit error against the fp32 plain graph on the card, and a probe
    that plants a fault at one K1 site and expects these checks to
-   reject it; img/s and request latency.
+   reject it; img/s and request latency. The 28 K1 launches of every
+   bucket call must have taken the wgmma core.
 5. training kernels: K3 (the fused BN-apply+ReLU+matrix product) forward
    and gradient, bf16 and fp32, at the bench tool's default shape and at
    ResNet-50's 1x1 shapes in NHWC at batch 128, plus ragged shapes; B1
    and B2 (the BN backward's reduction and dx assembly) at every
    distinct training-site shape of the batch-128 step, in both layouts;
    each against its plain version, with times beside the plain
-   version's, a library call's and the bound.
+   version's, a library call's and the bound. ``k1_training_sites``
+   lists K1's rows per distinct training site (sites per step, route,
+   ms, ``wmma_ms``, bound, plain and ``F.conv2d`` ms) and their sums per
+   step.
 6. the bn_relu_matmul path: K3 forward and backward at the default
-   shape, with its launch counts.
+   shape, with its launch counts and routes.
 7. training: ResNet-50 (``stem="s2d"``, bf16, batch 128, SGD) through
    the port's ``Module``: a one-step check of the fused fp32 step's
    gradients and moving statistics against the fp32 plain graph, and of
@@ -39,7 +50,8 @@ script exits non-zero and prints no result. Phases:
    from the plain graphs' readings; a fault probe for each (B2 in the
    fp32 backward, K1 in the bf16 forward) that the checks must reject;
    then 3 warm-up and 20 timed steps over 4 staged batches with the
-   launches per step of every kernel, memory and each step's loss.
+   launches per step of every kernel (K1's 28 on the wgmma core),
+   memory and each step's loss.
 8. rtc_build: the user's CUDA C++ kernels (K4, the user-kernel hook)
    compiled at run time through ``rtc.CudaModule``, with the ptxas
    report; the user's Triton kernel is compiled at its first launch.
@@ -183,6 +195,23 @@ LARGE_ELEMWISE = (64, 2048, 1024)
 K4_CE_FWD_TOL = 1e-4
 K4_CE_BWD_TOL = 4e-6
 LARGE_CE_ROWS = 65536
+# K1's and K3's routes on the wgmma core (ops/fused_bn_conv.py, KernelPlan)
+WGMMA_ROUTES = ("wgmma_tma", "wgmma_bulk")
+# ragged shapes the wgmma core takes, each with its route: together with
+# ResNet-50's sites they launch every instantiation of the core. K1 (B,
+# C, H, W, O): S at run time with several samples a tile (9, 16), a
+# partial last sample tile and a partial output tile (7 samples of 25
+# positions, 5 a tile; 264 outputs), 7x7 with fewer than 256 outputs,
+# TMA with one partial position tile and with several (S = 400 over
+# 128-row tiles). K3 (M, K, N): partial row and column tiles, both tile
+# shapes.
+K1_WGMMA_RAGGED = (((3, 64, 3, 3, 72), "wgmma_bulk"),
+                   ((2, 64, 4, 4, 8), "wgmma_bulk"),
+                   ((7, 128, 5, 5, 264), "wgmma_bulk"),
+                   ((3, 64, 7, 7, 128), "wgmma_bulk"),
+                   ((1, 64, 8, 12, 72), "wgmma_tma"),
+                   ((2, 128, 20, 20, 264), "wgmma_tma"))
+K3_WGMMA_RAGGED = ((1000, 64, 40), (257, 128, 72), (300, 128, 264))
 K4_REPLACES = ("mxnet_tpu/operator.py:211-240 (PallasKernel._call_arrays; "
                "pallas_call :222), register_pallas :249-264, "
                "rtc.PallasModule mxnet_tpu/rtc.py:16-36")
@@ -490,11 +519,31 @@ def site_shapes(mt, sym, batch, mode="serving"):
     return counts
 
 
+def routed(fb, name, fn):
+    """``fn()``'s result and the route (``route_counts`` key) of the one
+    launch of wrapper ``name`` it made."""
+    before = fb.route_counts()[name]
+    out = fn()
+    after = fb.route_counts()[name]
+    hit = [r for r in after if after[r] != before[r]]
+    check(len(hit) == 1 and after[hit[0]] == before[hit[0]] + 1,
+          f"{name}: one launch expected, routes {before} -> {after}")
+    return out, hit[0]
+
+
+def check_route(name, route, expect, what):
+    """``expect``: "wgmma" (either wgmma route), a route name, or None."""
+    ok = expect is None or route == expect or (
+        expect == "wgmma" and route in WGMMA_ROUTES)
+    check(ok, f"{name} at {what} took route {route}, expected {expect}")
+
+
 def k1_case(mt, torch, F, gen, b, c, h, w, o, relu, dtype, timed=True,
-            misalign=False):
-    """K1 at one shape: error against the fp32 plain version, times.
-    ``misalign`` starts x one element into its buffer, so the kernel
-    must fall back to its narrowest access."""
+            misalign=False, expect=None):
+    """K1 at one shape: error against the fp32 plain version, times, and
+    the route the plan chose (held to ``expect``). ``misalign`` starts x
+    one element into its buffer, so the kernel must fall back to its
+    narrowest access."""
     fb = mt.ops.fused_bn_conv
     dt = getattr(torch, dtype)
     dev = "cuda"
@@ -506,7 +555,9 @@ def k1_case(mt, torch, F, gen, b, c, h, w, o, relu, dtype, timed=True,
     wt = (torch.randn(o, c, generator=gen, device=dev) / c ** 0.5).to(dt)
     sc = (0.5 + torch.rand(c, generator=gen, device=dev)).to(dt)
     sh = (0.2 * torch.randn(c, generator=gen, device=dev)).to(dt)
-    out = fb.bn_relu_conv_nchw(x, wt, sc, sh, relu=relu)
+    out, route = routed(fb, "bn_relu_conv_nchw",
+                        lambda: fb.bn_relu_conv_nchw(x, wt, sc, sh,
+                                                     relu=relu))
     torch.cuda.synchronize()
     ref = fb.bn_relu_conv_nchw_plain(x.float(), wt.float(), sc.float(),
                                      sh.float(), relu=relu)
@@ -516,6 +567,7 @@ def k1_case(mt, torch, F, gen, b, c, h, w, o, relu, dtype, timed=True,
     ok = bool((err <= tol * scale + tol * ref.abs()).all())
     row = {"phase": "kernel", "kernel": "bn_relu_conv1x1", "dtype": dtype,
            "x": [b, c, h, w], "O": o, "relu": relu, "misalign": misalign,
+           "route": route,
            "max_abs_err": err.max().item(),
            "max_rel_err": (err / ref.abs().clamp_min(1e-3 * scale))
            .max().item(),
@@ -538,9 +590,61 @@ def k1_case(mt, torch, F, gen, b, c, h, w, o, relu, dtype, timed=True,
         w4 = wt.reshape(o, c, 1, 1)
         row["library_ms"] = time_ms(lambda: F.conv2d(xhat, w4))
         row["library_call"] = "F.conv2d 1x1 on the normalised input"
+        if route in WGMMA_ROUTES:
+            # the first (WMMA) kernel, which the wgmma core replaced at
+            # this shape: its time and its agreement, same inputs
+            plan = fb._k1_wmma_plan(b, c, o, s)
+
+            def run():
+                return fb._k1_run(x, wt, sc, sh, relu, plan)
+
+            werr = (run().float() - ref).abs()
+            row["wmma_max_abs_err"] = werr.max().item()
+            row["ok"] = ok = ok and bool(
+                (werr <= tol * scale + tol * ref.abs()).all())
+            row["wmma_ms"] = time_ms(run)
     emit(row)
     check(ok, f"K1 disagrees with its plain version: {row}")
+    check_route("K1", route, expect, row["x"])
     return row
+
+
+def k1_host_cost(mt, torch, gen, calls=400, reps=5):
+    """Host microseconds to issue one bf16 K1 call at batch 1, where the
+    kernel takes a few microseconds and the host sets the rate: the
+    public wrapper (checks, the memoised plan, the launch) and the
+    launch alone (``_k1_run``) through the wgmma core and through the
+    first (WMMA) kernel; medians of ``reps`` runs of ``calls`` calls."""
+    fb = mt.ops.fused_bn_conv
+    bf16 = torch.bfloat16
+    rows = []
+    for c, h, o in ((64, 56, 256), (512, 7, 2048)):
+        x = torch.randn(1, c, h, h, generator=gen, device="cuda").to(bf16)
+        wt = torch.randn(o, c, generator=gen, device="cuda").to(bf16)
+        sc = torch.ones(c, device="cuda", dtype=bf16)
+        sh = torch.zeros(c, device="cuda", dtype=bf16)
+        plan = fb._k1_plan(1, c, o, h * h, bf16)
+        wmma = fb._k1_wmma_plan(1, c, o, h * h)
+        fns = {"wrapper": lambda: fb.bn_relu_conv_nchw(x, wt, sc, sh),
+               "wgmma_launch": lambda: fb._k1_run(x, wt, sc, sh, True,
+                                                  plan),
+               "wmma_launch": lambda: fb._k1_run(x, wt, sc, sh, True,
+                                                 wmma)}
+        row = {"x": [1, c, h, h], "O": o, "route": plan.route}
+        for name, fn in fns.items():
+            times = []
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                times.append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+            row[name + "_us"] = statistics.median(times)
+        rows.append(row)
+    emit({"phase": "k1_host_cost", "calls": calls, "reps": reps,
+          "rows": rows})
 
 
 def k2_case(mt, torch, F, gen, b, c, h, w, relu, dtype, timed=True):
@@ -592,10 +696,11 @@ def rel_l2(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=True):
+def k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=True, expect=None):
     """K3 at one shape: forward against the fp32 plain version and the
     gradients of ``bn_relu_matmul`` (K3, K2, B1, B2 and torch.matmul)
-    against fp32 autograd of the plain expression, times."""
+    against fp32 autograd of the plain expression, times, and the route
+    the plan chose (held to ``expect``)."""
     fb = mt.ops.fused_bn_conv
     dt = getattr(torch, dtype)
     dev = "cuda"
@@ -603,7 +708,8 @@ def k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=True):
     w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dt)
     sc = (0.5 + torch.rand(k, generator=gen, device=dev)).to(dt)
     sh = (0.2 * torch.randn(k, generator=gen, device=dev)).to(dt)
-    out = fb.bn_relu_matmul_fwd(x, w, sc, sh, relu)
+    out, route = routed(fb, "bn_relu_matmul_fwd",
+                        lambda: fb.bn_relu_matmul_fwd(x, w, sc, sh, relu))
     torch.cuda.synchronize()
     ref = fb.bn_relu_matmul_fwd_plain(x.float(), w.float(), sc.float(),
                                       sh.float(), relu)
@@ -630,7 +736,7 @@ def k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=True):
     gtol = 2e-2 if dtype == "bfloat16" else 2e-3
     ok = ok and max(gerr.values()) <= gtol
     row = {"phase": "kernel", "kernel": "bn_relu_matmul", "dtype": dtype,
-           "M": m, "K": k, "N": n, "relu": relu,
+           "M": m, "K": k, "N": n, "relu": relu, "route": route,
            "max_abs_err": err.max().item(), "out_scale": scale,
            "grad_rel_l2_err": gerr,
            "tolerance": f"|err| <= {tol}*max|ref| + {tol}*|ref| (ref: "
@@ -650,8 +756,21 @@ def k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=True):
             x, torch.eye(k, device=dev, dtype=dt), sc, sh, relu)
         row["library_ms"] = time_ms(lambda: torch.matmul(xhat, w))
         row["library_call"] = "torch.matmul on the normalised input"
+        if route in WGMMA_ROUTES:
+            # the first (WMMA) kernel at this shape, as in k1_case
+            plan = fb._k3_wmma_plan(m, k, n)
+
+            def run():
+                return fb._k3_run(x, w, sc, sh, relu, plan)
+
+            werr = (run().float() - ref).abs()
+            row["wmma_max_abs_err"] = werr.max().item()
+            row["ok"] = ok = ok and bool(
+                (werr <= tol * scale + tol * ref.abs()).all())
+            row["wmma_ms"] = time_ms(run)
     emit(row)
     check(ok, f"K3 disagrees with its plain version: {row}")
+    check_route("K3", route, expect, [m, k, n])
     return row
 
 
@@ -719,7 +838,8 @@ def b12_case(mt, torch, gen, shape, relu, dtype, timed=True):
 
 def train_kernel_phase(mt, torch, gen):
     """Phase 5: K3, B1 and B2 against their plain versions at the
-    training shapes; per-step sums over the sites of K1, K2, B1, B2."""
+    training shapes; per-step sums over the sites of K1, K2, B1, B2, and
+    K1's row per distinct site."""
     from mxnet_tpu_torch.model_zoo.symbols import resnet
     fb = mt.ops.fused_bn_conv
     sym = resnet.get_symbol(1000, 50, "3,224,224", stem="s2d")
@@ -732,6 +852,7 @@ def train_kernel_phase(mt, torch, gen):
     import torch.nn.functional as F
     per_step = {"K1": [], "K2": [], "B1": [], "B2": []}
     k3_rows = []
+    k1_sites = []
     # K1 (training forward) and K2 (forward of the K sites, recompute in
     # every site's backward) at the batch-128 site shapes
     k2_calls = {}
@@ -739,15 +860,32 @@ def train_kernel_phase(mt, torch, gen):
         b, c, h, wd = d
         if op == "_FusedBNReLUConv":
             row = k1_case(mt, torch, F, gen, b, c, h, wd, w[0], relu,
-                          "bfloat16")
+                          "bfloat16", expect="wgmma")
             per_step["K1"].append((count, row["ms"], row["plain_ms"],
                                    row["bound_ms"], row["library_ms"],
                                    row["max_abs_err"]))
+            k1_sites.append({"x": row["x"], "O": row["O"],
+                             "sites_per_step": count,
+                             "route": row["route"], "ms": row["ms"],
+                             "wmma_ms": row["wmma_ms"],
+                             "bound_ms": row["bound_ms"],
+                             "bound_by": row["bound_by"],
+                             "plain_ms": row["plain_ms"],
+                             "library_ms": row["library_ms"]})
             # the same 1x1 conv as K3's (M, K) @ (K, N) in NHWC
             k3_rows.append((b * h * wd, c, w[0], relu))
         fwd = 1 if op == "_FusedBNReLUConvK" else 0
         key = (d, relu)
         k2_calls[key] = k2_calls.get(key, 0) + count * (fwd + 1)
+    emit({"phase": "k1_training_sites", "batch": TRAIN_BATCH,
+          "sites": k1_sites,
+          "per_step_ms": sum(r["sites_per_step"] * r["ms"] for r in k1_sites),
+          "per_step_wmma_ms": sum(r["sites_per_step"] * r["wmma_ms"]
+                                  for r in k1_sites),
+          "per_step_bound_ms": sum(r["sites_per_step"] * r["bound_ms"]
+                                   for r in k1_sites),
+          "per_step_library_ms": sum(r["sites_per_step"] * r["library_ms"]
+                                     for r in k1_sites)})
     for (d, relu), count in sorted(k2_calls.items()):
         row = k2_case(mt, torch, F, gen, *d, relu, "bfloat16")
         per_step["K2"].append((count, row["ms"], row["plain_ms"],
@@ -781,16 +919,23 @@ def train_kernel_phase(mt, torch, gen):
     # 1x1 sites in NHWC, and ragged
     k3_default = {}
     for dtype in ("bfloat16", "float32"):
-        k3_default[dtype] = k3_case(mt, torch, gen, 401408, 64, 256, True,
-                                    dtype)
+        k3_default[dtype] = k3_case(
+            mt, torch, gen, 401408, 64, 256, True, dtype,
+            expect="wgmma_tma" if dtype == "bfloat16" else "fp32")
     for m, k, n, relu in sorted(set(k3_rows)):
-        k3_case(mt, torch, gen, m, k, n, relu, "bfloat16")
+        k3_case(mt, torch, gen, m, k, n, relu, "bfloat16",
+                expect="wgmma_tma")
         k3_case(mt, torch, gen, m, k, n, relu, "float32", timed=False)
     for m, k, n in ((5, 3, 7), (130, 33, 65), (1000, 24, 40),
                     (257, 63, 255)):
         for dtype in ("bfloat16", "float32"):
             for relu in (True, False):
-                k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=False)
+                k3_case(mt, torch, gen, m, k, n, relu, dtype, timed=False,
+                        expect="wmma" if dtype == "bfloat16" else "fp32")
+    for m, k, n in K3_WGMMA_RAGGED:
+        for relu in (True, False):
+            k3_case(mt, torch, gen, m, k, n, relu, "bfloat16", timed=False,
+                    expect="wgmma_tma")
     try:
         fb.bn_relu_matmul_fwd(*(torch.zeros(s, device="cuda",
                                             dtype=torch.float16)
@@ -798,7 +943,7 @@ def train_kernel_phase(mt, torch, gen):
         raise AssertionError("K3 accepted float16 on CUDA")
     except mt.MXNetError as e:
         emit({"phase": "kernel", "k3_raises_on_unsupported_dtype": str(e)})
-    return per_step, k3_default
+    return per_step, k3_default, k1_sites
 
 
 def k3_path(mt, torch, gen, steps=3):
@@ -820,16 +965,20 @@ def k3_path(mt, torch, gen, steps=3):
         grads = torch.autograd.grad(out, ins, cot)
     torch.cuda.synchronize()
     launches = fb.launch_counts()
+    routes = fb.route_counts()["bn_relu_matmul_fwd"]
     ok = all(bool(torch.isfinite(g.float()).all()) for g in grads)
     emit({"phase": "bn_relu_matmul_path", "M": m, "K": k, "N": n,
-          "calls": steps, "launches": launches, "finite": ok})
+          "calls": steps, "launches": launches, "routes": routes,
+          "finite": ok})
+    check(routes["wgmma_tma"] == steps,
+          f"bn_relu_matmul path routes {routes}")
     check(ok and launches["bn_relu_matmul_fwd"] == steps
           and launches["bn_act_prologue"] == steps
           and launches["bn_backward_reduce"] == steps
           and launches["bn_backward_dx"] == steps
           and launches["bn_relu_conv_nchw"] == 0,
           f"bn_relu_matmul path launches {launches}")
-    return launches
+    return launches, routes
 
 
 def grad_check_summary(loss, grads, aux, ref):
@@ -1023,11 +1172,13 @@ def training_phase(mt, torch, np, smi):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     launches = fb.launch_counts()
+    routes = fb.route_counts()["bn_relu_conv_nchw"]
     losses = [float(v) for v in losses]
     emit({"phase": "training_speed", "batch": batch, "steps": n_steps,
           "img_per_s": n_steps * batch / dt, "ms_per_step": dt / n_steps
           * 1e3, "launches": launches,
           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "k1_routes": routes,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
           / 1e9, "memory_allocated_before_gb": allocated_before,
           "one_step_memory": {"fused_bf16": f16[3], "plain_bf16": p16[3]},
@@ -1039,7 +1190,10 @@ def training_phase(mt, torch, np, smi):
           and launches["bn_backward_dx"] == 44 * n_steps
           and launches["bn_relu_matmul_fwd"] == 0,
           f"training launches {launches} over {n_steps} steps")
-    return launches, n_steps
+    check(sum(routes[r] for r in WGMMA_ROUTES) == 28 * n_steps,
+          f"training K1 routes {routes} over {n_steps} steps: the 28 K1 "
+          "sites a step must take the wgmma core")
+    return launches, n_steps, routes
 
 
 def k4_build(mt):
@@ -1540,28 +1694,42 @@ def main():
         if op == "_FusedBNReLUConv":
             for dtype in ("bfloat16", "float32"):
                 row = k1_case(mt, torch, F, gen, b, c, h, wd, w[0], relu,
-                              dtype)
+                              dtype, expect="wgmma" if dtype == "bfloat16"
+                              else "fp32")
                 if dtype == "bfloat16":
                     per_fwd["bn_relu_conv1x1"][(d, w)] = (count, row)
         else:
             row = k2_case(mt, torch, F, gen, b, c, h, wd, relu, "bfloat16")
             per_fwd["bn_prologue"][(d, relu)] = (count, row)
+    emit({"phase": "k1_serving_sites", "batch": batch, "sites": [
+        {"x": r["x"], "O": r["O"], "sites_per_forward": n,
+         "route": r["route"], "ms": r["ms"], "wmma_ms": r["wmma_ms"],
+         "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "plain_ms": r["plain_ms"],
+         "library_ms": r["library_ms"]}
+        for n, r in per_fwd["bn_relu_conv1x1"].values()]})
+    k1_host_cost(mt, torch, gen)
     # ragged edges: odd channels, odd and even spatial extents (every
     # vector width of the bf16 kernel), tiny batches, a misaligned x
     for b, c, h, wd, o in ((2, 3, 1, 7, 5), (3, 33, 9, 13, 65),
                            (1, 100, 7, 7, 130), (3, 33, 4, 6, 65),
                            (2, 17, 4, 5, 9), (5, 40, 1, 2, 70)):
         for dtype in ("bfloat16", "float32"):
+            expect = "wmma" if dtype == "bfloat16" else "fp32"
             k1_case(mt, torch, F, gen, b, c, h, wd, o, True, dtype,
-                    timed=False)
+                    timed=False, expect=expect)
             k1_case(mt, torch, F, gen, b, c, h, wd, o, False, dtype,
-                    timed=False)
+                    timed=False, expect=expect)
         k2_case(mt, torch, F, gen, b, c, h, wd, False, "bfloat16",
                 timed=False)
         k2_case(mt, torch, F, gen, b, c, h, wd, True, "float32",
                 timed=False)
     k1_case(mt, torch, F, gen, 3, 16, 4, 8, 24, True, "bfloat16",
-            timed=False, misalign=True)
+            timed=False, misalign=True, expect="wmma")
+    for (b, c, h, wd, o), route in K1_WGMMA_RAGGED:
+        for relu in (True, False):
+            k1_case(mt, torch, F, gen, b, c, h, wd, o, relu, "bfloat16",
+                    timed=False, expect=route)
     try:
         fb.bn_relu_conv_nchw(torch.zeros(1, 8, 2, 2, device="cuda",
                                          dtype=torch.float16),
@@ -1612,15 +1780,19 @@ def main():
         t.join(timeout=600)
     torch.cuda.synchronize()
     launches = fb.launch_counts()
+    serving_routes = fb.route_counts()["bn_relu_conv_nchw"]
     n_calls = calls() - calls0
     check(len(results) == len(reqs), "a request did not complete")
     emit({"phase": "serving_launches", "bucket_calls": n_calls,
-          "launches": launches,
+          "launches": launches, "k1_routes": serving_routes,
           "per_bucket_call": {k: v / max(n_calls, 1)
                               for k, v in launches.items()}})
     check(n_calls >= 1 and launches["bn_relu_conv_nchw"] == 28 * n_calls
           and launches["bn_act_prologue"] == 17 * n_calls,
           f"kernel launches {launches} over {n_calls} bucket calls")
+    check(sum(serving_routes[r] for r in WGMMA_ROUTES) == 28 * n_calls,
+          f"serving K1 routes {serving_routes} over {n_calls} bucket "
+          "calls: the 28 K1 sites of a forward must take the wgmma core")
     for rows, out in sorted(results.items()):
         sums = out.sum(axis=1)
         emit({"phase": "serving_request", "rows": rows,
@@ -1714,9 +1886,10 @@ def main():
           "card": smi})
 
     # 5.-7. training -----------------------------------------------------------
-    per_step, k3_default = train_kernel_phase(mt, torch, gen)
-    k3_launches = k3_path(mt, torch, gen)
-    train_launches, n_steps = training_phase(mt, torch, np, smi)
+    per_step, k3_default, k1_sites = train_kernel_phase(mt, torch, gen)
+    k3_launches, k3_routes = k3_path(mt, torch, gen)
+    train_launches, n_steps, train_routes = training_phase(mt, torch, np,
+                                                           smi)
 
     # 8.-12. K4 and the imperative (Gluon) path ------------------------------
     fns = k4_build(mt)
@@ -1765,7 +1938,12 @@ def main():
                   "mxnet_tpu_torch/kernels/csrc/bn_relu_conv1x1.cu",
                   f"{pf}:234 (_make_nchw_kernel; pallas_call :420)", "cuda",
                   "bn_relu_conv_nchw",
-                  {"serving": serving_agg("bn_relu_conv1x1")}),
+                  {"serving": dict(serving_agg("bn_relu_conv1x1"),
+                                   routes=serving_routes),
+                   "routes": train_routes, "wmma_ms": sum(
+                       r["sites_per_step"] * r["wmma_ms"] for r in k1_sites),
+                   "core": "mxnet_tpu_torch/kernels/csrc/"
+                           "bn_gemm_wgmma.cuh"}),
         train_agg("K2", "bn_prologue",
                   "mxnet_tpu_torch/kernels/bn_prologue_triton.py",
                   f"{pf}:250 (_make_prologue_kernel; pallas_call :390)",
@@ -1780,6 +1958,8 @@ def main():
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "dtype": "bfloat16", "shape": [k3["M"], k3["K"], k3["N"]],
+         "routes": k3_routes, "wmma_ms": k3["wmma_ms"],
+         "core": "mxnet_tpu_torch/kernels/csrc/bn_gemm_wgmma.cuh",
          "per": "one call at the bench tool's default shape",
          "path": "bn_relu_matmul forward + backward", "status": "ok",
          "fp32": {"ms": k3_default["float32"]["ms"],

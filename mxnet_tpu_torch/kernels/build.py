@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded through ``ctypes``. The
 output lives in ``mxnet_tpu_torch/_build/<hash>/``, keyed on a hash of
-the source text and the flags, so an edit rebuilds and an unchanged
-source loads the library already built. ``ptxas -v`` output (registers,
+the source text, of every ``csrc/`` header it includes (``#include
+"..."``, followed recursively) and of the flags, so an edit to either
+rebuilds and an unchanged source loads the library already built. ``ptxas -v`` output (registers,
 shared memory, spills) is kept beside each library as ``<name>.log``.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,31 @@ def nvcc_path():
                      "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _csrc_files(src, seen=None):
+    """``src`` and every ``csrc/`` file it includes with ``#include
+    "..."``, recursively, each once, in include order."""
+    seen = [] if seen is None else seen
+    seen.append(src)
+    with open(src, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        path = os.path.join(os.path.dirname(src), inc.decode())
+        if os.path.exists(path) and path not in seen:
+            _csrc_files(path, seen)
+    return seen
+
+
 def _lib_path(name):
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in _csrc_files(src):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read())
+    digest.update(" ".join(FLAGS).encode())
     return src, os.path.join(_BUILD, digest.hexdigest()[:16],
                              f"lib{name}.so")
 

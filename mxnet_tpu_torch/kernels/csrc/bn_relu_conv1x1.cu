@@ -19,29 +19,39 @@
 // tile, write out once, and never write the normalised activation; W and
 // scale/shift are small and stay in L2.
 //
-// Design (simple first, see PERF.md for its times):
-//   - bf16: one block of 256 threads per tile of 64 output channels x
-//     128 columns, where the columns run over the flattened (sample,
-//     position) axis N = B*S, so small maps (7x7, 14x14) fill whole
-//     tiles and each staged W chunk serves 128 columns. 8 warps each
-//     multiply a 32x32 sub-tile with wmma 16x16x16 bf16 fragments into
-//     fp32 accumulators (mma.sync underneath). A thread loads, normalises
-//     and stores V adjacent columns at once (V = 8, 4, 2 or 1: the widest
-//     that S and the pointers' alignment allow), which cuts the
-//     per-element instructions that bound the staging; when a warp's
-//     lanes share their rows, the chunk's scales and shifts reach them by
-//     shuffle instead of a load per element.
+// Design. bf16 has two routes, chosen on the host before the launch by
+// ops/fused_bn_conv.py::_k1_plan from shapes and pointer alignment:
+//   - wgmma (bn_gemm_wgmma.cuh, entry mxtt_bn_relu_conv1x1_wgmma): every
+//     ResNet-50 site. The product is transposed per sample, out^T = z^T
+//     W^T, so the normalised x is wgmma's register operand: BN-apply,
+//     ReLU and the one rounding happen in registers between the shared
+//     stage and the tensor cores. A producer warp keeps a 3-stage
+//     mbarrier ring full by TMA (x through a 3-D tensor map where S % 8
+//     == 0; one 1-D cp.async.bulk per sample where the 392- or 98-byte
+//     channel stride of the 14x14 and 7x7 maps rules a tensor map out),
+//     so loads overlap the math; the persistent grid keeps the output
+//     tiles that share an x tile adjacent, and the output leaves through
+//     a staged, S-contiguous TMA or bulk store that overlaps the next
+//     tile. This is what was missing below: the WMMA kernel stages one
+//     32-channel chunk ahead through registers with two block barriers a
+//     chunk, normalises element by element into shared memory, and at
+//     S = 49 falls to 2-byte accesses.
+//   - wmma (bn_relu_conv1x1_bf16 below, entry mxtt_bn_relu_conv1x1):
+//     what the wgmma route does not take: C not a multiple of 64, O not
+//     a multiple of 8, a pointer not 16-byte aligned, S % 8 != 0 with S
+//     above 256. One block of 256 threads per tile of 64 output channels
+//     x 128 columns, where the columns run over the flattened (sample,
+//     position) axis N = B*S; 8 warps each multiply a 32x32 sub-tile
+//     with wmma 16x16x16 bf16 fragments into fp32 accumulators. A thread
+//     loads, normalises and stores V adjacent columns at once (V = 8, 4,
+//     2 or 1: the widest that S and the pointers' alignment allow).
 //   - fp32: one block of 128 threads per (sample, 64 output channels,
 //     64 positions) tile; each thread accumulates an 8x4 block with fp32
 //     FMA (no TF32, so an fp32 Predictor computes in full fp32).
-// Both walk C in chunks of 32, staging the W chunk and the normalised x
-// chunk in shared memory. Each thread owns a fixed column of both staged
-// tiles and a strided set of their rows, loaded into registers by fully
-// unrolled loops; the next chunk's loads are issued before the current
-// chunk's products, so their latency overlaps the math instead of every
-// element waiting on its own load. Every edge is masked: any B, C, O and
-// S (S = 49 and 196 at ResNet-50's late stages). A multi-stage cp.async
-// pipeline, wgmma, TMA and a persistent schedule are later work.
+// The wmma and fp32 kernels walk C in chunks of 32, staging the W chunk
+// and the normalised x chunk in shared memory; the next chunk's loads are
+// issued before the current chunk's products. Every edge is masked: any
+// B, C, O and S.
 //
 // C interface, loaded with ctypes; returns cudaGetLastError() after the
 // launch (0 = launched).
@@ -50,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "bn_gemm_wgmma.cuh"
 
 namespace {
 
@@ -380,4 +392,27 @@ extern "C" int mxtt_bn_relu_conv1x1(int dtype, const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The wgmma route (bn_gemm_wgmma.cuh), bf16 only. route: 1 = x through a
+// 3-D tensor map (S % 8 == 0), 2 = x by one 1-D bulk copy per sample
+// (per_tile whole samples a tile). The tiles, stages, shared-memory bytes
+// and grid are the host plan's (_k1_plan); a plan this kernel cannot run
+// is refused with cudaErrorInvalidValue before any launch.
+extern "C" int mxtt_bn_relu_conv1x1_wgmma(
+    const void* x, const void* w, const void* scale, const void* shift,
+    void* out, int B, int C, int O, int S, int relu, int route, int bm,
+    int bn, int stages, int per_tile, int smem_bytes, int grid,
+    void* stream) {
+  if (B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == wg::K1_TMA)
+    return wg::launch<wg::K1_TMA>(x, w, scale, shift, out, B, C, O, S, 0,
+                                  relu, bm, bn, stages, per_tile,
+                                  smem_bytes, grid, st);
+  if (route == wg::K1_BULK)
+    return wg::launch<wg::K1_BULK>(x, w, scale, shift, out, B, C, O, S, 0,
+                                   relu, bm, bn, stages, per_tile,
+                                   smem_bytes, grid, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,17 +25,30 @@
 // ridge of ~295, so the kernel is bound by its bytes: read x once per
 // 64-wide column tile, write out once.
 //
-// Design (simple first, see PERF.md for its times):
-//   - bf16: one block of 256 threads per 128 x 64 output tile; 8 warps
-//     (4 x 2) each multiply a 32x32 sub-tile with wmma 16x16x16 bf16
-//     fragments into fp32 accumulators; the output tile goes through
-//     shared memory so its rows are written V columns at a time.
+// Design. bf16 has two routes, chosen on the host before the launch by
+// ops/fused_bn_conv.py::_k3_plan from shapes and pointer alignment:
+//   - wgmma (bn_gemm_wgmma.cuh, shared with K1; entry
+//     mxtt_bn_relu_matmul_wgmma): K a multiple of 64, N of 8, every
+//     pointer 16-byte aligned (the bench shape and ResNet-50's 1x1 shapes
+//     in NHWC). x is wgmma's register operand (ldmatrix from a swizzled
+//     TMA stage, BN-apply and ReLU in fp32, one rounding), W the shared
+//     operand (N-major: wgmma's transpose bit); a producer warp keeps a
+//     3-stage mbarrier ring full by TMA, a persistent grid walks 256 x
+//     128 output tiles with the N tiles of one row tile adjacent (x
+//     re-read from L2), and each tile leaves through a staged TMA store
+//     that overlaps the next tile. The WMMA kernel below had, at K = 64,
+//     two register-staged chunks a block and little else to overlap.
+//   - wmma (bn_relu_matmul_bf16 below, entry mxtt_bn_relu_matmul): the
+//     other shapes. One block of 256 threads per 128 x 64 output tile; 8
+//     warps (4 x 2) each multiply a 32x32 sub-tile with wmma 16x16x16
+//     bf16 fragments into fp32 accumulators; the output tile goes
+//     through shared memory so its rows are written V columns at a time.
 //   - fp32: one block of 128 threads per 64 x 64 tile; each thread
 //     accumulates an 8x4 block with fp32 FMA (no TF32).
-// Both walk K in chunks of 32. A thread's share of the next chunk is
-// loaded into registers before the current chunk's products, so the
-// loads overlap the math. Every edge is masked: any M, K and N. The M
-// tiles run along grid x (up to 2^31 - 1), the N tiles along grid y.
+// The wmma and fp32 kernels walk K in chunks of 32; a thread's share of
+// the next chunk is loaded into registers before the current chunk's
+// products. Every edge is masked: any M, K and N. The M tiles run along
+// grid x (up to 2^31 - 1), the N tiles along grid y.
 //
 // C interface, loaded with ctypes; returns cudaGetLastError() after the
 // launch (0 = launched).
@@ -44,6 +57,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "bn_gemm_wgmma.cuh"
 
 namespace {
 
@@ -355,4 +370,18 @@ extern "C" int mxtt_bn_relu_matmul(int dtype, const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The wgmma route (bn_gemm_wgmma.cuh), bf16 only; tiles, stages,
+// shared-memory bytes and grid are the host plan's (_k3_plan); a plan this
+// kernel cannot run is refused with cudaErrorInvalidValue before any
+// launch.
+extern "C" int mxtt_bn_relu_matmul_wgmma(
+    const void* x, const void* w, const void* scale, const void* shift,
+    void* out, long long M, int K, int N, int relu, int bm, int bn,
+    int stages, int smem_bytes, int grid, void* stream) {
+  if (M < 1 || M > 2147483647LL) return (int)cudaErrorInvalidValue;
+  return wg::launch<wg::K3_TMA>(x, w, scale, shift, out, 1, K, N, 1, M,
+                                relu, bm, bn, stages, 1, smem_bytes,
+                                grid, (cudaStream_t)stream);
 }

@@ -5,11 +5,13 @@ kernel wrappers, the two graph ops the rewrite passes substitute, and
 Kernel wrappers (forward kernels; their outputs carry no gradient):
 
 - ``bn_relu_conv_nchw`` — K1, the fused BN-apply+ReLU+1x1 conv
-  (``kernels/csrc/bn_relu_conv1x1.cu``).
+  (``kernels/csrc/bn_relu_conv1x1.cu``; bf16 on the wgmma core of
+  ``kernels/csrc/bn_gemm_wgmma.cuh`` where ``_k1_plan`` allows).
 - ``bn_act_prologue`` — K2, the BN-apply(+ReLU) prologue
   (``kernels/bn_prologue_triton.py``).
 - ``bn_relu_matmul_fwd`` — K3, the fused BN-apply(+ReLU)+matrix product
-  of a row-major (M, K) x (``kernels/csrc/bn_relu_matmul.cu``).
+  of a row-major (M, K) x (``kernels/csrc/bn_relu_matmul.cu``; bf16 on
+  the same wgmma core where ``_k3_plan`` allows).
 - ``bn_backward_reduce`` — B1, the BN backward's per-channel sums
   (``kernels/bn_backward_triton.py``).
 - ``bn_backward_dx`` — B2, the BN backward's dx assembly (same file).
@@ -18,6 +20,15 @@ A wrapper given a CUDA tensor launches its kernel or raises; it never
 falls back to its plain version (``<name>_plain``), which only CPU and
 meta tensors take (meta: shape inference). Each wrapper counts its
 launches in ``<wrapper>.launches``.
+
+K1 and K3 choose their kernel before the launch, from shapes, dtype and
+pointer alignment, by a plan (``_k1_plan``, ``_k3_plan``: route, tiles,
+stages, shared memory, grid) that the C entry checks and runs; never
+after a failure. Routes: ``wgmma_tma`` (x by TMA tensor map),
+``wgmma_bulk`` (K1 only: x by one 1-D bulk copy per sample, for spatial
+sizes whose channel stride no tensor map can describe), ``wmma`` (the
+first kernels, for shapes the wgmma core does not take) and ``fp32``.
+``route_counts()`` counts launches per route.
 
 Differentiable ops, each a ``torch.autograd.Function`` whose backward is
 the JAX package's custom VJP:
@@ -49,6 +60,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -63,7 +76,7 @@ __all__ = ["bn_relu_conv_nchw", "bn_relu_conv_nchw_plain",
            "bn_backward_reduce", "bn_backward_reduce_plain",
            "bn_backward_dx", "bn_backward_dx_plain",
            "select_conv_tiles", "conv_tile_failure", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "route_counts", "KernelPlan"]
 
 # output-tile candidates of the TPU kernels, largest first (the pass's
 # applicability rule, and bn_relu_matmul's bm/bn rule)
@@ -155,6 +168,22 @@ def _launch_rc(name, rc):
         raise MXNetError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _align(*ts):
+    """The largest power of two (up to 256) that divides every tensor's
+    address."""
+    a = 256
+    for t in ts:
+        p = t.data_ptr()
+        if p:
+            a = min(a, p & -p)
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _c_entry(source, symbol, argtypes):
     """The C entry point ``symbol`` of ``csrc/<source>.cu``, its library
     built and loaded on first use (``kernels/build.py`` caches it)."""
@@ -164,6 +193,122 @@ def _c_entry(source, symbol, argtypes):
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return fn
+
+
+# ---------------------------------------------------------------------------
+# K1 / K3 plans: which kernel a call runs, decided before the launch
+# ---------------------------------------------------------------------------
+class KernelPlan(NamedTuple):
+    """How a K1 or K3 call runs, from shapes, dtype and alignment."""
+    route: str        # "wgmma_tma", "wgmma_bulk", "wmma" or "fp32"
+    bm: int           # tile rows: positions (K1) or rows of M (K3)
+    bn: int           # tile columns: output channels (O or N)
+    stages: int       # stages in flight (register-staged kernels: 1)
+    per_tile: int     # wgmma_bulk: whole samples per row tile; else 1
+    smem_bytes: int   # dynamic shared memory (0: static only)
+    grid: tuple       # (x, y, z) blocks
+
+
+# the wgmma core's constants (kernels/csrc/bn_gemm_wgmma.cuh): tiles of
+# 256 x 128 or 128 x 256 (rows x output channels), 64 channels a stage
+_WG_TILES = ((256, 128), (128, 256))
+_WG_BK = 64
+_WG_MAX_STAGES = 4
+SMEM_PER_BLOCK = 232448                    # an H100 block's limit
+_ROUTE_IDS = {"wgmma_tma": 1, "wgmma_bulk": 2}
+# launches per route since the last reset_launch_counts()
+_ROUTE_COUNTS = {
+    "bn_relu_conv_nchw": dict.fromkeys(("wgmma_tma", "wgmma_bulk", "wmma",
+                                        "fp32"), 0),
+    "bn_relu_matmul_fwd": dict.fromkeys(("wgmma_tma", "wmma", "fp32"), 0)}
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _wg_plan(route, tile, x_bytes, c, per_tile, tiles, n_sm):
+    """The wgmma core's plan for ``tile`` = (rows, columns), or None when
+    no two stages fit. Shared memory: 1 KB to align the ring, the ring
+    (x part, W part), the output staging, (scale, shift) in fp32 and two
+    mbarriers a stage."""
+    bm, bn = tile
+    fixed = 1024 + bm * bn * 2 + 8 * c
+    stage = x_bytes + bn * _WG_BK * 2 + 16
+    stages = min(_WG_MAX_STAGES, (SMEM_PER_BLOCK - fixed) // stage)
+    if stages < 2:
+        return None
+    return KernelPlan(route, bm, bn, stages, per_tile,
+                      fixed + stages * stage, (min(tiles, n_sm), 1, 1))
+
+
+def _wg_tile(n_out, rows=0):
+    """(rows, columns) of the wgmma tile: 128 x 256 for at least 256
+    output channels (x is read, and normalised, once per 256 of them,
+    which measured faster at every such ResNet-50 site) when ``rows``
+    whole rows fit in 128, else 256 x 128."""
+    wide = n_out >= 256 and rows <= _WG_TILES[1][0]
+    return _WG_TILES[1] if wide else _WG_TILES[0]
+
+
+def _k1_wmma_plan(b, c, o, s):
+    """The plan of K1's first (WMMA) bf16 kernel, which takes any shape
+    and alignment."""
+    return KernelPlan("wmma", 128, 64, 1, 1, 0,
+                      (_cdiv(o, 64), _cdiv(b * s, 128), 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k1_plan(b, c, o, s, dtype, align=256, n_sm=132):
+    """K1's plan for x (b, c, s positions) and w (o, c) in ``dtype``,
+    every pointer a multiple of ``align`` bytes. bf16 takes the wgmma
+    core when c is a multiple of 64, o of 8 and the pointers of 16:
+    through a 3-D tensor map over x when s % 8 == 0 (s >= 64), so its
+    channel stride is a multiple of 16 bytes; else, for s <= 256, by one
+    1-D bulk copy of each sample's 64-channel chunk (contiguous in NCHW),
+    as many whole samples a tile as its rows hold. Other shapes take the
+    WMMA kernel; fp32 its own."""
+    if dtype == torch.float32:
+        return KernelPlan("fp32", 64, 64, 1, 1, 0,
+                          (_cdiv(s, 64), _cdiv(o, 64), b))
+    plan = None
+    if align % 16 == 0 and c % _WG_BK == 0 and o % 8 == 0:
+        if s % 8 == 0 and s >= 64:
+            bm, bn = tile = _wg_tile(o)
+            plan = _wg_plan("wgmma_tma", tile, bm * _WG_BK * 2, c, 1,
+                            b * _cdiv(s, bm) * _cdiv(o, bn), n_sm)
+        elif s <= _WG_TILES[0][0]:
+            bm, bn = tile = _wg_tile(o, s)
+            per = bm // s
+            plan = _wg_plan("wgmma_bulk", tile,
+                            _cdiv(per * _WG_BK * s * 2, 1024) * 1024, c, per,
+                            _cdiv(b, per) * _cdiv(o, bn), n_sm)
+    return plan or _k1_wmma_plan(b, c, o, s)
+
+
+def _k3_wmma_plan(m, k, n):
+    """The plan of K3's first (WMMA) bf16 kernel, which takes any shape
+    and alignment."""
+    return KernelPlan("wmma", 128, 64, 1, 1, 0,
+                      (_cdiv(m, 128), _cdiv(n, 64), 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k3_plan(m, k, n, dtype, align=256, n_sm=132):
+    """K3's plan for x (m, k) and w (k, n) in ``dtype``, every pointer a
+    multiple of ``align`` bytes: bf16 takes the wgmma core (x and W by
+    2-D tensor maps, out by TMA store) when k is a multiple of 64, n of 8
+    and the pointers of 16; other shapes the WMMA kernel; fp32 its
+    own."""
+    if dtype == torch.float32:
+        return KernelPlan("fp32", 64, 64, 1, 1, 0,
+                          (_cdiv(m, 64), _cdiv(n, 64), 1))
+    plan = None
+    if align % 16 == 0 and k % _WG_BK == 0 and n % 8 == 0 and m < 2 ** 31:
+        bm, bn = tile = _wg_tile(n)
+        plan = _wg_plan("wgmma_tma", tile, bm * _WG_BK * 2, k, 1,
+                        _cdiv(m, bm) * _cdiv(n, bn), n_sm)
+    return plan or _k3_wmma_plan(m, k, n)
 
 
 # ---------------------------------------------------------------------------
@@ -201,17 +346,40 @@ def bn_relu_conv_nchw(x, w, scale, shift, relu=True):
     if b > 65535 or b * o * h * wd >= 2 ** 31:
         raise MXNetError(f"bn_relu_conv_nchw: shape {tuple(x.shape)} -> "
                          f"{o} channels is out of the kernel's range")
+    # out, a fresh allocation of PyTorch's CUDA allocator, starts on a
+    # 512-byte boundary
+    plan = _k1_plan(b, c, o, h * wd, x.dtype, _align(x, w),
+                    _n_sm(x.device.index))
+    out = _k1_run(x, w, scale, shift, relu, plan)
+    bn_relu_conv_nchw.launches += 1
+    _ROUTE_COUNTS["bn_relu_conv_nchw"][plan.route] += 1
+    return out
+
+
+def _k1_run(x, w, scale, shift, relu, plan):
+    """Launches K1's kernel of ``plan`` on checked CUDA tensors (counts
+    nothing: ``bn_relu_conv_nchw`` counts its launches)."""
+    b, c, h, wd = x.shape
+    o = w.shape[0]
     out = torch.empty((b, o, h, wd), dtype=x.dtype, device=x.device)
-    fn = _c_entry("bn_relu_conv1x1", "mxtt_bn_relu_conv1x1",
-                  [ctypes.c_int] + [ctypes.c_void_p] * 5
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            out.data_ptr())
     with _on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-                scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b, c, o,
-                h * wd, int(bool(relu)), stream)
+        if plan.route in _ROUTE_IDS:
+            fn = _c_entry("bn_relu_conv1x1", "mxtt_bn_relu_conv1x1_wgmma",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+                          + [ctypes.c_void_p])
+            rc = fn(*ptrs, b, c, o, h * wd, int(bool(relu)),
+                    _ROUTE_IDS[plan.route], plan.bm, plan.bn, plan.stages,
+                    plan.per_tile, plan.smem_bytes, plan.grid[0], stream)
+        else:
+            fn = _c_entry("bn_relu_conv1x1", "mxtt_bn_relu_conv1x1",
+                          [ctypes.c_int] + [ctypes.c_void_p] * 5
+                          + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            rc = fn(_KERNEL_DTYPES[x.dtype], *ptrs, b, c, o, h * wd,
+                    int(bool(relu)), stream)
     _launch_rc("bn_relu_conv1x1", rc)
-    bn_relu_conv_nchw.launches += 1
     return out
 
 
@@ -292,22 +460,40 @@ def bn_relu_matmul_fwd(x, w, scale, shift, relu=True):
     if m * n >= 2 ** 31 or n > 64 * 65535:
         raise MXNetError(f"bn_relu_matmul: ({m}, {k}) @ ({k}, {n}) is out "
                          "of the kernel's range")
+    if m * n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=x.dtype, device=x.device)
+    # out, a fresh allocation, starts on a 512-byte boundary
+    plan = _k3_plan(m, k, n, x.dtype, _align(x, w), _n_sm(x.device.index))
+    out = _k3_run(x, w, scale, shift, relu, plan)
+    bn_relu_matmul_fwd.launches += 1
+    _ROUTE_COUNTS["bn_relu_matmul_fwd"][plan.route] += 1
+    return out
+
+
+def _k3_run(x, w, scale, shift, relu, plan):
+    """Launches K3's kernel of ``plan`` on checked CUDA tensors (counts
+    nothing: ``bn_relu_matmul_fwd`` counts its launches)."""
+    m, k = x.shape
+    n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    if k == 0:
-        return out.zero_()
-    fn = _c_entry("bn_relu_matmul", "mxtt_bn_relu_matmul",
-                  [ctypes.c_int] + [ctypes.c_void_p] * 5
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                  + [ctypes.c_void_p])
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            out.data_ptr())
     with _on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-                scale.data_ptr(), shift.data_ptr(), out.data_ptr(), m, k, n,
-                int(bool(relu)), stream)
+        if plan.route in _ROUTE_IDS:
+            fn = _c_entry("bn_relu_matmul", "mxtt_bn_relu_matmul_wgmma",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            rc = fn(*ptrs, m, k, n, int(bool(relu)), plan.bm, plan.bn,
+                    plan.stages, plan.smem_bytes, plan.grid[0], stream)
+        else:
+            fn = _c_entry("bn_relu_matmul", "mxtt_bn_relu_matmul",
+                          [ctypes.c_int] + [ctypes.c_void_p] * 5
+                          + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                          + [ctypes.c_void_p])
+            rc = fn(_KERNEL_DTYPES[x.dtype], *ptrs, m, k, n,
+                    int(bool(relu)), stream)
     _launch_rc("bn_relu_matmul", rc)
-    bn_relu_matmul_fwd.launches += 1
     return out
 
 
@@ -429,14 +615,24 @@ _WRAPPERS = (bn_relu_conv_nchw, bn_act_prologue, bn_relu_matmul_fwd,
 
 
 def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count, and K1's and K3's counts
+    per route, to 0."""
     for f in _WRAPPERS:
         f.launches = 0
+    for counts in _ROUTE_COUNTS.values():
+        for r in counts:
+            counts[r] = 0
 
 
 def launch_counts():
     """{wrapper name: launches since the last reset}."""
     return {f.__name__: f.launches for f in _WRAPPERS}
+
+
+def route_counts():
+    """{K1 / K3 wrapper name: {route: launches since the last reset}}
+    (routes as in ``KernelPlan.route``)."""
+    return {k: dict(v) for k, v in _ROUTE_COUNTS.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 
 from . import interop, serving
 from .model_zoo.symbols import resnet
+from .profile_training import PORT_KERNELS
 
 
 def _sync_ms(fn, iters):
@@ -86,8 +87,9 @@ def main(argv=None):
         if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + dev_us
     total_ms = sum(per_kernel.values()) / 1e3
+    subs = PORT_KERNELS["K1"] + PORT_KERNELS["K2"]
     ours = {k: v for k, v in per_kernel.items()
-            if "bn_relu_conv1x1" in k or "_bn_act" in k}
+            if any(sub in k for sub in subs)}
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "phase": "device", "card": card, "forwards": a.iters,

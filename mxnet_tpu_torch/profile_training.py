@@ -34,10 +34,15 @@ import torch
 from . import initializer, io, mod
 from .model_zoo.symbols import resnet
 
-# substrings of the device-kernel names of the port's own kernels
-PORT_KERNELS = {"K1": "bn_relu_conv1x1", "K2": "_bn_act",
-                "K3": "bn_relu_matmul", "B1": "_bn_bwd_reduce",
-                "B1 second stage": "_bn_bwd_sum_parts", "B2": "_bn_bwd_dx"}
+# substrings of the device-kernel names of the port's own kernels (K1's
+# and K3's wgmma core is bn_gemm_wgmma<mode, ...>: modes 1-2 K1, 3 K3)
+PORT_KERNELS = {"K1": ("bn_relu_conv1x1", "bn_gemm_wgmma<1,",
+                       "bn_gemm_wgmma<2,"),
+                "K2": ("_bn_act",),
+                "K3": ("bn_relu_matmul", "bn_gemm_wgmma<3,"),
+                "B1": ("_bn_bwd_reduce",),
+                "B1 second stage": ("_bn_bwd_sum_parts",),
+                "B2": ("_bn_bwd_dx",)}
 
 
 def card():
@@ -148,8 +153,9 @@ def main(argv=None):
         if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + dev_us
     total_ms = sum(per_kernel.values()) / 1e3
-    ours = {name: sum(v for k, v in per_kernel.items() if sub in k) / 1e3
-            / a.iters for name, sub in PORT_KERNELS.items()}
+    ours = {name: sum(v for k, v in per_kernel.items()
+                      if any(sub in k for sub in subs)) / 1e3 / a.iters
+            for name, subs in PORT_KERNELS.items()}
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:20]
     print(json.dumps({
         "phase": "device", "card": smi, "steps": a.iters,
