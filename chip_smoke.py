@@ -22,14 +22,30 @@ script exits non-zero and prints no result. Phases:
    kernel it replaced on the same inputs (``wmma_ms``, checked against
    the same tolerance); ``k1_serving_sites`` sums up the per-site rows;
    ``k1_host_cost`` reads the host microseconds a K1 call costs.
+3b. capture_smoke: one launch each of K1 (TMA and bulk routes), K2, B1
+   and B2 captured in a CUDA graph through the compile registry,
+   replayed twice and held bit for bit against the eager call; the
+   launch counters count the replays and not the capture. Then a K2
+   capture (``thread_local``, as a Predictor bucket first seen on a
+   batcher thread captures) during which another thread launches K2 on
+   its own stream: that launch counts once, the capture's at each
+   replay.
 4. serving: ResNet-50 (random weights from seed 0) behind a bf16
-   ``Predictor`` and a ``DynamicBatcher`` on ``cuda:0``; concurrent
-   requests of 1, 5, 37 and 64 rows; launch counts per bucket call;
-   top-1 agreement (on the rows the fp32 graph decides by a margin) and
-   logit error against the fp32 plain graph on the card, and a probe
-   that plants a fault at one K1 site and expects these checks to
-   reject it; img/s and request latency. The 28 K1 launches of every
-   bucket call must have taken the wgmma core.
+   ``Predictor`` and a ``DynamicBatcher`` on ``cuda:0``, every bucket
+   captured as a CUDA graph at warm-up; concurrent requests of 1, 5, 37
+   and 64 rows; launch counts per bucket call (counted from replays)
+   and the compile registry's delta (replays only: no capture, no
+   retrace after warm-up); top-1 agreement (on the rows the fp32 graph
+   decides by a margin) and logit error against the fp32 plain graph on
+   the card, and a probe that plants a fault at one K1 site of a
+   bucket captured with it and expects these checks to reject it; img/s
+   and request latency. The 28 K1 launches of every bucket call must
+   have taken the wgmma core. Then ``serving_captured_check`` (every
+   bucket's replay, and a 5-row request in bucket 8, against the eager
+   forward: bit-identical or within twice the spread of two eager runs)
+   and ``serving_ab`` (runs of 20 bucket-64 requests, eager and
+   captured interleaved: host ms median and spread, CUDA-event ms, the
+   H2D / forward / D2H split, memory, busy share).
 5. training kernels: K3 (the fused BN-apply+ReLU+matrix product) forward
    and gradient, bf16 and fp32, at the bench tool's default shape and at
    ResNet-50's 1x1 shapes in NHWC at batch 128, plus ragged shapes; B1
@@ -49,9 +65,18 @@ script exits non-zero and prints no result. Phases:
    graph) and moving statistics (against the plain bf16 graph), limits
    from the plain graphs' readings; a fault probe for each (B2 in the
    fp32 backward, K1 in the bf16 forward) that the checks must reject;
-   then 3 warm-up and 20 timed steps over 4 staged batches with the
-   launches per step of every kernel (K1's 28 on the wgmma core),
-   memory and each step's loss.
+   then 3 warm-up steps (the first eager, the second captures the step
+   as a CUDA graph) and 20 timed replays over 4 staged batches with the
+   launches per step of every kernel (K1's 28 on the wgmma core, counted
+   from replays), memory and each step's loss. Then
+   ``training_captured_check`` (three eager steps against three
+   replays from the same init at lr 0.1, 0.05, 0.025: losses, weights,
+   momenta, aux, bit-identical or within twice the spread of two eager
+   runs; a replay whose lr write is skipped and one whose batch-2 input
+   copy is skipped must fail it), ``training_ab`` (runs of 20 steps,
+   eager and captured interleaved, as ``serving_ab``) and the
+   ``compile_report`` line (programs, captures, replays, retraces, the
+   cache as not applicable).
 8. rtc_build: the user's CUDA C++ kernels (K4, the user-kernel hook)
    compiled at run time through ``rtc.CudaModule``, with the ptxas
    report; the user's Triton kernel is compiled at its first launch.
@@ -1111,7 +1136,6 @@ def training_phase(mt, torch, np, smi):
             w[:, :32] = 0
         return real_k1(x, w, scale, shift, relu)
 
-    faulty_dx.launches = faulty_k1.launches = 0
     try:
         fb.bn_backward_dx = faulty_dx
         probe32 = one_step_grads(f32_mod)
@@ -1162,6 +1186,7 @@ def training_phase(mt, torch, np, smi):
         pt.run_step(model, batches[i % 4])
     torch.cuda.synchronize()
     n_steps = 20
+    totals0 = registry_totals(mt)
     fb.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -1173,6 +1198,7 @@ def training_phase(mt, torch, np, smi):
     dt = time.perf_counter() - t1
     launches = fb.launch_counts()
     routes = fb.route_counts()["bn_relu_conv_nchw"]
+    registry = registry_delta(totals0, registry_totals(mt))
     losses = [float(v) for v in losses]
     emit({"phase": "training_speed", "batch": batch, "steps": n_steps,
           "img_per_s": n_steps * batch / dt, "ms_per_step": dt / n_steps
@@ -1182,8 +1208,16 @@ def training_phase(mt, torch, np, smi):
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
           / 1e9, "memory_allocated_before_gb": allocated_before,
           "one_step_memory": {"fused_bf16": f16[3], "plain_bf16": p16[3]},
-          "losses": losses, "setup_s": t1 - t0, "card": smi})
+          "losses": losses, "setup_s": t1 - t0,
+          "counted_from": "CUDA graph replays (compile registry)",
+          "compile_report_delta": registry,
+          "program": pt.step_program(model).as_dict(), "card": smi})
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(len(set(losses)) > 1, f"every step read one loss {losses}")
+    check(registry["replays"] == n_steps and registry["fresh_compiles"] == 0
+          and registry["retraces"] == 0,
+          f"after warm-up every step must be a replay of the captured "
+          f"step: {registry} over {n_steps} steps")
     check(launches["bn_relu_conv_nchw"] == 28 * n_steps
           and launches["bn_act_prologue"] == 60 * n_steps
           and launches["bn_backward_reduce"] == 44 * n_steps
@@ -1194,6 +1228,398 @@ def training_phase(mt, torch, np, smi):
           f"training K1 routes {routes} over {n_steps} steps: the 28 K1 "
           "sites a step must take the wgmma core")
     return launches, n_steps, routes
+
+
+# ---------------------------------------------------------------------------
+# The captured programs (CUDA graphs): capture_smoke, the captured step's
+# and the captured buckets' checks against the eager forms, and the
+# interleaved eager / captured A/Bs of one tree
+# ---------------------------------------------------------------------------
+CAPTURE_SMOKE_BATCH = 8
+# one eager step or request run, then one captured, in this order, each
+# AB_STEPS steps (training) or bucket-64 requests (serving)
+AB_RUNS = ("eager", "captured", "captured", "eager", "eager", "captured",
+           "captured", "eager")
+AB_STEPS = 20
+AB_TRACE_STEPS = 5
+# the learning rates of the three checked steps (a schedule, so a replay
+# that reads a stale lr differs from the eager step)
+CHECK_LRS = (0.1, 0.05, 0.025)
+KERNEL_WRAPPERS = {"K1": "bn_relu_conv_nchw", "K2": "bn_act_prologue",
+                   "B1": "bn_backward_reduce", "B2": "bn_backward_dx"}
+
+
+def registry_totals(mt):
+    return dict(mt.compile_report()["totals"])
+
+
+def registry_delta(before, after):
+    return {k: after[k] - before[k] for k in ("programs", "fresh_compiles",
+                                               "replays", "retraces")}
+
+
+def capture_smoke(mt, torch, gen):
+    """Phase 3b: one launch of each kernel of the captured paths (K1 on
+    the TMA and on the bulk route, K2, B1, B2; bf16, ResNet-50 site
+    shapes at batch 8) captured in a CUDA graph through the compile
+    registry, replayed twice and held bit for bit against the same call
+    made eagerly; the launch counters must count the two replays and not
+    the capture."""
+    from mxnet_tpu_torch import compile as cm
+    fb = mt.ops.fused_bn_conv
+    bf = torch.bfloat16
+    b = CAPTURE_SMOKE_BATCH
+
+    def rnd(*shape, dtype=bf, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=gen,
+                                            device="cuda")).to(dtype)
+
+    def k1(c, hw, o):
+        x, w = rnd(b, c, hw, hw), rnd(o, c, scale=c ** -0.5)
+        sc, sh = rnd(c, scale=0.2, shift=1.0), rnd(c, scale=0.2)
+        return [b, c, hw, hw, o], lambda: fb.bn_relu_conv_nchw(x, w, sc, sh)
+
+    x2 = rnd(b, 256, 28, 28)
+    sc2, sh2 = rnd(256, scale=0.2, shift=1.0), rnd(256, scale=0.2)
+    dy, xb, xh = (rnd(b, 256, 14, 14) for _ in range(3))
+    scb, cx, c0 = (rnd(256, dtype=torch.float32) for _ in range(3))
+    cases = (("K1", "wgmma_tma") + k1(64, 56, 256),
+             ("K1", "wgmma_bulk") + k1(256, 14, 1024),
+             ("K2", None, list(x2.shape),
+              lambda: fb.bn_act_prologue(x2, sc2, sh2)),
+             ("B1", None, list(dy.shape),
+              lambda: fb.bn_backward_reduce(dy, xb, xh)),
+             ("B2", None, list(dy.shape),
+              lambda: fb.bn_backward_dx(dy, xb, xh, scb, cx, c0)))
+    for name, route, shape, fn in cases:
+        want = fn()                  # eager: warms the kernel; reference
+        torch.cuda.synchronize()
+        before = fb.counter_state()
+        prog = cm.CapturedProgram(cm.program_key(
+            "capture_smoke", f"capture_smoke:{name}:{route}",
+            input_sigs=(shape,), extra={"kernel": name, "route": route},
+            device="cuda"))
+        got = prog.capture(fn)
+        at_capture = fb.counter_state()
+        prog.replay()
+        prog.replay()
+        torch.cuda.synchronize()
+        after = fb.counter_state()
+        delta = {k: v - before[k] for k, v in after.items()
+                 if v != before[k]}
+        wrapper = KERNEL_WRAPPERS[name]
+        expect = {wrapper: 2}
+        if route:
+            expect[f"{wrapper}/{route}"] = 2
+        row = {"phase": "capture_smoke", "kernel": name, "route": route,
+               "shape": shape, "bit_identical": bool(torch.equal(got, want)),
+               "max_abs_diff": float((got.float() - want.float()).abs()
+                                     .max()),
+               "capture_counted": at_capture != before,
+               "launches_after_two_replays": delta,
+               "capture_s": prog.record.capture_s}
+        emit(row)
+        check(row["bit_identical"],
+              f"capture_smoke {name}: the replay differs from the eager "
+              f"call: {row}")
+        check(not row["capture_counted"],
+              f"capture_smoke {name}: the capture left launch counts")
+        check(delta == expect, f"capture_smoke {name}: launches {delta}, "
+                               f"expected {expect}")
+
+    # another thread's launch during a capture counts once, as it ran
+    x3 = rnd(*x2.shape)
+    want_other = fb.bn_act_prologue(x3, sc2, sh2)
+    other = torch.cuda.Stream()
+    got_other = []
+
+    def launch_elsewhere():
+        with torch.cuda.stream(other):
+            got_other.append(fb.bn_act_prologue(x3, sc2, sh2))
+        other.synchronize()
+
+    def with_other_thread():
+        t = threading.Thread(target=launch_elsewhere)
+        t.start()
+        t.join()
+        return fb.bn_act_prologue(x2, sc2, sh2)
+
+    torch.cuda.synchronize()
+    before = fb.counter_state()
+    prog = cm.CapturedProgram(cm.program_key(
+        "capture_smoke", "capture_smoke:K2:other_thread",
+        input_sigs=(list(x2.shape),), extra={"kernel": "K2"},
+        device="cuda"))
+    got = prog.capture(with_other_thread, capture_error_mode="thread_local")
+    at_capture = fb.counter_state()
+    prog.replay()
+    prog.replay()
+    torch.cuda.synchronize()
+    after = fb.counter_state()
+    row = {"phase": "capture_smoke", "kernel": "K2",
+           "route": "other_thread",
+           "launches_at_capture": {k: v - before[k]
+                                   for k, v in at_capture.items()
+                                   if v != before[k]},
+           "launches_after_two_replays": {k: v - before[k]
+                                          for k, v in after.items()
+                                          if v != before[k]},
+           "bit_identical": bool(torch.equal(got, fb.bn_act_prologue(
+               x2, sc2, sh2)) and torch.equal(got_other[0], want_other))}
+    emit(row)
+    check(row["bit_identical"], f"capture_smoke K2 other_thread: {row}")
+    check(row["launches_at_capture"] == {"bn_act_prologue": 1}
+          and row["launches_after_two_replays"] == {"bn_act_prologue": 3},
+          f"capture_smoke K2 other_thread: launches {row}")
+
+
+def train_state(f, losses):
+    """The state a fused step leaves, grouped: each step's loss, the fp32
+    masters, the momenta and the aux, as copies."""
+    return {"loss": {f"step{i + 1}": v.detach().float().reshape(1).clone()
+                     for i, v in enumerate(losses)},
+            "weights": {n: p.detach().clone() for n, p in f._p.items()},
+            "momentum": {n: s[0].clone() for n, s in f._state.items()},
+            "aux": {n: v.clone() for n, v in f._aux.items()}}
+
+
+def state_diff(torch, got, want):
+    """Per group: whether every tensor is bit-identical, and the worst
+    relative L2 difference over its tensors."""
+    out = {}
+    for g in want:
+        errs = {n: rel_l2(got[g][n], want[g][n]) for n in want[g]}
+        worst = max(errs, key=errs.get)
+        out[g] = {"bit_identical": all(torch.equal(got[g][n], want[g][n])
+                                       for n in want[g]),
+                  "worst_rel_l2": errs[worst], "worst": worst}
+    return out
+
+
+def same_within(diff, spread):
+    """Groups of ``diff`` that break the captured checks' rule: a group
+    passes when bit-identical, or within twice the spread of two eager
+    runs (``spread``, the same measure)."""
+    return [g for g in diff if not diff[g]["bit_identical"]
+            and diff[g]["worst_rel_l2"] > 2 * spread[g]["worst_rel_l2"]]
+
+
+def training_captured_check(torch, batches):
+    """Two Modules from the same init: three eager steps (twice, for the
+    spread) against three captured steps (replays) at lr 0.1, 0.05 and
+    0.025: each step's loss, every master weight, momentum and aux; then
+    two planted faults the check must reject (replays whose lr write is
+    skipped, and a replay whose batch-2 input copy is skipped)."""
+    from mxnet_tpu_torch import profile_training as pt
+    feeds = [{"data": b.data[0], "softmax_label": b.label[0]}
+             for b in batches[:3]]
+    fe = pt.build_module(TRAIN_BATCH, SEED)._fused
+    fc = pt.build_module(TRAIN_BATCH, SEED)._fused
+    init = [{n: t.clone() for n, t in d.items()} for d in fe.params()]
+
+    def run(f, step, skip_lr=(), stale=()):
+        f.load_params(*init)
+        for s in f._state.values():
+            s[0].zero_()
+        losses = []
+        for i, (feed, lr) in enumerate(zip(feeds, CHECK_LRS)):
+            if i in stale:
+                f._load_inputs = lambda prog, vals: None
+            try:
+                step(feed, None if i in skip_lr else lr)
+            finally:
+                f.__dict__.pop("_load_inputs", None)
+            losses.append(f.last_loss)
+        torch.cuda.synchronize()
+        return train_state(f, losses)
+
+    # the captured step's program: a warm-up step, then the capture
+    fc.step(feeds[0], 0.1)
+    fc.step(feeds[1], 0.1)
+    (prog,) = fc._programs.values()
+    check(prog.captured, "the fused step was not captured")
+    eager1 = run(fe, fe.step_eager)
+    eager2 = run(fe, fe.step_eager)
+    replays0 = prog.record.replays
+    captured = run(fc, fc.step)
+    check(prog.record.replays - replays0 == 3 and prog.record.captures == 1,
+          f"captured steps were not replays: {prog.record.as_dict()}")
+    probes = {"lr_write_skipped": run(fc, fc.step, skip_lr=(1, 2)),
+              "batch2_copy_skipped": run(fc, fc.step, stale=(1,))}
+    spread = state_diff(torch, eager2, eager1)
+    diff = state_diff(torch, captured, eager1)
+    fails = same_within(diff, spread)
+    rejected = {k: same_within(state_diff(torch, v, eager1), spread)
+                for k, v in probes.items()}
+    emit({"phase": "training_captured_check", "batch": TRAIN_BATCH,
+          "lrs": list(CHECK_LRS),
+          "against": "three eager steps of a Module from the same init "
+                     "(FusedSymbolStep.step_eager); captured: three "
+                     "replays of the step's CUDA graph",
+          "captured_vs_eager": diff, "eager_spread": spread,
+          "rule": "per group: bit-identical, or worst relative L2 <= 2 x "
+                  "the eager spread (the same measure between two eager "
+                  "runs from the same state)",
+          "program": prog.record.as_dict(), "failures": fails,
+          "probes_rejected_by": rejected})
+    check(not fails, f"captured training step against eager: {fails}")
+    for k, v in rejected.items():
+        check(v, f"the captured-step check passes a planted fault ({k})")
+
+
+def ab_summary(runs, key):
+    """Per mode: the runs' values of ``key``, their median and their
+    spread ((max - min) / median)."""
+    out = {}
+    for mode in ("eager", "captured"):
+        vals = [r[key] for r in runs if r["mode"] == mode]
+        med = statistics.median(vals)
+        out[mode] = {"runs": vals, "median": med,
+                     "spread": (max(vals) - min(vals)) / med}
+    return out
+
+
+def timed_runs(torch, run_one, n):
+    """``n`` calls of ``run_one(i)``: host-clock ms per call (ended by a
+    sync) and the median of CUDA events around each call (device clock),
+    max memory allocated and reserved."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run_one(i)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    return {"host_ms": host,
+            "event_ms": statistics.median(a.elapsed_time(b)
+                                          for a, b in events),
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_reserved_gb":
+                torch.cuda.max_memory_reserved() / 1e9}
+
+
+def training_ab(torch, smi, batches):
+    """Interleaved runs of the Module step on one tree, eager and
+    captured (``AB_RUNS``, ``AB_STEPS`` steps each): host-clock ms per
+    step (median, spread), device ms per step (CUDA events), memory, and
+    per mode a ``torch.profiler`` window's busy share."""
+    from mxnet_tpu_torch import profile_training as pt
+    model = pt.build_module(TRAIN_BATCH, SEED)
+    pt.run_step(model, batches[0])      # the warm-up step (eager)
+    # a replay allocates nothing, so max_memory_allocated does not see
+    # the graph's private pool: read the memory the capture reserved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    pt.run_step(model, batches[1])      # the capture
+    pool_gb = (torch.cuda.memory_reserved() - reserved0) / 1e9
+    for i in range(3):
+        pt.run_step(model, batches[i % 4])
+        pt.run_step(model, batches[i % 4], eager=True)
+    rec = pt.step_program(model)
+    runs = []
+    for mode in AB_RUNS:
+        eager = mode == "eager"
+        r = timed_runs(torch, lambda i: pt.run_step(
+            model, batches[i % 4], eager), AB_STEPS)
+        runs.append(dict(r, mode=mode))
+    busy = {}
+    for mode in ("eager", "captured"):
+        tr = pt.device_trace(lambda i: pt.run_step(
+            model, batches[i % 4], mode == "eager"), AB_TRACE_STEPS)
+        s = pt.busy_summary(tr, AB_TRACE_STEPS)
+        busy[mode] = {k: s[k] for k in ("device_busy_share",
+                                        "device_kernel_ms_per_step",
+                                        "traced_wall_ms")}
+    row = {"phase": "training_ab", "batch": TRAIN_BATCH,
+           "steps_per_run": AB_STEPS, "order": list(AB_RUNS),
+           "host_ms_per_step": ab_summary(runs, "host_ms"),
+           "event_ms_per_step": ab_summary(runs, "event_ms"),
+           "memory": dict({m: {k: max(r[k] for r in runs
+                                      if r["mode"] == m)
+                               for k in ("max_memory_allocated_gb",
+                                         "max_memory_reserved_gb")}
+                           for m in ("eager", "captured")},
+                          captured_graph_pool_reserved_gb=pool_gb),
+           "busy": busy, "program": rec.as_dict(), "card": smi}
+    emit(row)
+    check(rec.captures == 1, f"the A/B's step was captured "
+                             f"{rec.captures} times")
+    return row
+
+
+def serving_captured_check(np, pred, rng):
+    """Every bucket's replayed forward against the eager forward of the
+    same Predictor on the same request (two eager runs give the spread),
+    and a 5-row request padded into bucket 8."""
+    rows = []
+    for b in pred.buckets + (5,):
+        x = rng.standard_normal((b, 3, 224, 224)).astype(np.float32)
+        e1, e2 = pred.predict_eager(x), pred.predict_eager(x)
+        got = pred.predict(x)
+        spread = float(np.abs(e2 - e1).max())
+        diff = float(np.abs(got - e1).max())
+        ok = bool(np.array_equal(got, e1)) or diff <= 2 * spread
+        rows.append({"rows": b, "bucket": pred.bucket_for(b),
+                     "shape": list(got.shape),
+                     "bit_identical": bool(np.array_equal(got, e1)),
+                     "max_abs_diff": diff, "eager_spread": spread,
+                     "ok": ok})
+    emit({"phase": "serving_captured_check",
+          "rule": "bit-identical, or max |replay - eager| <= 2 x max "
+                  "|eager - eager| (two eager runs of the request)",
+          "requests": rows})
+    check(all(r["ok"] for r in rows), f"captured buckets against eager: "
+                                      f"{rows}")
+
+
+def serving_ab(torch, smi, pred, x):
+    """Interleaved runs of bucket-64 requests on one Predictor, eager
+    (``predict_eager``) and captured (``predict``): host-clock ms per
+    request (median, spread), device ms (CUDA events), the H2D /
+    forward-or-replay / D2H split, memory, and per mode a profiler
+    window's busy share."""
+    from mxnet_tpu_torch import profile_serving as ps
+    from mxnet_tpu_torch import profile_training as pt
+    calls = {"eager": pred.predict_eager, "captured": pred.predict}
+    for fn in calls.values():
+        fn(x)
+    runs = [dict(timed_runs(torch, lambda i: calls[mode](x), AB_STEPS),
+                 mode=mode) for mode in AB_RUNS]
+    split_captured, prog = ps.captured_split(pred, x, AB_STEPS)
+    with pred._lock, torch.inference_mode():
+        replay_ms = ps.replay_event_ms(prog, AB_STEPS)
+    busy = {}
+    for mode, fn in calls.items():
+        tr = pt.device_trace(lambda i: fn(x), AB_STEPS)
+        s = pt.busy_summary(tr, AB_STEPS, what="request")
+        busy[mode] = {k: s[k] for k in ("device_busy_share",
+                                        "device_kernel_ms_per_request",
+                                        "traced_wall_ms")}
+    row = {"phase": "serving_ab", "bucket": x.shape[0],
+           "requests_per_run": AB_STEPS, "order": list(AB_RUNS),
+           "host_ms_per_request": ab_summary(runs, "host_ms"),
+           "event_ms_per_request": ab_summary(runs, "event_ms"),
+           "split_ms": {"eager": ps.eager_split(pred, x, AB_STEPS),
+                        "captured": split_captured},
+           "device_ms_per_replay": replay_ms,
+           "memory": {m: {k: max(r[k] for r in runs if r["mode"] == m)
+                          for k in ("max_memory_allocated_gb",
+                                    "max_memory_reserved_gb")}
+                      for m in ("eager", "captured")},
+           "busy": busy,
+           "program": dict(prog.record.as_dict(),
+                           launches_per_replay=prog.launches),
+           "card": smi}
+    emit(row)
+    return row
 
 
 def k4_build(mt):
@@ -1743,6 +2169,9 @@ def main():
     except mt.MXNetError as e:
         emit({"phase": "kernel", "raises_on_unsupported_dtype": str(e)})
 
+    # 3b. each kernel of the captured paths inside a CUDA graph ---------------
+    capture_smoke(mt, torch, gen)
+
     # 4. serving -------------------------------------------------------------
     t0 = time.perf_counter()
     args, aux = mt.interop.init_params(sym, {"data": (batch, 3, 224, 224)},
@@ -1755,8 +2184,11 @@ def main():
     check(sites_applied == {"pallas_fusion": 28, "residual_fusion": 17},
           f"pass sites {sites_applied}")
     batcher = mt.serving.DynamicBatcher(pred, max_wait_us=20000)
-    batcher.start()                     # warms every bucket
+    batcher.start()          # warms and captures every bucket
     setup_s = time.perf_counter() - t0
+    check(pred.retraces == len(pred.buckets),
+          f"{pred.retraces} programs captured for {pred.buckets}")
+    totals0 = registry_totals(mt)
     rng = np.random.default_rng(SEED)
     reqs = {r: rng.standard_normal((r, 3, 224, 224)).astype(np.float32)
             for r in (1, 5, 37, 64)}
@@ -1782,11 +2214,19 @@ def main():
     launches = fb.launch_counts()
     serving_routes = fb.route_counts()["bn_relu_conv_nchw"]
     n_calls = calls() - calls0
+    serving_registry = registry_delta(totals0, registry_totals(mt))
     check(len(results) == len(reqs), "a request did not complete")
     emit({"phase": "serving_launches", "bucket_calls": n_calls,
           "launches": launches, "k1_routes": serving_routes,
           "per_bucket_call": {k: v / max(n_calls, 1)
-                              for k, v in launches.items()}})
+                              for k, v in launches.items()},
+          "counted_from": "CUDA graph replays (compile registry)",
+          "compile_report_delta": serving_registry})
+    check(serving_registry["replays"] == n_calls
+          and serving_registry["fresh_compiles"] == 0
+          and serving_registry["retraces"] == 0,
+          f"after warm-up every bucket call must be a replay of a "
+          f"captured program: {serving_registry} over {n_calls} calls")
     check(n_calls >= 1 and launches["bn_relu_conv_nchw"] == 28 * n_calls
           and launches["bn_act_prologue"] == 17 * n_calls,
           f"kernel launches {launches} over {n_calls} bucket calls")
@@ -1823,7 +2263,8 @@ def main():
 
     # the same comparison with a fault planted at one K1 site (its first
     # 32 input channels dropped, as a kernel that skipped a chunk would):
-    # the checks above must reject it
+    # the checks above must reject it. A replay calls no Python, so the
+    # fault goes into a bucket-64 Predictor captured while it is planted
     real_k1 = fb.bn_relu_conv_nchw
     calls_k1 = [0]
 
@@ -1834,12 +2275,17 @@ def main():
             w[:, :32] = 0
         return real_k1(x, w, scale, shift, relu)
 
-    faulty_k1.launches = 0   # the wrapper counts under the name it has
     fb.bn_relu_conv_nchw = faulty_k1
     try:
-        faulty = pred.predict(reqs[64])
+        fault_pred = mt.serving.Predictor(
+            sym, args, aux, data_shapes={"data": (3, 224, 224)},
+            buckets=(64,), compute_dtype="bfloat16", device="cuda:0")
+        faulty = fault_pred.predict(reqs[64])
     finally:
         fb.bn_relu_conv_nchw = real_k1
+    check(fault_pred.retraces == 1, "the fault probe's bucket was not "
+                                    "captured")
+    del fault_pred
     cmp_fault = compare_to_fp32(ref, faulty, plain16)
     fails = served_path_failures(cmp_fault)
     emit(dict({"phase": "serving_fault_probe", "fault": f"K1 site "
@@ -1884,12 +2330,38 @@ def main():
           "setup_s": setup_s,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": smi})
+    serving_captured_check(np, pred, rng)
+    serving_ab(torch, smi, pred, x64)
 
     # 5.-7. training -----------------------------------------------------------
     per_step, k3_default, k1_sites = train_kernel_phase(mt, torch, gen)
     k3_launches, k3_routes = k3_path(mt, torch, gen)
     train_launches, n_steps, train_routes = training_phase(mt, torch, np,
                                                            smi)
+    from mxnet_tpu_torch import profile_training as pt
+    batches = pt.staged_batches(TRAIN_BATCH, 4, SEED)
+    training_captured_check(torch, batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_ab(torch, smi, batches)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = mt.compile_report()
+    emit({"phase": "compile_report",
+          "programs": [{k: p[k] for k in ("name", "kind", "captures",
+                                          "capture_s", "replays")}
+                       for p in report["programs"]],
+          "totals": report["totals"], "retraces": report["retraces"],
+          "retraces_note": "an entry point is a program name: Predictors "
+                           "and Modules of one symbol built with another "
+                           "configuration (the plain references, the "
+                           "fault probe, fp32) count as its retraces; "
+                           "the serving and training runs after warm-up "
+                           "took none (compile_report_delta in "
+                           "serving_launches and training_speed)",
+          "cache": report["cache"]})
+    check(report["cache"]["enabled"] is False, "compile cache enabled")
 
     # 8.-12. K4 and the imperative (Gluon) path ------------------------------
     fns = k4_build(mt)

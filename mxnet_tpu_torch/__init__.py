@@ -15,7 +15,9 @@ training it: ``mod.Module`` with the fused step, ``init``, ``optimizer``,
 imperative path: ``nd`` (NDArray), ``autograd``, ``gluon`` (Blocks,
 layers, losses, Trainer, the ResNet model zoo), ``random``, and
 ``operator`` / ``rtc``, the hook that runs a user's CUDA or Triton
-kernel as an op.
+kernel as an op. Slice 6 captures the fused training step and each
+Predictor bucket as CUDA graphs on the card, under the program keys,
+registry and retrace guard of ``compile`` (``compile_report()``).
 """
 from . import base, config, context
 from .base import MXNetError
@@ -39,9 +41,12 @@ from . import io, lr_scheduler, metric, optimizer
 from . import module
 from . import module as mod
 from . import gluon
+from . import compile
+from .compile import compile_report
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
            "random", "seed", "autograd", "operator", "ndarray", "nd", "rtc",
            "symbol", "sym", "interop", "serving", "initializer", "init", "io",
-           "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon"]
+           "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon",
+           "compile", "compile_report"]

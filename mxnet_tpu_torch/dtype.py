@@ -13,7 +13,7 @@ _ALIASES = {
     "float64": torch.float64, "float16": torch.float16,
     "half": torch.float16, "bfloat16": torch.bfloat16,
     "uint8": torch.uint8, "int8": torch.int8, "int32": torch.int32,
-    "int64": torch.int64, "bool": torch.bool,
+    "int64": torch.int64, "uint32": torch.uint32, "bool": torch.bool,
 }
 # mshadow type codes (reference: include/mxnet/base.h / mshadow base.h)
 _CODE2DTYPE = {0: torch.float32, 1: torch.float64, 2: torch.float16,
@@ -21,7 +21,8 @@ _CODE2DTYPE = {0: torch.float32, 1: torch.float64, 2: torch.float16,
 _TORCH2NP = {torch.float32: np.float32, torch.float64: np.float64,
              torch.float16: np.float16, torch.uint8: np.uint8,
              torch.int8: np.int8, torch.int32: np.int32,
-             torch.int64: np.int64, torch.bool: np.bool_}
+             torch.int64: np.int64, torch.uint32: np.uint32,
+             torch.bool: np.bool_}
 
 
 def resolve_dtype(dtype):

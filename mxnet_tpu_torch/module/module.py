@@ -7,7 +7,9 @@ In the steady state (``init_optimizer`` with a local or no kvstore and
 ``FusedSymbolStep`` per batch (module/fused.py): a training ``forward``
 stashes the batch, ``backward`` does nothing, and ``update`` runs the
 forward, the implicit-loss backward, the optimizer update and the
-BatchNorm aux fold. That is the only training path of the port:
+BatchNorm aux fold, on the card as a captured CUDA graph. ``set_params``
+after ``init_optimizer`` copies into the step's master tensors, which a
+graph holds by address. That is the only training path of the port:
 ``fused=False`` (the eager per-parameter Updater loop), multiple
 contexts (the device mesh), distributed kvstores, ``group2ctxs`` and
 explicit ``out_grads`` are not ported and raise.
@@ -333,7 +335,14 @@ class Module(BaseModule):
                 "differentiates the graph's implicit losses")
 
     def update(self):
-        """Run the fused step on the stashed training batch."""
+        """Run the fused step on the stashed training batch: the
+        schedule's learning rate goes into the step's device scalar,
+        then the step runs (a CUDA graph replay on the card)."""
+        self._update()
+
+    def _update(self, eager=False):
+        """``update``; with ``eager`` around ``FusedSymbolStep.step_eager``
+        in place of the graph (an A/B of the two on one tree)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         if self._feed is None:
@@ -342,8 +351,10 @@ class Module(BaseModule):
                 "forward(batch, is_train=True) first")
         o = self._optimizer
         nu = self._fused.num_update + 1
-        lr = o.lr_scheduler(nu) if o.lr_scheduler is not None else o.lr
-        self._outputs = self._fused.step(self._feed, lr)
+        self._fused.set_lr(o.lr_scheduler(nu) if o.lr_scheduler is not None
+                           else o.lr)
+        step = self._fused.step_eager if eager else self._fused.step
+        self._outputs = step(self._feed)
         self._feed = None
         o.num_update = self._fused.num_update
 

@@ -19,7 +19,10 @@ Kernel wrappers (forward kernels; their outputs carry no gradient):
 A wrapper given a CUDA tensor launches its kernel or raises; it never
 falls back to its plain version (``<name>_plain``), which only CPU and
 meta tensors take (meta: shape inference). Each wrapper counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``. A call onto a stream that is
+capturing a CUDA graph launches nothing: it goes to that stream's
+``capture_tally``, which the compile registry adds to the counts at each
+replay (``add_counts``), so the counts say how many kernels ran.
 
 K1 and K3 choose their kernel before the launch, from shapes, dtype and
 pointer alignment, by a plan (``_k1_plan``, ``_k3_plan``: route, tiles,
@@ -61,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -76,7 +80,8 @@ __all__ = ["bn_relu_conv_nchw", "bn_relu_conv_nchw_plain",
            "bn_backward_reduce", "bn_backward_reduce_plain",
            "bn_backward_dx", "bn_backward_dx_plain",
            "select_conv_tiles", "conv_tile_failure", "reset_launch_counts",
-           "launch_counts", "route_counts", "KernelPlan"]
+           "launch_counts", "route_counts", "counter_state", "add_counts",
+           "capture_tally", "KernelPlan"]
 
 # output-tile candidates of the TPU kernels, largest first (the pass's
 # applicability rule, and bn_relu_matmul's bm/bn rule)
@@ -221,6 +226,46 @@ _ROUTE_COUNTS = {
     "bn_relu_conv_nchw": dict.fromkeys(("wgmma_tma", "wgmma_bulk", "wmma",
                                         "fp32"), 0),
     "bn_relu_matmul_fwd": dict.fromkeys(("wgmma_tma", "wmma", "fp32"), 0)}
+_count_lock = threading.Lock()
+_tallies = {}      # handle of a stream being captured -> its launches
+
+
+def _stream_handle(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _count(name, device, route=None):
+    """Count one launch of the wrapper ``name`` (on ``route``, for K1 and
+    K3) on ``device``'s current stream. A launch onto a stream inside
+    ``capture_tally`` is only recorded there: it runs at each replay,
+    which adds the tally. Stream, not thread: the autograd engine runs a
+    captured backward on its own thread, on the capturing stream."""
+    delta = {name: 1}
+    if route is not None:
+        delta[f"{name}/{route}"] = 1
+    tally = _tallies.get(_stream_handle(device)) if _tallies else None
+    if tally is None:
+        add_counts(delta)
+        return
+    with _count_lock:
+        for k, n in delta.items():
+            tally[k] = tally.get(k, 0) + n
+
+
+@contextlib.contextmanager
+def capture_tally(stream):
+    """Within this block, wrapper calls that launch onto ``stream`` (the
+    stream a CUDA graph captures) count into the yielded dict (keys as
+    ``counter_state``'s), not into the counters. Launches onto other
+    streams, from any thread, count as usual."""
+    handle = stream.cuda_stream
+    with _count_lock:
+        _tallies[handle] = tally = {}
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            del _tallies[handle]
 
 
 def _cdiv(a, b):
@@ -351,8 +396,7 @@ def bn_relu_conv_nchw(x, w, scale, shift, relu=True):
     plan = _k1_plan(b, c, o, h * wd, x.dtype, _align(x, w),
                     _n_sm(x.device.index))
     out = _k1_run(x, w, scale, shift, relu, plan)
-    bn_relu_conv_nchw.launches += 1
-    _ROUTE_COUNTS["bn_relu_conv_nchw"][plan.route] += 1
+    _count("bn_relu_conv_nchw", x.device, plan.route)
     return out
 
 
@@ -420,7 +464,7 @@ def bn_act_prologue(x, scale, shift, relu=True):
     if x.numel():
         with _on_device(x.device):
             bn_prologue_triton.launch(x, scale, shift, out, relu)
-        bn_act_prologue.launches += 1
+        _count("bn_act_prologue", x.device)
     return out
 
 
@@ -465,8 +509,7 @@ def bn_relu_matmul_fwd(x, w, scale, shift, relu=True):
     # out, a fresh allocation, starts on a 512-byte boundary
     plan = _k3_plan(m, k, n, x.dtype, _align(x, w), _n_sm(x.device.index))
     out = _k3_run(x, w, scale, shift, relu, plan)
-    bn_relu_matmul_fwd.launches += 1
-    _ROUTE_COUNTS["bn_relu_matmul_fwd"][plan.route] += 1
+    _count("bn_relu_matmul_fwd", x.device, plan.route)
     return out
 
 
@@ -552,7 +595,7 @@ def bn_backward_reduce(dxhat, x, xhat=None):
         with _on_device(x.device):
             bn_backward_triton.launch_reduce(dxhat, x, xhat, b, c, s,
                                              strides, out)
-        bn_backward_reduce.launches += 1
+        _count("bn_backward_reduce", x.device)
     return out
 
 
@@ -604,7 +647,7 @@ def bn_backward_dx(dxhat, x, xhat, scale, cx=None, c0=None):
         with _on_device(x.device):
             bn_backward_triton.launch_dx(dxhat, x, xhat, scale, cx, c0, out,
                                          c, s)
-        bn_backward_dx.launches += 1
+        _count("bn_backward_dx", x.device)
     return out
 
 
@@ -617,11 +660,12 @@ _WRAPPERS = (bn_relu_conv_nchw, bn_act_prologue, bn_relu_matmul_fwd,
 def reset_launch_counts():
     """Set every kernel wrapper's launch count, and K1's and K3's counts
     per route, to 0."""
-    for f in _WRAPPERS:
-        f.launches = 0
-    for counts in _ROUTE_COUNTS.values():
-        for r in counts:
-            counts[r] = 0
+    with _count_lock:
+        for f in _WRAPPERS:
+            f.launches = 0
+        for counts in _ROUTE_COUNTS.values():
+            for r in counts:
+                counts[r] = 0
 
 
 def launch_counts():
@@ -633,6 +677,28 @@ def route_counts():
     """{K1 / K3 wrapper name: {route: launches since the last reset}}
     (routes as in ``KernelPlan.route``)."""
     return {k: dict(v) for k, v in _ROUTE_COUNTS.items()}
+
+
+def counter_state():
+    """Every launch counter as one flat dict: ``{wrapper name: n}`` and
+    ``{"<wrapper name>/<route>": n}``."""
+    out = launch_counts()
+    for name, counts in _ROUTE_COUNTS.items():
+        out.update({f"{name}/{r}": n for r, n in counts.items()})
+    return out
+
+
+def add_counts(delta, times=1):
+    """Add ``times`` x ``delta`` (keys as ``counter_state``'s) to the
+    launch counters."""
+    wrappers = {f.__name__: f for f in _WRAPPERS}
+    with _count_lock:
+        for key, n in delta.items():
+            name, _, route = key.partition("/")
+            if route:
+                _ROUTE_COUNTS[name][route] += times * n
+            else:
+                wrappers[name].launches += times * n
 
 
 # ---------------------------------------------------------------------------

@@ -103,23 +103,56 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
         if pool_type == "sum":
             return torch.sum(data, dim=(2, 3), keepdim=True)
         return torch.mean(data, dim=(2, 3), keepdim=True)
-    if pooling_convention != "valid":
+    if pooling_convention not in ("valid", "full"):
         raise MXNetError(f"Pooling: pooling_convention="
                          f"{pooling_convention!r} is not supported")
     kernel = _tup(kernel, 2)
     stride = _tup(stride, 2) or (1, 1)
     pad = _tup(pad, 2) or (0, 0)
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError(f"Pooling: pool_type {pool_type!r} is not "
+                         "supported")
+    if pooling_convention == "full":
+        return _pool_full(data, kernel, pool_type, stride, pad,
+                          count_include_pad)
     if pool_type == "max":
         # padding counts as -inf, as the JAX op's reduce_window init does
         return F.max_pool2d(data, kernel, stride, pad)
     if pool_type == "avg":
         return F.avg_pool2d(data, kernel, stride, pad,
                             count_include_pad=bool(count_include_pad))
+    return F.avg_pool2d(data, kernel, stride, pad,
+                        count_include_pad=True) * (kernel[0] * kernel[1])
+
+
+def _pool_full(data, kernel, pool_type, stride, pad, count_include_pad):
+    """Pooling with ``pooling_convention="full"`` (ceil-mode output
+    size), as the JAX op computes it: each spatial axis is padded by
+    ``pad`` in front and behind by what ``ceil((x + 2p - k) / s) + 1``
+    windows need (at least ``pad``), then pooled without padding. Max
+    pads with -inf (the dtype's minimum for integers); avg divides by
+    the window size with ``count_include_pad``, else by the count of
+    input elements in the window; sum adds."""
+    pads = []
+    for x, k, s, p in zip(reversed(data.shape[2:]), reversed(kernel),
+                          reversed(stride), reversed(pad)):
+        out = -(-(x + 2 * p - k) // s) + 1
+        pads += [p, max((out - 1) * s + k - x - p, p)]
+    if pool_type == "max":
+        fill = float("-inf") if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        return F.max_pool2d(F.pad(data, pads, value=fill), kernel, stride)
+    avg = F.avg_pool2d(F.pad(data, pads), kernel, stride)
+    if pool_type == "avg" and count_include_pad:
+        return avg
+    summed = avg * (kernel[0] * kernel[1])
     if pool_type == "sum":
-        return F.avg_pool2d(data, kernel, stride, pad,
-                            count_include_pad=True) \
-            * (kernel[0] * kernel[1])
-    raise MXNetError(f"Pooling: pool_type {pool_type!r} is not supported")
+        return summed
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    counts = F.avg_pool2d(F.pad(ones, pads), kernel, stride) \
+        * (kernel[0] * kernel[1])
+    return summed / counts
 
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,

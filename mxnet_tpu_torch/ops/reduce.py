@@ -30,8 +30,35 @@ def _reduce(fn):
     return impl
 
 
-register_op("sum", aliases=["sum_axis"])(_reduce(torch.sum))
-register_op("mean")(_reduce(torch.mean))
+# result dtypes of the JAX package's integer sums (jnp.sum without x64):
+# narrower integers widen to 32 bits, int32 and uint32 keep their type;
+# torch.sum gives int64 for every integer input
+_SUM_DTYPES = {torch.bool: torch.int32, torch.int8: torch.int32,
+               torch.int16: torch.int32, torch.int32: torch.int32,
+               torch.uint8: torch.uint32, torch.uint16: torch.uint32,
+               torch.uint32: torch.uint32}
+
+
+def _sum(data, dim, keepdim):
+    out = torch.sum(data, dim=dim, keepdim=keepdim)
+    want = _SUM_DTYPES.get(data.dtype)
+    return out if want is None else out.to(want)
+
+
+def _mean(data, dim, keepdim):
+    """The mean of an integer or bool array is float32 and, as jnp.mean's
+    on XLA, the float32 sum times the float32 reciprocal of the count."""
+    if data.is_floating_point() or data.is_complex():
+        return torch.mean(data, dim=dim, keepdim=keepdim)
+    n = 1
+    for d in dim:
+        n *= data.shape[d]
+    return torch.sum(data.to(torch.float32), dim=dim, keepdim=keepdim) \
+        * (1.0 / n)
+
+
+register_op("sum", aliases=["sum_axis"])(_reduce(_sum))
+register_op("mean")(_reduce(_mean))
 register_op("max", aliases=["max_axis"])(_reduce(torch.amax))
 register_op("min", aliases=["min_axis"])(_reduce(torch.amin))
 

@@ -13,6 +13,13 @@ launch per operation for a whole group of parameters). Gradients are
 taken in fp32, multiplied by ``rescale_grad``, clipped, then ``wd * p``
 is added (``_g32``); momentum is ``mom = momentum*mom - lr*g`` and then
 ``p += mom``. The other rules of the JAX package are not ported yet.
+
+``lr`` is a Python float (the eager paths: ``Optimizer.update``, the
+Gluon Trainer) or a 0-dim fp32 tensor on the parameters' device (the
+fused step, whose captured CUDA graph reads it at every replay, as the
+JAX package's compiled step takes lr as a run-time argument). One body
+serves both: ``lr * g`` is one multiply either way. Momentum, wd,
+rescale and clip stay constants of the rule.
 """
 from __future__ import annotations
 
@@ -36,7 +43,8 @@ class FunctionalOptimizer:
     def update_(self, params, grads, states, lr, wd=0.0):
         """In place over lists: ``params`` (fp32), their ``grads`` (fp32,
         overwritten) and ``states`` (one state tuple per param), all with
-        the same ``lr`` and ``wd``."""
+        the same ``lr`` (a float or a 0-dim fp32 device tensor) and
+        ``wd``."""
         self._update_(params, grads, states, lr, wd)
 
 
@@ -101,13 +109,16 @@ def _make_sgd(kw):
         _g32_(grads, kw)
         if wd:
             torch._foreach_add_(grads, params, alpha=float(wd))
+        # lr * g, in place in the gradients (a float or a device scalar)
+        torch._foreach_mul_(grads, lr if isinstance(lr, torch.Tensor)
+                            else float(lr))
         if momentum:
             moms = [s[0] for s in states]
             torch._foreach_mul_(moms, float(momentum))
-            torch._foreach_add_(moms, grads, alpha=-float(lr))
+            torch._foreach_sub_(moms, grads)
             torch._foreach_add_(params, moms)
         else:
-            torch._foreach_add_(params, grads, alpha=-float(lr))
+            torch._foreach_sub_(params, grads)
 
     return FunctionalOptimizer("sgd", init, update, update_)
 

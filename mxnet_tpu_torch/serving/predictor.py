@@ -8,6 +8,23 @@ pads up to the nearest configured batch bucket, so a mixed stream of
 request sizes runs a small fixed set of batch shapes. Oversized requests
 split into largest-bucket chunks. The forward runs under
 ``torch.inference_mode()``.
+
+On a CUDA device each (bucket, request dtypes) is one captured program,
+as each is one compiled XLA program in the JAX package: a CUDA graph
+keyed by ``compile.program_key("predictor", ...)`` and noted by the
+retrace guard, captured at its first call (``warmup()`` calls every
+bucket) after one eager warm-up forward. A call stages the request's
+rows through a pinned host buffer into the static input in chunks (the
+host copy of one chunk overlaps the transfer of the last), zeroes the
+padding rows on the card, replays the graph and copies the outputs into
+pinned host buffers, then synchronises once. Calls are serialised by
+the predictor's lock and their outputs leave before it is released, so
+all buckets share one graph memory pool. A capture on a thread other
+than the main one (a bucket first seen by a batcher thread) uses
+``capture_error_mode="thread_local"``. A capture that fails raises.
+``predict_eager`` runs the same forward without a graph (for an A/B);
+the CPU always runs eagerly, unpinned, and keys its programs all the
+same, so ``retraces`` and ``compile_report()`` read alike on both.
 """
 from __future__ import annotations
 
@@ -18,14 +35,17 @@ import threading
 import numpy as np
 import torch
 
+from .. import compile as compile_mod
 from .. import config
 from ..base import MXNetError, torch_dtype
 from ..context import as_device
+from ..dtype import resolve_dtype
 from ..symbol import passes as _passes
 
 __all__ = ["Predictor", "default_buckets"]
 
 _IDS = itertools.count()
+_STAGE_CHUNKS = 8     # chunks of a request's staging through pinned memory
 
 
 def default_buckets():
@@ -152,6 +172,10 @@ class Predictor:
         self._run_sym = fused_sym if fused_sym is not None else symbol
 
         self.telemetry_id = f"{symbol.name or 'predictor'}#{next(_IDS)}"
+        self._programs = {}     # (bucket, dtypes) -> CapturedProgram
+        self._materialized = 0  # programs acquired BY this instance
+        self._pool = None       # the buckets' shared graph memory pool
+        self._symbol_sha = None
         self._lock = threading.Lock()
         self._bucket_calls = {b: 0 for b in self.buckets}
         self._bucket_rows = {b: 0 for b in self.buckets}
@@ -186,6 +210,112 @@ class Predictor:
                 return b
         return self.buckets[-1]
 
+    @property
+    def captured(self):
+        """True when buckets run as captured CUDA graphs."""
+        return self.device.type == "cuda"
+
+    @property
+    def retraces(self):
+        """Programs this predictor acquired (compile-registry accounting;
+        on the card, CUDA graphs captured): at most one per bucket and
+        request dtypes after warmup."""
+        return self._materialized
+
+    # -- compile registry (compile/ package) ----------------------------------
+    def _program_key(self, bucket, dtypes):
+        """The JAX package's predictor key materials
+        (``mxnet_tpu/serving/predictor.py`` ``_program_key``), less the
+        donation and hoisting ones this port lacks."""
+        if self._symbol_sha is None:
+            self._symbol_sha = compile_mod.symbol_digest(self.symbol)
+        sigs = tuple((n, (bucket,) + tuple(self.data_shapes[n]), dt)
+                     for n, dt in zip(self.data_names, dtypes))
+        fusion = {"flag": str(config.get("MXTPU_PALLAS_FUSION")),
+                  "sites": len(self.fusion_report["sites"])
+                  if self.fusion_report else 0}
+        extra = {"compute_dtype": str(self._cdt).replace("torch.", ""),
+                 "zero_args": sorted(self._zero_args)}
+        return compile_mod.program_key(
+            "predictor", f"predictor:{self.symbol.name}:b{bucket}",
+            symbol_sha=self._symbol_sha, input_sigs=sigs, fusion=fusion,
+            passes=_passes.pipeline_key_material(self.pass_report),
+            extra=extra, device=self.device)
+
+    def _program(self, bucket, dtypes):
+        """The program of ``bucket`` at the request's input dtypes (numpy
+        names, one per data name): acquired (and on the card captured) at
+        first use. Call under ``self._lock``."""
+        prog = self._programs.get((bucket, dtypes))
+        if prog is not None:
+            return prog
+        key = self._program_key(bucket, dtypes)
+        shapes = [(bucket,) + self.data_shapes[n] for n in self.data_names]
+        compile_mod.note_entry_point(key.name, key,
+                                     tuple(zip(shapes, dtypes)))
+        prog = compile_mod.CapturedProgram(key)
+        if self.captured:
+            self._capture(prog, shapes, dtypes)
+        self._programs[(bucket, dtypes)] = prog
+        self._materialized += 1
+        return prog
+
+    def _capture(self, prog, shapes, dtypes):
+        """Pinned and static input buffers, one eager warm-up forward on a
+        side stream, the capture, then pinned output buffers shaped like
+        the captured outputs."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        prog.pool = self._pool
+        prog.pinned_in = [torch.empty(s, dtype=resolve_dtype(d),
+                                      pin_memory=True)
+                          for s, d in zip(shapes, dtypes)]
+        prog.static = [torch.zeros(s, dtype=resolve_dtype(d),
+                                   device=self.device)
+                       for s, d in zip(shapes, dtypes)]
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.inference_mode():
+            self._forward(prog.static)
+        main.wait_stream(side)
+        side.synchronize()
+        mode = "global" if threading.current_thread() is \
+            threading.main_thread() else "thread_local"
+        try:
+            with torch.inference_mode():
+                prog.capture(lambda: self._forward(prog.static),
+                             capture_error_mode=mode)
+        except Exception as e:
+            raise MXNetError(f"capturing {prog.key.name} as a CUDA graph "
+                             f"failed: {e}") from e
+        prog.pinned_out = [torch.empty(o.shape, dtype=o.dtype,
+                                       pin_memory=True)
+                           for o in prog.outputs]
+
+    def _copy_in(self, prog, arrays, rows):
+        """The request's rows through the pinned buffers to the static
+        inputs, in up to ``_STAGE_CHUNKS`` chunks: the host copy of a
+        chunk (a float64 request cast on the way) overlaps the transfer
+        of the one before. The padding rows are zeroed on the card."""
+        step = -(-rows // _STAGE_CHUNKS)
+        for pin, st, a in zip(prog.pinned_in, prog.static, arrays):
+            host = pin.numpy()
+            for i in range(0, rows, step):
+                j = min(i + step, rows)
+                host[i:j] = a[i:j]
+                st[i:j].copy_(pin[i:j], non_blocking=True)
+            if rows < st.shape[0]:
+                st[rows:].zero_()
+
+    def _copy_out(self, prog):
+        """The outputs into the pinned buffers, one synchronize; numpy
+        copies (the buffers serve the next call)."""
+        for po, o in zip(prog.pinned_out, prog.outputs):
+            po.copy_(o, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [po.numpy().copy() for po in prog.pinned_out]
+
     # -- execution ------------------------------------------------------------
     def _forward(self, inputs):
         """The predict program on device tensors (one per data name, the
@@ -203,20 +333,31 @@ class Predictor:
         return [o.float() if self._cdt is not None and o.dtype == self._cdt
                 else o for o in outs]
 
-    def _run_bucket(self, arrays, rows, bucket):
+    def _run_bucket(self, arrays, rows, bucket, eager=False):
         """Pad name-ordered request arrays to ``bucket`` rows and run the
-        program. Returns trimmed numpy outputs."""
-        padded = []
-        for a in arrays:
-            if a.dtype == np.float64:   # as the JAX package (no x64)
-                a = a.astype(np.float32)
-            if rows != bucket:
-                pad = np.zeros((bucket - rows,) + a.shape[1:], a.dtype)
-                a = np.concatenate([a, pad], axis=0)
-            padded.append(torch.from_numpy(np.ascontiguousarray(a)))
+        bucket's program (on the card its CUDA graph, unless ``eager``).
+        Returns trimmed numpy outputs."""
+        # float64 runs as float32, as in the JAX package (no x64)
+        dtypes = tuple("float32" if a.dtype == np.float64 else a.dtype.name
+                       for a in arrays)
         with self._lock, torch.inference_mode():
-            outs = self._forward([t.to(self.device) for t in padded])
-            outs = [o.cpu().numpy() for o in outs]
+            if self.captured and not eager:
+                prog = self._program(bucket, dtypes)
+                self._copy_in(prog, arrays, rows)
+                prog.replay()
+                outs = self._copy_out(prog)
+            else:
+                if not self.captured:
+                    self._program(bucket, dtypes)
+                padded = [a.astype(dt, copy=False) if rows == bucket
+                          else np.concatenate([a.astype(dt, copy=False),
+                                               np.zeros((bucket - rows,)
+                                                        + a.shape[1:], dt)])
+                          for a, dt in zip(arrays, dtypes)]
+                outs = self._forward([torch.from_numpy(
+                    np.ascontiguousarray(a)).to(self.device)
+                    for a in padded])
+                outs = [o.cpu().numpy() for o in outs]
             self._bucket_calls[bucket] += 1
             self._bucket_rows[bucket] += rows
             self._bucket_pad_rows[bucket] += bucket - rows
@@ -251,13 +392,22 @@ class Predictor:
         """Run inference on one request: an array (single data input) or
         a dict name -> array, any leading batch size. Returns one numpy
         array (single output) or a list."""
+        return self._predict(data, eager=False)
+
+    def predict_eager(self, data):
+        """``predict`` without the captured graphs: the forward's kernels
+        launched from Python, pageable copies (the same as ``predict``
+        on the CPU)."""
+        return self._predict(data, eager=True)
+
+    def _predict(self, data, eager):
         arrays, n_rows = self.normalize_request(data)
         chunks = []
         for start in range(0, n_rows, self.max_batch):
             rows = min(n_rows - start, self.max_batch)
             chunks.append(self._run_bucket(
                 [a[start:start + rows] for a in arrays], rows,
-                self.bucket_for(rows)))
+                self.bucket_for(rows), eager))
         if len(chunks) == 1:
             outs = chunks[0]
         else:
@@ -268,11 +418,13 @@ class Predictor:
 
     def warmup(self):
         """Run every bucket once, so no live request pays first-call costs
-        (kernel builds, Triton compiles, cuDNN algorithm choice)."""
+        (kernel builds, Triton compiles, cuDNN algorithm choice, and on
+        the card the bucket's capture). Returns ``retraces``."""
         for b in self.buckets:
             self._run_bucket([np.zeros((b,) + self.data_shapes[n],
                                        np.float32)
                               for n in self.data_names], b, b)
+        return self.retraces
 
     # -- observability --------------------------------------------------------
     def report(self, reset=False):
@@ -293,6 +445,8 @@ class Predictor:
                     for e in self.pass_report["passes"]
                     if e["status"] == "applied"},
                 "compute_dtype": str(self._cdt) if self._cdt else None,
+                "retraces": self._materialized,
+                "captured": self.captured,
             }
             if reset:
                 for b in self.buckets:

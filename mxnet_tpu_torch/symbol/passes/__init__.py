@@ -15,11 +15,12 @@ The manager is ungated in this slice (see manager.py); ``bn_fold``,
 from .base import GraphPass, PassContext, rebuild_graph, resolve_flag, \
     flag_active
 from .manager import (PassManager, apply_pipeline, default_manager,
-                      legacy_fusion_entry)
+                      legacy_fusion_entry, pipeline_key_material)
 from .pallas_fusion import PallasFusionPass
 from .residual_fusion import ResidualFusionPass
 
 __all__ = ["GraphPass", "PassContext", "PassManager", "apply_pipeline",
-           "default_manager", "legacy_fusion_entry", "rebuild_graph",
+           "default_manager", "legacy_fusion_entry", "pipeline_key_material",
+           "rebuild_graph",
            "resolve_flag", "flag_active", "PallasFusionPass",
            "ResidualFusionPass"]

@@ -25,7 +25,7 @@ from ...base import MXNetError
 from .base import PassContext, flag_active
 
 __all__ = ["PassManager", "default_manager", "apply_pipeline",
-           "legacy_fusion_entry", "NOT_PORTED"]
+           "pipeline_key_material", "legacy_fusion_entry", "NOT_PORTED"]
 
 NOT_PORTED = ("bn_fold", "hoist", "int8_ptq", "bf16_cast")
 
@@ -117,6 +117,17 @@ def apply_pipeline(sym, shapes, *, tag, mode="serving", device=None,
     return default_manager().run(sym, shapes, tag=tag, mode=mode,
                                  device=device, compute_dtype=compute_dtype,
                                  data_names=data_names)
+
+
+def pipeline_key_material(report):
+    """The pipeline's contribution to a program's key: per pass (name,
+    resolved flag, status, rewritten-site count). Two builds that
+    resolved the pipeline differently are different programs."""
+    if not report:
+        return None
+    return [(e["pass"], e["flag"], e.get("status"),
+             len(e.get("sites") or ()))
+            for e in report["passes"]]
 
 
 def legacy_fusion_entry(report):
