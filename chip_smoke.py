@@ -77,6 +77,33 @@ script exits non-zero and prints no result. Phases:
    eager and captured interleaved, as ``serving_ab``) and the
    ``compile_report`` line (programs, captures, replays, retraces, the
    cache as not applicable).
+7b. fit (``bench.py`` phase A2): the phase-7 configuration through
+   ``Module.fit`` for 2 epochs of 40 batches (the 4 staged batches
+   cycled by ``io.ResizeIter``) with ``CompositeEvalMetric([Accuracy(),
+   TopKAccuracy(top_k=5)])`` counted inside the captured step and a
+   ``Speedometer(128, 20)``: epoch-1 img/s and ms a step against phase
+   7's captured median, the compile registry's delta (one capture and
+   one retrace naming ``extra.metrics`` for the metric attach),
+   K1/K2/B1/B2 launches a step from the replays (counts zeroed just
+   before the fit), every step between two metric reads run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), the
+   counters held against the host path on the same outputs for 10 steps
+   (accuracy exactly, top-5 within the rows tied at the 5th score), and
+   the same fit with two host-path ``CustomMetric``s as the A/B.
+7c. ft_guard (phase E, first half): guarded and unguarded captured
+   steps interleaved (median, spread, overhead); a planted ``nan_grad``
+   step that must leave params, momenta, aux and the metric counter
+   bit-identical with no new capture, ``fault_report`` 1 / 1 then 1 / 0;
+   its probe, a guard captured with its select bypassed, must fail; and
+   ``MXTPU_FT_MAX_CONSEC_SKIPS=2`` with three poisoned steps must raise
+   within 2K steps.
+7d. checkpoint (phase E, second half): ``CheckpointManager`` sync save
+   seconds and size, async submit and total seconds (3 steps run while
+   the files land; the async snapshot must equal the sync one); a fresh
+   Module restored from the checkpoint runs 3 steps that must be
+   bit-identical to the uninterrupted module's (a restore without the
+   momenta must fail); a truncated newest checkpoint falls back to the
+   previous one.
 8. rtc_build: the user's CUDA C++ kernels (K4, the user-kernel hook)
    compiled at run time through ``rtc.CudaModule``, with the ptxas
    report; the user's Triton kernel is compiled at its first launch.
@@ -105,16 +132,20 @@ script exits non-zero and prints no result. Phases:
    ms per step, memory, the losses (they must fall: the last below the
    first, all below the initial loss) and K4's launches per step (the
    loss's forward and backward).
-14. the kernels line, then the result line.
+14. the kernels line (K1/K2/B1/B2 also with their ``fit`` launches),
+   then the result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
 """
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1467,11 +1498,11 @@ def training_captured_check(torch, batches):
         check(v, f"the captured-step check passes a planted fault ({k})")
 
 
-def ab_summary(runs, key):
+def ab_summary(runs, key, modes=("eager", "captured")):
     """Per mode: the runs' values of ``key``, their median and their
     spread ((max - min) / median)."""
     out = {}
-    for mode in ("eager", "captured"):
+    for mode in modes:
         vals = [r[key] for r in runs if r["mode"] == mode]
         med = statistics.median(vals)
         out[mode] = {"runs": vals, "median": med,
@@ -2050,6 +2081,547 @@ def gluon_phases(mt, torch, np, smi, ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# bench.py main()'s phase A2 (fit with metrics and a Speedometer) and
+# phase E (the non-finite step guard; checkpoints) on the port
+# ---------------------------------------------------------------------------
+FIT_EPOCHS = 2
+FIT_BATCHES = 40          # an epoch: the 4 staged batches, cycled
+SPEEDO_FREQUENT = 20
+FIT_CHECK_STEPS = 10      # steps whose counters are held against the host
+FIT_TOP_K = 5
+# guarded and unguarded step runs, in this order, AB_STEPS steps each
+GUARD_AB_RUNS = ("guarded", "unguarded", "unguarded", "guarded", "guarded",
+                 "unguarded", "unguarded", "guarded")
+ABORT_AFTER = 2           # MXTPU_FT_MAX_CONSEC_SKIPS in the abort check
+RESUME_STEPS = 3
+
+
+def four_batches(mt, batches):
+    """A data iterator over the staged batches (on the card), one pass
+    of them an epoch; ``io.ResizeIter`` cycles it to an epoch's length,
+    as bench.py's phase A2 cycles its batches."""
+    class _Staged(mt.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=TRAIN_BATCH)
+            self.i = 0
+            self.provide_data = [mt.io.DataDesc(
+                "data", tuple(batches[0].data[0].shape))]
+            self.provide_label = [mt.io.DataDesc(
+                "softmax_label", tuple(batches[0].label[0].shape))]
+
+        def reset(self):
+            self.i = 0
+
+        def next(self):
+            if self.i >= len(batches):
+                raise StopIteration
+            self.i += 1
+            return batches[self.i - 1]
+    return _Staged()
+
+
+def fit_run(mt, torch, batches, metric, sync_window):
+    """One ``Module.fit`` of phase A2 on a fresh Module (the phase-7
+    configuration): 2 epochs of 40 batches, ``metric``, a
+    ``Speedometer(128, 20)``. With ``sync_window`` every step between two
+    metric reads runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a host sync there raises. Returns (model, epoch end times, steps
+    run in the window, registry delta, launches)."""
+    from mxnet_tpu_torch import profile_training as pt
+    fb = mt.ops.fused_bn_conv
+    model = pt.build_module(TRAIN_BATCH, SEED)
+    it = mt.io.ResizeIter(four_batches(mt, batches), FIT_BATCHES)
+    speedo = mt.callback.Speedometer(TRAIN_BATCH, SPEEDO_FREQUENT)
+    marks, window, events = [], [0], []
+
+    def on_batch(param):
+        last = param.nbatch == FIT_BATCHES - 1
+        if torch.cuda.get_sync_debug_mode() == 2:
+            window[0] += 1
+        if param.epoch == FIT_EPOCHS - 1:
+            # one event a step on the card's clock (no sync)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        # the metric is read at the Speedometer interval and (after the
+        # last batch) by the epoch log: syncs are allowed there
+        if last or param.nbatch % SPEEDO_FREQUENT == 0:
+            torch.cuda.set_sync_debug_mode(0)
+        speedo(param)
+        if last:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        elif sync_window and (param.epoch, param.nbatch) >= \
+                (0, SPEEDO_FREQUENT):
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    # the retrace guard keys entry points by name, and every Module of
+    # this symbol shares one: start this fit's report from nothing
+    mt.compile_report(reset=True)
+    totals0 = registry_totals(mt)
+    fb.reset_launch_counts()
+    try:
+        model.fit(it, eval_metric=metric, batch_end_callback=on_batch,
+                  kvstore=None, optimizer="sgd",
+                  optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                    "wd": 1e-4},
+                  num_epoch=FIT_EPOCHS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return (model, marks, window[0], registry_delta(
+        totals0, registry_totals(mt)), fb.launch_counts(),
+        statistics.median(gaps))
+
+
+def top_k_rows(np, out, labels, k):
+    """Per row of a step's outputs: the host path's top-k hit
+    (``numpy.argsort``, as ``metric.TopKAccuracy``) and whether the row
+    ties at its k-th score (where the two orders may differ)."""
+    x = out.float().cpu().numpy()
+    lab = labels.cpu().numpy().astype(np.int64)
+    order = np.argsort(x, axis=-1)[:, ::-1]
+    host_hit = (order[:, :k] == lab[:, None]).any(1)
+    srt = -np.sort(-x, axis=1)
+    return host_hit, srt[:, k - 1] == srt[:, k]
+
+
+def fit_phase(mt, torch, np, smi, batches, bare):
+    """Phase A2 of bench.py main() on the port: ``Module.fit`` with
+    ``CompositeEvalMetric([Accuracy(), TopKAccuracy(5)])`` counted inside
+    the captured step, against the same fit whose metrics are
+    ``CustomMetric``s (the host path: every step's outputs are copied to
+    the host). Then the in-step counters against the host path on the
+    same step outputs for 10 steps. Returns the in-step fit's launches
+    and steps."""
+    from mxnet_tpu_torch import profile_training as pt
+    from mxnet_tpu_torch.metric_device import top_k_hits
+
+    def acc_fn(label, pred):
+        return float((pred.argmax(1) == label.astype(np.int64)).sum()), \
+            len(label)
+
+    def top5_fn(label, pred):
+        top = np.argsort(pred, axis=-1)[:, -FIT_TOP_K:]
+        return float((top == label.astype(np.int64)[:, None]).any(1)
+                     .sum()), len(label)
+
+    def in_step():
+        return mt.metric.CompositeEvalMetric(
+            [mt.metric.Accuracy(), mt.metric.TopKAccuracy(top_k=FIT_TOP_K)])
+
+    def host_path():
+        return mt.metric.CompositeEvalMetric(
+            [mt.metric.CustomMetric(acc_fn, name="accuracy"),
+             mt.metric.CustomMetric(top5_fn, name="top_k_accuracy_5")])
+
+    em = in_step()
+    model, marks, window, delta, launches, event_ms = fit_run(
+        mt, torch, batches, em, True)
+    steps = FIT_EPOCHS * FIT_BATCHES
+    ms = (marks[1] - marks[0]) * 1e3 / FIT_BATCHES
+    name = next(iter(model._fused._programs.values())).key.name
+    events = mt.compile_report()["retraces"].get(name, {}).get("events",
+                                                               [])
+    attach_event = events[-1] if events else None
+    in_step_values = em.get()
+
+    # the counters against the host path on the same outputs (copies).
+    # After 80 steps over 4 batches the model has learnt their labels:
+    # every other row gets another label, so about half the rows miss
+    gen = torch.Generator(device=batches[0].label[0].device) \
+        .manual_seed(SEED + 7)
+    classes = model.output_shapes[0][1][1]
+    check_batches = []
+    for b in batches:
+        lab = b.label[0].clone()
+        lab[1::2] = (lab[1::2] + torch.randint(
+            1, classes, lab[1::2].shape, generator=gen, device=lab.device,
+            dtype=lab.dtype)) % classes
+        check_batches.append(mt.io.DataBatch([b.data[0]], [lab]))
+    em.reset()
+    ref_acc = mt.metric.Accuracy()
+    host_hits, tie_rows, mismatch_rows, dev_hits = 0, 0, [], 0
+    for i in range(FIT_CHECK_STEPS):
+        b = check_batches[i % 4]
+        pt.run_step(model, b)
+        model.update_metric(em, b.label)
+        out = model.get_outputs()[0]
+        ref_acc.update_dict({"softmax_label": b.label[0]},
+                            {"softmax_output": out})
+        host_hit, tie = top_k_rows(np, out, b.label[0], FIT_TOP_K)
+        dev_hit = top_k_hits(out, b.label[0], FIT_TOP_K).cpu().numpy()
+        host_hits += int(host_hit.sum())
+        dev_hits += int(dev_hit.sum())
+        tie_rows += int(tie.sum())
+        differ = np.nonzero(host_hit != dev_hit)[0]
+        mismatch_rows += [(i, int(r)) for r in differ]
+        check(all(tie[differ]),
+              f"top-{FIT_TOP_K} rows {differ} of step {i} disagree "
+              "without a tie at the k-th score")
+    acc_m, topk_m = em.metrics
+    acc_m.get()
+    topk_m.get()
+    # the fit's own step (its program has the metric slots) outside fit
+    same_module = timed_runs(torch, lambda i: pt.run_step(
+        model, batches[i % 4]), AB_STEPS)
+    counters = {"accuracy": {"in_step": acc_m.sum_metric,
+                             "host": ref_acc.sum_metric,
+                             "num_inst": acc_m.num_inst},
+                f"top_{FIT_TOP_K}": {"in_step": topk_m.sum_metric,
+                                     "host": host_hits,
+                                     "rows_with_a_tie_at_k": tie_rows,
+                                     "rows_that_differ": len(mismatch_rows),
+                                     "num_inst": topk_m.num_inst}}
+    del model, em
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the "before": the same fit with the metrics on the host path
+    hm = host_path()
+    model_h, marks_h, _, delta_h, _, event_ms_h = fit_run(
+        mt, torch, batches, hm, False)
+    ms_h = (marks_h[1] - marks_h[0]) * 1e3 / FIT_BATCHES
+    host_values = hm.get()
+    del model_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "fit", "batch": TRAIN_BATCH, "epochs": FIT_EPOCHS,
+           "batches_per_epoch": FIT_BATCHES,
+           "metric": "CompositeEvalMetric([Accuracy(), "
+                     f"TopKAccuracy(top_k={FIT_TOP_K})])",
+           "callback": f"Speedometer({TRAIN_BATCH}, {SPEEDO_FREQUENT})",
+           "epoch1_img_per_s": FIT_BATCHES * TRAIN_BATCH
+           / (marks[1] - marks[0]),
+           "epoch1_ms_per_step": ms,
+           "epoch1_event_ms_between_steps": event_ms,
+           "bare_replay_ms_per_step": bare,
+           "vs_bare_replay": ms / bare - 1.0,
+           "same_module_outside_fit": {
+               k: same_module[k] for k in ("host_ms", "event_ms")},
+           "metric_values": in_step_values,
+           "compile_report_delta": delta,
+           "metric_attach_event": attach_event,
+           "launches": {k: launches[w] for k, w in KERNEL_WRAPPERS.items()},
+           "launches_per_step": {k: launches[w] / steps
+                                 for k, w in KERNEL_WRAPPERS.items()},
+           "no_host_sync_window": {
+               "steps": window,
+               "how": "torch.cuda.set_sync_debug_mode('error') from the "
+                      "first Speedometer read of epoch 0 on, lifted only "
+                      "around each metric read (Speedometer every 20 "
+                      "batches, the epoch log): a host sync inside "
+                      "raises"},
+           "counters_vs_host": counters,
+           "host_path_fit": {
+               "metric": "CompositeEvalMetric of two CustomMetrics "
+                         "(accuracy, top-5) on the host",
+               "epoch1_img_per_s": FIT_BATCHES * TRAIN_BATCH
+               / (marks_h[1] - marks_h[0]),
+               "epoch1_ms_per_step": ms_h,
+               "epoch1_event_ms_between_steps": event_ms_h,
+               "metric_values": host_values,
+               "compile_report_delta": delta_h},
+           "in_step_vs_host_path": ms / ms_h - 1.0,
+           "card": smi}
+    emit(row)
+    check(delta["fresh_compiles"] == 1 and delta["retraces"] == 1
+          and delta["replays"] == steps - 1,
+          f"fit: one capture (with the metric slots), one retrace (the "
+          f"attach) and replays after it expected: {delta}")
+    check(attach_event is not None
+          and attach_event.get("detail") == ["extra.metrics"],
+          f"the retrace guard did not name the metric material: "
+          f"{attach_event}")
+    # epoch 0 from the step after its Speedometer read, every later
+    # epoch from its second step (its first follows the epoch log)
+    want_window = FIT_BATCHES - SPEEDO_FREQUENT - 1 + \
+        (FIT_EPOCHS - 1) * (FIT_BATCHES - 1)
+    check(window == want_window,
+          f"{window} steps ran under the sync check, {want_window} due")
+    for k, w in KERNEL_WRAPPERS.items():
+        want = {"K1": 28, "K2": 60, "B1": 44, "B2": 44}[k] * steps
+        check(launches[w] == want,
+              f"fit launched {k} {launches[w]} times, {want} expected")
+    check(counters["accuracy"]["in_step"] == counters["accuracy"]["host"]
+          and acc_m.num_inst == FIT_CHECK_STEPS * TRAIN_BATCH,
+          f"in-step accuracy against the host path: {counters}")
+    check(abs(topk_m.sum_metric - host_hits) <= tie_rows
+          and topk_m.sum_metric == dev_hits,
+          f"in-step top-{FIT_TOP_K} against the host path: {counters}")
+    check(delta_h["fresh_compiles"] == 1 and delta_h["retraces"] == 0,
+          f"the host-path fit captured anew: {delta_h}")
+    return launches, steps
+
+
+def guard_state(f):
+    """The state a guarded step must keep on a skip, as copies: the fp32
+    masters, momenta, aux and the metric counters (when any)."""
+    out = {"weights": {n: p.detach().clone() for n, p in f._p.items()},
+           "momentum": {n: s[0].clone() for n, s in f._state.items()},
+           "aux": {n: v.clone() for n, v in f._aux.items()}}
+    if f.num_metric_slots:
+        out["counters"] = {str(i): f.metric_state(i).clone().reshape(1)
+                           for i in range(f.num_metric_slots)}
+    return out
+
+
+def poisoned_step(torch, mt, model, batch, metric=None):
+    """One step of ``model`` with ``nan_grad`` armed at it: the state
+    before and after it, and the registry delta; then ``update_metric``
+    (the counters moved, or not, inside the step)."""
+    from mxnet_tpu_torch import faultinject, profile_training as pt
+    f = model._fused
+    torch.cuda.synchronize()
+    before = guard_state(f)
+    totals0 = registry_totals(mt)
+    with faultinject.inject(f"nan_grad:step={f.num_update}"):
+        pt.run_step(model, batch)
+    torch.cuda.synchronize()
+    after = guard_state(f)
+    delta = registry_delta(totals0, registry_totals(mt))
+    if metric is not None:
+        model.update_metric(metric, batch.label)
+    return before, after, delta
+
+
+def ft_guard_phase(mt, torch, smi, batches):
+    """Phase E of bench.py main(), first half: guarded and unguarded
+    captured steps interleaved (the overhead of the guard); a planted
+    ``nan_grad`` step that must leave params, momenta, aux and the
+    metric counters bit-identical with no new capture, with its fault
+    probe (a guard captured with its select bypassed); and the lagged
+    abort of ``MXTPU_FT_MAX_CONSEC_SKIPS``. Returns the guarded Module
+    for the checkpoint phase."""
+    from mxnet_tpu_torch import config, faultinject, profile_training as pt
+    from mxnet_tpu_torch.module import fused as fused_mod
+    guarded = pt.build_module(TRAIN_BATCH, SEED)
+    with config.override("MXTPU_FT_GUARD", "0"):
+        plain = pt.build_module(TRAIN_BATCH, SEED)
+    check(guarded._fused.guard_enabled and not plain._fused.guard_enabled,
+          "MXTPU_FT_GUARD did not select the guard")
+    for m in (guarded, plain):
+        for i in range(3):
+            pt.run_step(m, batches[i % 4])
+    runs = []
+    for mode in GUARD_AB_RUNS:
+        m = guarded if mode == "guarded" else plain
+        r = timed_runs(torch, lambda i: pt.run_step(m, batches[i % 4]),
+                       AB_STEPS)
+        runs.append(dict(r, mode=mode))
+    modes = ("guarded", "unguarded")
+    host = ab_summary(runs, "host_ms", modes)
+    event = ab_summary(runs, "event_ms", modes)
+    launches_g = pt.step_program(guarded).launches
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a planted NaN step on the captured, guarded step with a metric slot
+    acc = mt.metric.Accuracy()
+    for i in range(2):      # the attach, then the capture with the slot
+        pt.run_step(guarded, batches[i])
+        guarded.update_metric(acc, batches[i].label)
+    mt.fault_report(reset=True)
+    before, after, delta = poisoned_step(torch, mt, guarded, batches[2],
+                                         acc)
+    skip = state_diff(torch, after, before)
+    rep1 = mt.fault_report()
+    pt.run_step(guarded, batches[3])
+    guarded.update_metric(acc, batches[3].label)
+    rep2 = mt.fault_report()
+
+    # the fault probe: the same guard captured with its select bypassed
+    real_select = fused_mod._select_
+    probe = pt.build_module(TRAIN_BATCH, SEED)
+    pt.run_step(probe, batches[0])          # the warm step (eager)
+
+    def bypassed(finite, new, old):
+        old.copy_(new)
+
+    fused_mod._select_ = bypassed
+    try:
+        pt.run_step(probe, batches[1])      # the capture, with the fault
+    finally:
+        fused_mod._select_ = real_select
+    pb, pa, _ = poisoned_step(torch, mt, probe, batches[2])
+    probe_diff = state_diff(torch, pa, pb)
+    del probe, pb, pa
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the lagged abort: MXTPU_FT_MAX_CONSEC_SKIPS=2, three poisoned steps
+    with config.override("MXTPU_FT_MAX_CONSEC_SKIPS", str(ABORT_AFTER)):
+        ab = pt.build_module(TRAIN_BATCH, SEED)
+    for i in range(2):
+        pt.run_step(ab, batches[i])
+    ran, raised = 0, None
+    with faultinject.inject("nan_grad:times=3"):
+        try:
+            for i in range(3 + 2 * ABORT_AFTER + 2):
+                pt.run_step(ab, batches[i % 4])
+                ran += 1
+        except mt.MXNetError as e:
+            raised = str(e)
+    del ab
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt.fault_report(reset=True)
+
+    g, u = host["guarded"]["median"], host["unguarded"]["median"]
+    row = {"phase": "ft_guard", "batch": TRAIN_BATCH,
+           "steps_per_run": AB_STEPS, "order": list(GUARD_AB_RUNS),
+           "host_ms_per_step": host, "event_ms_per_step": event,
+           "overhead": g / u - 1.0,
+           "event_overhead": event["guarded"]["median"]
+           / event["unguarded"]["median"] - 1.0,
+           "bar": "< 0.02 of the step",
+           "guarded_program_launches": launches_g,
+           "skip": {"state": skip, "fault_report_after_skip": rep1,
+                    "fault_report_after_clean_step": rep2,
+                    "compile_report_delta": delta},
+           "fault_probe": {"fault": "the guard's select bypassed in the "
+                                    "captured update (new values copied "
+                                    "in unconditionally)",
+                           "state": probe_diff},
+           "abort": {"MXTPU_FT_MAX_CONSEC_SKIPS": ABORT_AFTER,
+                     "poisoned_steps": 3, "raised_at_step": ran + 1,
+                     "error": raised},
+           "card": smi}
+    emit(row)
+    check(all(v["bit_identical"] for v in skip.values()),
+          f"a skipped step changed the state: {skip}")
+    check(len(after.get("counters", ())) == 1,
+          "the skip check held no metric counter")
+    check((rep1["skipped_steps"], rep1["consecutive_skips"]) == (1, 1)
+          and (rep2["skipped_steps"], rep2["consecutive_skips"]) == (1, 0),
+          f"fault_report after the skip {rep1}, after a clean step {rep2}")
+    check(delta["fresh_compiles"] == 0 and delta["retraces"] == 0
+          and delta["replays"] == 1,
+          f"the skipped step was not a replay of the captured step: "
+          f"{delta}")
+    check(not probe_diff["weights"]["bit_identical"],
+          "the skip check passes a guard whose select is bypassed")
+    check(raised is not None and "consecutive non-finite" in raised
+          and ran + 1 <= 2 + 2 * ABORT_AFTER,
+          f"MXTPU_FT_MAX_CONSEC_SKIPS={ABORT_AFTER}: raised {raised!r} at "
+          f"step {ran + 1}")
+    return guarded
+
+
+def dir_mb(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def checkpoint_phase(mt, torch, smi, batches, model):
+    """Phase E of bench.py main(), second half: the full training state
+    of ``model`` saved by ``CheckpointManager`` synchronously and
+    asynchronously (seconds, size); ``RESUME_STEPS`` steps of a fresh
+    Module restored from it against the same steps of ``model`` (bit for
+    bit), with a probe (a restore without the momenta) that must fail;
+    a truncated newest checkpoint that must fall back to the previous."""
+    from mxnet_tpu_torch import profile_training as pt
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        sync_dir, async_dir = (os.path.join(tmp, d) for d in ("s", "a"))
+        mgr = CheckpointManager(sync_dir, keep=1, async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save_module(model, 1)
+        sync_s = time.perf_counter() - t0
+        size_mb = dir_mb(mgr._dir_for(1))
+        mgr_a = CheckpointManager(async_dir, keep=1, async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr_a.save_module(model, 1)
+        submit_s = time.perf_counter() - t0
+        # the uninterrupted run goes on while the files land: its replays
+        # overwrite the state the snapshot was taken from
+        f = model._fused
+        losses = []
+        for i in range(RESUME_STEPS):
+            pt.run_step(model, batches[i])
+            losses.append(f.last_loss)
+        mgr_a.wait()
+        total_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        want = train_state(f, losses)
+        same_snapshot = {
+            name: open(os.path.join(mgr._dir_for(1), name), "rb").read()
+            == open(os.path.join(mgr_a._dir_for(1), name), "rb").read()
+            for name in ("params.params", "optimizer.states")}
+        del model, f
+
+        def resumed(load_optimizer):
+            m = pt.build_module(TRAIN_BATCH, SEED)
+            st = mgr.restore(m, load_optimizer=load_optimizer)
+            out = []
+            for i in range(RESUME_STEPS):
+                pt.run_step(m, batches[i])
+                out.append(m._fused.last_loss)
+            torch.cuda.synchronize()
+            return m, st, train_state(m._fused, out)
+
+        fresh, st, got = resumed(True)
+        diff = state_diff(torch, got, want)
+        del got
+        probe_mod, _, probe = resumed(False)
+        probe_diff = state_diff(torch, probe, want)
+        del probe_mod, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a truncated newest checkpoint falls back to the previous one
+        mgr3 = CheckpointManager(sync_dir, keep=3)
+        mgr3.save_module(fresh, 2)
+        p = os.path.join(mgr3._dir_for(2), "params.params")
+        with open(p, "rb+") as fh:
+            fh.truncate(os.path.getsize(p) // 2)
+        mt.fault_report(reset=True)
+        latest = mgr3.load_latest()
+        rep = mt.fault_report(reset=True)
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "checkpoint", "batch": TRAIN_BATCH,
+           "state": "ResNet-50 (s2d) fp32 masters, SGD momenta, BN aux, "
+                    "RNG, metric",
+           "size_mb": size_mb, "sync_save_s": sync_s,
+           "async_submit_s": submit_s, "async_total_s": total_s,
+           "async_total_includes": f"{RESUME_STEPS} steps run while the "
+                                   "files were written",
+           "async_snapshot_equals_sync": same_snapshot,
+           "resume": {"steps": RESUME_STEPS, "epoch": st.epoch,
+                      "num_update": st.num_update,
+                      "against": "the same steps of the uninterrupted "
+                                 "module", "state": diff},
+           "resume_fault_probe": {"fault": "restore without the optimizer "
+                                           "state (momenta zero)",
+                                  "state": probe_diff},
+           "fallback": {"newest": 2, "truncated": "params.params to half",
+                        "loaded_epoch": latest.epoch if latest else None,
+                        "checkpoint_counters": rep["checkpoint"]},
+           "card": smi}
+    emit(row)
+    check(all(same_snapshot.values()),
+          f"the async snapshot differs from the sync one taken at the "
+          f"same state: {same_snapshot}")
+    check(all(v["bit_identical"] for v in diff.values()),
+          f"the resumed steps differ from the uninterrupted ones: {diff}")
+    check(not probe_diff["weights"]["bit_identical"],
+          "the resume check passes a restore without the momenta")
+    check(latest is not None and latest.epoch == 1
+          and rep["checkpoint"].get("corrupt_detected", 0) >= 1,
+          f"the truncated checkpoint did not fall back: {row['fallback']}")
+
+
 def k4_entry(rows, name, route, launches, what):
     """A K4 user kernel's entry of the kernels line: its times at
     ``what``; launches on its path (the softmax CE's on the Gluon
@@ -2343,8 +2915,7 @@ def main():
     training_captured_check(torch, batches)
     gc.collect()
     torch.cuda.empty_cache()
-    training_ab(torch, smi, batches)
-    del batches
+    ab_row = training_ab(torch, smi, batches)
     gc.collect()
     torch.cuda.empty_cache()
     report = mt.compile_report()
@@ -2362,6 +2933,16 @@ def main():
                            "serving_launches and training_speed)",
           "cache": report["cache"]})
     check(report["cache"]["enabled"] is False, "compile cache enabled")
+
+    # 7b.-7d. fit, the step guard, checkpoints (bench.py phases A2, E) ------
+    fit_launches, fit_steps = fit_phase(
+        mt, torch, np, smi, batches,
+        ab_row["host_ms_per_step"]["captured"]["median"])
+    checkpoint_phase(mt, torch, smi, batches,
+                     ft_guard_phase(mt, torch, smi, batches))
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 8.-12. K4 and the imperative (Gluon) path ------------------------------
     fns = k4_build(mt)
@@ -2401,7 +2982,12 @@ def main():
             "library_ms": sum(lib) if lib is not None else None,
             "dtype": "bfloat16", "batch": TRAIN_BATCH,
             "per": "one ResNet-50 training step at batch 128 (sum over "
-                   "the step's calls)", "status": "ok"}, **extra)
+                   "the step's calls)", "status": "ok",
+            "fit": {"launches": fit_launches[launch_key],
+                    "launches_per_step": fit_launches[launch_key]
+                    / fit_steps, "steps": fit_steps,
+                    "path": "Module.fit (bench.py phase A2), counts set "
+                            "to 0 just before it"}}, **extra)
 
     pf = "mxnet_tpu/ops/pallas_fused.py"
     k3 = k3_default["bfloat16"]

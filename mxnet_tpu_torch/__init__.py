@@ -18,6 +18,13 @@ layers, losses, Trainer, the ResNet model zoo), ``random``, and
 kernel as an op. Slice 6 captures the fused training step and each
 Predictor bucket as CUDA graphs on the card, under the program keys,
 registry and retrace guard of ``compile`` (``compile_report()``).
+Slice 7 covers ``bench.py``'s ``fit()`` and fault-tolerance phases: the
+in-step metric counters (``metric_device``) and the non-finite step
+guard inside the captured step, ``fault`` (``fault_report()``) and
+``faultinject``, ``checkpoint.CheckpointManager`` with ``fit``'s
+auto-resume, ``callback``, the remaining ``metric`` classes, ``model``
+checkpoints and the ``.params`` format (``nd.save`` / ``nd.load``,
+``ndarray.param_file``), byte for byte the JAX package's.
 """
 from . import base, config, context
 from .base import MXNetError
@@ -43,10 +50,15 @@ from . import module as mod
 from . import gluon
 from . import compile
 from .compile import compile_report
+from . import fault, faultinject
+from .fault import fault_report
+from . import callback, checkpoint, metric_device, model
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
            "random", "seed", "autograd", "operator", "ndarray", "nd", "rtc",
            "symbol", "sym", "interop", "serving", "initializer", "init", "io",
            "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon",
-           "compile", "compile_report"]
+           "compile", "compile_report", "fault", "faultinject",
+           "fault_report", "callback", "checkpoint", "metric_device",
+           "model"]

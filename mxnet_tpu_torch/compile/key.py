@@ -118,6 +118,21 @@ class ProgramKey:
         a, b = self.materials, other.materials
         return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
 
+    def diff_detail(self, other):
+        """``diff`` one level down: a differing dict material names its
+        differing keys (``extra.metrics``, ``extra.guard``)."""
+        if other is None:
+            return []
+        out = []
+        for k in self.diff(other):
+            a, b = self.materials.get(k), other.materials.get(k)
+            if isinstance(a, dict) and isinstance(b, dict):
+                out += [f"{k}.{s}" for s in sorted(set(a) | set(b))
+                        if a.get(s) != b.get(s)]
+            else:
+                out.append(k)
+        return out
+
     def __repr__(self):
         return f"ProgramKey({self.kind}:{self.name}@{self.digest[:10]})"
 

@@ -13,7 +13,9 @@ reports the same events there.
 - :func:`note_entry_point`: the retrace guard. An entry point (a fused
   step, a predictor bucket) that acquires a program under a new key or
   argument signature after it already held one has retraced; the count
-  and what diverged are kept.
+  and what diverged are kept (``changed``: the key materials; where one
+  of them is a dict, ``detail`` names its entries, such as
+  ``extra.metrics`` for a metric attached to the fused step).
 - :func:`compile_report` (exported as ``mxnet_tpu_torch.compile_report``):
   ``programs``, ``retraces``, ``totals`` (``fresh_compiles`` counts
   captures) and ``cache``.
@@ -98,11 +100,14 @@ def note_entry_point(name, key, sig=None):
         ent = _retraces.setdefault(name, {"count": 0, "events": []})
         ent["count"] += 1
         if len(ent["events"]) < _MAX_RETRACE_EVENTS:
-            ent["events"].append({
-                "changed": key.diff(prev_key),
-                "from_sig": _sig_summary(prev_sig),
-                "to_sig": _sig_summary(sig),
-            })
+            ev = {"changed": key.diff(prev_key),
+                  "from_sig": _sig_summary(prev_sig),
+                  "to_sig": _sig_summary(sig)}
+            detail = key.diff_detail(prev_key)
+            if detail != ev["changed"]:
+                # which entries of a dict material (extra.metrics)
+                ev["detail"] = detail
+            ent["events"].append(ev)
     return rec
 
 

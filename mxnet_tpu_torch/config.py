@@ -1,5 +1,5 @@
 """Runtime knobs read from the environment (counterpart of
-``mxnet_tpu/config.py``), limited to the knobs the serving slice reads.
+``mxnet_tpu/config.py``), limited to the knobs the ported slices read.
 Names and defaults are the JAX package's; ``auto`` in a pass flag means
 "on when the predictor's device is CUDA" here (the JAX package meant
 TPU)."""
@@ -62,3 +62,22 @@ register("MXTPU_SERVING_MAX_WAIT_US", 2000, int,
          "DynamicBatcher coalescing window in microseconds")
 register("MXTPU_SERVING_MAX_QUEUE", 256, int,
          "DynamicBatcher admission bound in queued rows")
+register("MXTPU_FT_GUARD", "auto", str,
+         "Non-finite-step guard inside the fused train step: NaN/Inf "
+         "gradients skip the update in the step itself (params, "
+         "optimizer state, aux and metric counters kept, counter "
+         "bumped). 1/auto = on, 0 = off")
+register("MXTPU_FT_MAX_CONSEC_SKIPS", 0, int,
+         "Abort training (MXNetError) once this many CONSECUTIVE steps "
+         "were guard-skipped (checked laggedly, no per-step sync); "
+         "0 disables the abort")
+register("MXTPU_CKPT_KEEP", 3, int,
+         "CheckpointManager retention: newest K valid checkpoints "
+         "survive pruning (checkpoint.py)")
+register("MXTPU_CKPT_ASYNC", False, bool,
+         "CheckpointManager default: snapshot state synchronously but "
+         "write checkpoint files on a background thread")
+register("MXTPU_FAULT_INJECT", "", str,
+         "Deterministic fault-injection spec, 'site:k=v[:k=v];site2:...' "
+         "(faultinject.py) — e.g. 'ckpt_write:byte=100:action=kill', "
+         "'nan_grad:step=3'. Empty = no faults. Test-only")

@@ -1,10 +1,11 @@
 """Data iterators (counterpart of ``mxnet_tpu/io.py``; reference:
 python/mxnet/io.py — DataDesc/DataBatch :60-130, DataIter :182,
-NDArrayIter :546).
+ResizeIter :247, NDArrayIter :546).
 
-NDArray is not ported yet, so the iterators hold numpy arrays or torch
-tensors and hand out batches of CPU tensors; the Module moves them to
-its device.
+The iterators hold numpy arrays and hand out batches of CPU tensors; the
+Module moves them to its device. ``NDArrayIter`` and ``ResizeIter`` have
+the JAX package's checkpointable cursor (``get_state`` / ``set_state``),
+which ``fit(checkpoint_manager=...)`` saves and restores.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import torch
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter", "NDArrayIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -77,6 +78,14 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
+        # deterministic fault site: 'data_iter:batch=B' raises at this
+        # iterator's B-th batch (1-based), a dying input worker's stand-in
+        from . import faultinject
+        if faultinject.active("data_iter") is not None:
+            self._fi_ordinal = getattr(self, "_fi_ordinal", 0) + 1
+            if faultinject.fire("data_iter", batch=self._fi_ordinal):
+                raise faultinject.FaultInjected(
+                    "data_iter", batch=self._fi_ordinal)
         return self.next()
 
     def iter_next(self):
@@ -93,6 +102,81 @@ class DataIter:
 
     def getpad(self):
         pass
+
+
+class ResizeIter(DataIter):
+    """``data_iter`` resized to ``size`` batches an epoch: it restarts
+    the inner iterator when that runs out, and (``reset_internal``)
+    resets it with each epoch."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+    def get_state(self):
+        """The cursor: ``cur`` and the inner iterator's own. A ``cur``
+        alone cannot place the inner iterator, so this raises when the
+        inner one has no ``get_state``."""
+        inner = getattr(self.data_iter, "get_state", None)
+        if not callable(inner):
+            raise NotImplementedError(
+                "ResizeIter cursor needs the wrapped iterator to support "
+                f"get_state(); {type(self.data_iter).__name__} does not")
+        return {"cur": int(self.cur), "inner": inner()}
+
+    def set_state(self, state):
+        if not isinstance(state, dict) or "cur" not in state or \
+                "inner" not in state:
+            raise ValueError(
+                "not a ResizeIter cursor (missing 'cur'/'inner'; got keys "
+                f"{sorted(state) if isinstance(state, dict) else state})")
+        setter = getattr(self.data_iter, "set_state", None)
+        if not callable(setter):
+            raise ValueError(
+                "ResizeIter cursor carries an inner-iterator state but "
+                f"{type(self.data_iter).__name__} has no set_state()")
+        setter(state["inner"])
+        self.cur = int(state.get("cur", 0))
 
 
 def _to_numpy(v):
@@ -141,6 +225,9 @@ class NDArrayIter(DataIter):
             np.random.shuffle(self.idx)
             self.data = [(k, v[self.idx]) for k, v in self.data]
             self.label = [(k, v[self.idx]) for k, v in self.label]
+        # the full permutation of the stored rows (idx is cut below for
+        # 'discard'): what the resume cursor must carry
+        self._row_order = self.idx.copy()
         if last_batch_handle == "discard":
             n = self.data[0][1].shape[0]
             self.idx = self.idx[:n - n % batch_size]
@@ -204,3 +291,42 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+    def get_state(self):
+        """The resume cursor: the position and the shuffle permutation
+        (``None`` when unshuffled), so another process, whose RNG drew
+        another permutation, restores the saved batch stream."""
+        n = len(self._row_order)
+        identity = np.array_equal(self._row_order, np.arange(n))
+        return {"cursor": int(self.cursor),
+                "order": None if identity
+                else np.asarray(self._row_order, np.int64),
+                "rows": int(n)}
+
+    def set_state(self, state):
+        if not isinstance(state, dict) or "cursor" not in state or \
+                "rows" not in state:
+            raise ValueError(
+                "not an NDArrayIter cursor (missing 'cursor'/'rows'; got "
+                f"keys {sorted(state) if isinstance(state, dict) else state}"
+                ")")
+        n = len(self._row_order)
+        rows = int(state.get("rows", n))
+        if rows != n:
+            raise ValueError(
+                "NDArrayIter cursor was saved for a different dataset: "
+                f"saved order covers {rows} rows, this iterator holds {n}")
+        order = state.get("order")
+        order = np.arange(n) if order is None \
+            else np.asarray(order, np.int64)
+        if not np.array_equal(order, self._row_order):
+            # stored rows are base rows permuted by _row_order; map them
+            # to the saved permutation: new[j] = base[order[j]]
+            inv = np.empty(n, np.int64)
+            inv[self._row_order] = np.arange(n)
+            take = inv[order]
+            self.data = [(k, v[take]) for k, v in self.data]
+            self.label = [(k, v[take]) for k, v in self.label]
+            self._row_order = order
+            self.idx = order[:len(self.idx)]
+        self.cursor = int(state.get("cursor", -self.batch_size))

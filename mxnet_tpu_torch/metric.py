@@ -1,17 +1,28 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``; reference:
 python/mxnet/metric.py — EvalMetric :68, CompositeEvalMetric :233,
-Accuracy :363, TopKAccuracy :429, CrossEntropy :949, Loss :1139).
+Accuracy :363, TopKAccuracy :429, F1 :581, Perplexity :662, MAE/MSE/RMSE
+:767-888, CrossEntropy :949, NegativeLogLikelihood :1017,
+PearsonCorrelation :1085, Loss :1139, Torch/Caffe :1154, CustomMetric
+:1183).
 
 Predictions and labels may be torch tensors (on any device, any float
-type) or numpy arrays; the metric reads them on the host.
+type), NDArrays or numpy arrays; ``update`` reads them on the host. On
+the fused training path ``Module.update_metric`` counts the supported
+metrics inside the captured step instead (``metric_device.py``), and
+``get`` / ``reset`` fold or drop those counters.
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 import torch
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Loss", "create", "check_label_shapes"]
+           "F1", "MCC", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np_metric", "create",
+           "check_label_shapes"]
 
 _METRIC_REGISTRY = {}
 
@@ -34,7 +45,10 @@ def _as_list(obj):
 
 
 def create(metric, *args, **kwargs):
-    """A metric from a name, an instance or a list of either."""
+    """A metric from a name, an instance, a ``feval(label, pred)``
+    callable or a list of these."""
+    if callable(metric) and not isinstance(metric, EvalMetric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -63,6 +77,8 @@ def check_label_shapes(labels, preds, shape=False):
 
 
 def _to_numpy(x):
+    if hasattr(x, "asnumpy"):
+        return x.asnumpy()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.is_floating_point():
@@ -84,6 +100,13 @@ class EvalMetric:
     def __str__(self):
         return f"EvalMetric: {dict(self.get_name_value())}"
 
+    def get_config(self):
+        config = self._kwargs.copy()
+        config.update({"metric": self.__class__.__name__, "name": self.name,
+                       "output_names": self.output_names,
+                       "label_names": self.label_names})
+        return config
+
     def update_dict(self, label, pred):
         """Update from {name: array} dicts."""
         if self.output_names is not None:
@@ -99,12 +122,32 @@ class EvalMetric:
     def update(self, labels, preds):
         raise NotImplementedError
 
+    def __getstate__(self):
+        """Pickled without its view of the in-step counters, which are
+        folded in first."""
+        self._sync_device()
+        state = dict(self.__dict__)
+        state.pop("_dev_acc", None)
+        return state
+
+    def _sync_device(self, keep=True):
+        """Fold (``keep``) or drop the in-step counters of the fused
+        step (``metric_device.py``); nothing without them."""
+        if getattr(self, "_dev_acc", None) is not None:
+            from . import metric_device
+            if keep:
+                metric_device.flush(self)
+            else:
+                metric_device.discard(self)
+
     def reset(self):
+        self._sync_device(keep=False)
         self.num_inst = 0
         self.sum_metric = 0.0
 
     def get(self):
         """(name, value)."""
+        self._sync_device()
         if self.num_inst == 0:
             return (self.name, float("nan"))
         return (self.name, self.sum_metric / self.num_inst)
@@ -218,6 +261,237 @@ class TopKAccuracy(EvalMetric):
 
 
 @register
+class F1(EvalMetric):
+    """Binary F1 over argmax predictions (``average``: "macro" per
+    update, "micro" over all)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        self.average = average
+        self.metrics = _BinaryClassificationMetrics()
+        EvalMetric.__init__(self, name=name, output_names=output_names,
+                            label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.metrics.update_binary_stats(label, pred)
+        if self.average == "macro":
+            self.sum_metric += self.metrics.fscore
+            self.num_inst += 1
+            self.metrics.reset_stats()
+        else:
+            self.sum_metric = self.metrics.fscore * \
+                self.metrics.total_examples
+            self.num_inst = self.metrics.total_examples
+
+    def reset(self):
+        self.sum_metric = 0.0
+        self.num_inst = 0
+        if hasattr(self, "metrics"):
+            self.metrics.reset_stats()
+
+
+class _BinaryClassificationMetrics:
+    """True/false positive and negative counts of a binary classifier."""
+
+    def __init__(self):
+        self.reset_stats()
+
+    def update_binary_stats(self, label, pred):
+        pred = _to_numpy(pred)
+        label = _to_numpy(label).astype("int32")
+        pred_label = numpy.argmax(pred, axis=1)
+        check_label_shapes(label, pred)
+        if len(numpy.unique(label)) > 2:
+            raise ValueError("%s currently only supports binary "
+                             "classification." % self.__class__.__name__)
+        pred_true = pred_label == 1
+        pred_false = 1 - pred_true
+        label_true = label == 1
+        label_false = 1 - label_true
+        self.true_positives += int((pred_true * label_true).sum())
+        self.false_positives += int((pred_true * label_false).sum())
+        self.false_negatives += int((pred_false * label_true).sum())
+        self.true_negatives += int((pred_false * label_false).sum())
+
+    @property
+    def precision(self):
+        if self.true_positives + self.false_positives > 0:
+            return float(self.true_positives) / (
+                self.true_positives + self.false_positives)
+        return 0.0
+
+    @property
+    def recall(self):
+        if self.true_positives + self.false_negatives > 0:
+            return float(self.true_positives) / (
+                self.true_positives + self.false_negatives)
+        return 0.0
+
+    @property
+    def fscore(self):
+        if self.precision + self.recall > 0:
+            return 2 * self.precision * self.recall / (
+                self.precision + self.recall)
+        return 0.0
+
+    @property
+    def matthewscc(self):
+        if not self.total_examples:
+            return 0.0
+        true_pos = float(self.true_positives)
+        false_pos = float(self.false_positives)
+        false_neg = float(self.false_negatives)
+        true_neg = float(self.true_negatives)
+        terms = [(true_pos + false_pos), (true_pos + false_neg),
+                 (true_neg + false_pos), (true_neg + false_neg)]
+        denom = 1.0
+        for t in filter(lambda t: t != 0.0, terms):
+            denom *= t
+        return ((true_pos * true_neg) - (false_pos * false_neg)) / \
+            math.sqrt(denom)
+
+    @property
+    def total_examples(self):
+        return (self.false_negatives + self.false_positives +
+                self.true_negatives + self.true_positives)
+
+    def reset_stats(self):
+        self.false_positives = 0
+        self.false_negatives = 0
+        self.true_positives = 0
+        self.true_negatives = 0
+
+
+@register
+class MCC(EvalMetric):
+    """Matthews correlation coefficient of a binary classifier."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None,
+                 average="macro"):
+        self._average = average
+        self.metrics = _BinaryClassificationMetrics()
+        EvalMetric.__init__(self, name=name, output_names=output_names,
+                            label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.metrics.update_binary_stats(label, pred)
+        if self._average == "macro":
+            self.sum_metric += self.metrics.matthewscc
+            self.num_inst += 1
+            self.metrics.reset_stats()
+        else:
+            self.sum_metric = self.metrics.matthewscc * \
+                self.metrics.total_examples
+            self.num_inst = self.metrics.total_examples
+
+    def reset(self):
+        self.sum_metric = 0.0
+        self.num_inst = 0
+        if hasattr(self, "metrics"):
+            self.metrics.reset_stats()
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-likelihood of the labels
+    (``ignore_label`` rows left out)."""
+
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label, axis=axis)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = _to_numpy(label)
+            pred = _to_numpy(pred)
+            assert label.size == pred.size / pred.shape[-1], \
+                f"shape mismatch: {label.shape} vs. {pred.shape}"
+            label = label.reshape((label.size,)).astype("int32")
+            probs = pred.reshape(-1, pred.shape[-1])[
+                numpy.arange(label.size), label]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label).astype(probs.dtype)
+                num -= int(ignore.sum())
+                probs = probs * (1 - ignore) + ignore
+            loss -= float(numpy.sum(numpy.log(numpy.maximum(1e-10, probs))))
+            num += label.size
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+def _as_2d(x):
+    """A 1-D array as a column (the elementwise-error metrics' rule)."""
+    return x.reshape(x.shape[0], 1) if len(x.shape) == 1 else x
+
+
+@register
+class MAE(EvalMetric):
+    """Mean absolute error, averaged over updates."""
+
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_2d(_to_numpy(label)), _as_2d(_to_numpy(pred))
+            self.sum_metric += float(numpy.abs(label - pred).mean())
+            self.num_inst += 1
+
+
+@register
+class MSE(EvalMetric):
+    """Mean squared error, averaged over updates."""
+
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_2d(_to_numpy(label)), _as_2d(_to_numpy(pred))
+            self.sum_metric += float(((label - pred) ** 2.0).mean())
+            self.num_inst += 1
+
+
+@register
+class RMSE(EvalMetric):
+    """Root mean squared error, averaged over updates."""
+
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _as_2d(_to_numpy(label)), _as_2d(_to_numpy(pred))
+            self.sum_metric += float(
+                numpy.sqrt(((label - pred) ** 2.0).mean()))
+            self.num_inst += 1
+
+
+@register
 @_alias("ce")
 class CrossEntropy(EvalMetric):
     """Mean cross-entropy of the labels under the predicted
@@ -241,6 +515,52 @@ class CrossEntropy(EvalMetric):
 
 
 @register
+@_alias("nll_loss")
+class NegativeLogLikelihood(EvalMetric):
+    """Mean negative log-likelihood of the labels."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, eps=eps)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _to_numpy(label).ravel()
+            pred = _to_numpy(pred)
+            num_examples = pred.shape[0]
+            assert label.shape[0] == num_examples, \
+                (label.shape[0], num_examples)
+            prob = pred[numpy.arange(num_examples, dtype=numpy.int64),
+                        numpy.int64(label)]
+            self.sum_metric += float((-numpy.log(prob + self.eps)).sum())
+            self.num_inst += num_examples
+
+
+@register
+@_alias("pearsonr")
+class PearsonCorrelation(EvalMetric):
+    """Pearson correlation of predictions and labels, averaged over
+    updates."""
+
+    def __init__(self, name="pearsonr", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            check_label_shapes(label, pred, shape=True)
+            label = _to_numpy(label).ravel()
+            pred = _to_numpy(pred).ravel()
+            self.sum_metric += float(numpy.corrcoef(pred, label)[0, 1])
+            self.num_inst += 1
+
+
+@register
 class Loss(EvalMetric):
     """Mean of the raw loss values."""
 
@@ -252,3 +572,69 @@ class Loss(EvalMetric):
             p = _to_numpy(pred)
             self.sum_metric += float(p.sum())
             self.num_inst += p.size
+
+
+@register
+class Torch(Loss):
+    """A loss metric named "torch"."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    """A loss metric named "caffe"."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` on numpy arrays, returning a
+    value or ``(sum_metric, num_inst)``. It always takes the host path:
+    the fused step has no in-step rule for it."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = f"custom({name})"
+        super().__init__(name, output_names, label_names, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_to_numpy(label), _to_numpy(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+    def get_config(self):
+        raise NotImplementedError("CustomMetric cannot be serialized")
+
+
+def np_metric(name=None, allow_extra_outputs=False):
+    """Decorator making a ``CustomMetric`` of a numpy function
+    ``feval(label, pred)``."""
+    def factory(numpy_feval):
+        def feval(label, pred):
+            return numpy_feval(label, pred)
+        feval.__name__ = numpy_feval.__name__
+        return CustomMetric(feval, name, allow_extra_outputs)
+    return factory
+
+
+# the reference exposes this decorator as mx.metric.np
+np = np_metric

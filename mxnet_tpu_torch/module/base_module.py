@@ -5,13 +5,17 @@ fit :376).
 
 ``fit`` is the reference loop: bind, init_params, init_optimizer, then
 per batch forward_backward + update + update_metric, an epoch log, the
-epoch-end callbacks and an optional evaluation. The JAX package's data
-pipeline wrapper, step timeline, checkpoint manager and auto-resume are
-not ported.
+epoch-end callbacks, the checkpoint manager's epoch-end save and an
+optional evaluation. With ``auto_resume`` it first restores the newest
+valid checkpoint (params, optimizer state, RNG stream and the data
+cursor) and skips the epochs it completed. The JAX package's data
+pipeline wrapper (``maybe_wrap_for_fit``) and step timeline
+(``StepTimeline``) are not ported (ROADMAP queue A items 5 and 8).
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 import warnings
 from collections import namedtuple
@@ -91,6 +95,30 @@ class BaseModule:
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init, allow_extra=allow_extra)
 
+    def save_params(self, fname):
+        """Write the params as ``arg:`` / ``aux:`` entries (a ``.params``
+        name gives the JAX package's format)."""
+        from .. import ndarray as nd
+        arg_params, aux_params = self.get_params()
+        save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
+        save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        """Load a ``save_params`` file (either package's) into the
+        params, in place."""
+        from .. import ndarray as nd
+        arg_params, aux_params = {}, {}
+        for k, value in nd.load(fname).items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError(f"Invalid param file {fname}")
+        self.set_params(arg_params, aux_params)
+
     def prepare(self, data_batch):
         """Hook run on the next batch while the current one trains."""
 
@@ -142,13 +170,29 @@ class BaseModule:
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            checkpoint_manager=None, auto_resume=False):
         """Train over ``train_data`` for epochs ``begin_epoch`` to
-        ``num_epoch`` - 1."""
+        ``num_epoch`` - 1.
+
+        ``checkpoint_manager`` (a ``checkpoint.CheckpointManager`` or a
+        directory) saves the full training state at every epoch end:
+        params, optimizer state, the epoch cursor, the RNG stream, the
+        metric and the train iterator's cursor. ``auto_resume=True``
+        restores the newest valid checkpoint first (a torn or corrupt
+        newest one falls back to the one before) and continues at the
+        epoch after it."""
         from .. import initializer as init_mod
         assert num_epoch is not None, "please specify number of epochs"
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
+        if checkpoint_manager is None and auto_resume:
+            raise ValueError(
+                "fit(auto_resume=True) needs checkpoint_manager= (a "
+                "CheckpointManager or a checkpoint directory path)")
+        if isinstance(checkpoint_manager, (str, bytes, os.PathLike)):
+            from ..checkpoint import CheckpointManager
+            checkpoint_manager = CheckpointManager(checkpoint_manager)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
@@ -157,6 +201,9 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if checkpoint_manager is not None and auto_resume:
+            begin_epoch = self._resume(checkpoint_manager, train_data,
+                                       begin_epoch)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -194,6 +241,22 @@ class BaseModule:
                 arg_params_, aux_params_ = self.get_params()
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)
+            if checkpoint_manager is not None:
+                # tag epoch + 1, the next epoch to run, which auto_resume
+                # takes as begin_epoch; the iterator's cursor rides along
+                data_state = None
+                if callable(getattr(train_data, "get_state", None)):
+                    try:
+                        data_state = train_data.get_state()
+                    except NotImplementedError:
+                        # an iterator that cannot place itself (a
+                        # ResizeIter over one without a cursor): the
+                        # checkpoint carries no data cursor
+                        data_state = None
+                checkpoint_manager.save_module(self, epoch + 1,
+                                               nbatch=nbatch,
+                                               eval_metric=eval_metric,
+                                               data_state=data_state)
             if eval_data is not None:
                 res = self.score(eval_data, validation_metric,
                                  score_end_callback=eval_end_callback,
@@ -203,3 +266,25 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+        if checkpoint_manager is not None:
+            # an async save still writing is joined (and its failure
+            # raised) before fit returns
+            checkpoint_manager.wait()
+
+    def _resume(self, checkpoint_manager, train_data, begin_epoch):
+        """Restore the newest valid checkpoint into this module and the
+        data cursor into ``train_data``; the epoch to continue at."""
+        resumed = checkpoint_manager.restore(self)
+        if resumed is None:
+            return begin_epoch
+        begin_epoch = max(begin_epoch, resumed.epoch)
+        self.logger.info("Auto-resume from checkpoint '%s': continuing at "
+                         "epoch %d", resumed.path, begin_epoch)
+        ds = resumed.data_state
+        if ds is not None and callable(getattr(train_data, "set_state",
+                                               None)):
+            # the saved cursor is the end-of-epoch state from before the
+            # stop: replay the epoch-end reset() that run never reached
+            train_data.set_state(ds)
+            train_data.reset()
+        return begin_epoch

@@ -30,24 +30,82 @@ cast to it for the step, the gradients come back in fp32 (through the
 cast), and the fold ``m*old + (1-m)*batch_stat`` is taken in the
 compute dtype and stored in fp32.
 
+The non-finite step guard (``MXTPU_FT_GUARD``, on by default) is part
+of the step: one fp32 scalar, the sum of |g| over every gradient,
+decides whether the update lands. The update computes the new params,
+momenta, aux and metric counters out of place and ``torch.where``
+selects them or the old ones into the state, so a skipped step leaves
+the state bit-identical and a clean step is bit-identical to the
+unguarded update. The trainable masters, each momentum leaf and the aux
+each live in one flat fp32 buffer (a view per name, 256-byte aligned
+for the masters), so a select is one launch per buffer, not one per
+tensor. The device carries ``fault_state`` = [total skips,
+consecutive skips] (int32[2]); ``fault.fault_report()`` reads it, and
+``MXTPU_FT_MAX_CONSEC_SKIPS`` aborts from a copy of it taken K steps
+earlier (pinned host memory and an event: no sync of the step).
+
+In-step metric counters (``metric_device.py``): ``attach_metric`` gives
+a metric a 0-dim device counter that the step advances, so
+``update_metric`` reads nothing from the card. The guard flag and the
+metric slots are key material: attaching a metric after a capture makes
+exactly one new capture, which the retrace guard reports. Counters,
+``fault_state``, momenta and masters keep their storage for the step's
+life (a graph holds their addresses): resets and loads write into them.
+
+``get_states`` / ``set_states`` serialize the optimizer state as the
+JAX package's fused step does (the same pickled object, leaf for leaf),
+so either package resumes from the other's file.
+
 Not ported (ROADMAP queue A): the device mesh and data-parallel batch
 sharding, the ZeRO-1 sharded update, partition rules, row-sparse
-embedding routing, in-step metric counters, the persistent program cache
-(a CUDA graph cannot be serialized), the non-finite step guard
-(``MXTPU_FT_GUARD``) and small-parameter packing.
+embedding routing, the persistent program cache (a CUDA graph cannot be
+serialized), small-parameter packing and the optimizer rules other than
+SGD.
 """
 from __future__ import annotations
 
+import collections
+import math
+import pickle
+import weakref
+
+import numpy as np
 import torch
 
 from .. import compile as compile_mod
-from .. import config
-from ..base import MXNetError, torch_dtype
+from .. import config, fault, faultinject
+from ..base import MXNetError, host_numpy, torch_dtype
 from ..context import as_device
 from ..executor import build_graph_fns
 from ..parallel import functional_opt
 
 __all__ = ["FusedSymbolStep"]
+
+# the masters' views start at multiples of this many fp32 elements (256
+# bytes): the fp32 step hands them to the kernels, which want aligned
+# pointers
+_ALIGN = 64
+
+
+def _layout(shapes, align):
+    """{name: (offset, shape)} of views packed into one buffer, each at a
+    multiple of ``align`` elements, and the buffer's size."""
+    out, off = {}, 0
+    for n, s in shapes.items():
+        out[n] = (off, tuple(s))
+        off += -(-math.prod(s) // align) * align
+    return out, off
+
+
+def _views(buf, layout):
+    """{name: view of ``buf``} of a ``_layout``."""
+    return {n: buf[o:o + math.prod(s)].view(s)
+            for n, (o, s) in layout.items()}
+
+
+def _select_(finite, new, old):
+    """The guard's select: ``old = new`` where ``finite``, in place."""
+    torch.where(finite, new, old, out=old)
 
 
 class FusedSymbolStep:
@@ -88,10 +146,25 @@ class FusedSymbolStep:
         self._leaves = None      # the last training forward's param leaves
         self._lr = None
         self._groups = None
-        self._programs = {}      # feed signature -> CapturedProgram
+        # (feed signature, metric slots version) -> CapturedProgram
+        self._programs = {}
+        self._warm_sigs = set()  # feed signatures that ran their warm step
         self._symbol_sha = None
         self.last_loss = None
         self.num_update = 0
+        # the non-finite step guard: decided once, key material
+        self.guard_enabled = str(config.get("MXTPU_FT_GUARD")).lower() \
+            not in ("0", "false", "off")
+        self._max_consec = int(config.get("MXTPU_FT_MAX_CONSEC_SKIPS"))
+        self.fault_state = None  # int32[2]: total, consecutive skips
+        self._skip_lag = collections.deque()
+        # in-step metric slots (attach_metric / metric_device.py)
+        self._metric_sigs = []     # per slot: its structural signature
+        self._metric_rules = []    # per slot: (label names, pred names, fn)
+        self._metric_state = []    # per slot: a 0-dim device counter
+        self._metric_owner = []    # per slot: weakref to its metric
+        self.metric_detach_epoch = 0
+        self._slots_version = 0    # bumped when slots are added or dropped
 
     @property
     def started(self):
@@ -119,10 +192,22 @@ class FusedSymbolStep:
         self._run_arg_names = run_sym.list_arguments()
         self._run_aux_names = run_sym.list_auxiliary_states()
         self.load_params(arg_dict, aux_dict)
-        self._state = {n: self._fopt.init(self._p[n])
-                       for n in self.param_names if self.trainable[n]}
+        # every optimizer state leaf is param-shaped (SGD's momentum):
+        # one flat buffer per leaf, laid out as the masters
+        n_leaves = len(self._fopt.init(torch.empty(0, device="meta")))
+        self._flat_state = [torch.zeros(self._flat_p.numel(),
+                                        dtype=torch.float32,
+                                        device=self.device)
+                            for _ in range(n_leaves)]
+        leaves = [_views(b, self._p_layout) for b in self._flat_state]
+        self._state = {n: tuple(v[n] for v in leaves)
+                       for n in self._p_layout}
         self._lr = torch.full((), float(self.optimizer.lr),
                               dtype=torch.float32, device=self.device)
+        self.fault_state = torch.zeros(2, dtype=torch.int32,
+                                       device=self.device)
+        self._skip_lag.clear()
+        fault.register_guard(self)
         # params sharing (lr_mult, wd) update together: one foreach
         # launch per operation per group
         groups = {}
@@ -134,15 +219,24 @@ class FusedSymbolStep:
 
     def load_params(self, arg_dict, aux_dict):
         """Set the master params and aux (optimizer state is kept): the
-        first call allocates them, later ones copy into them in place."""
+        first call allocates them (the trainable masters and the aux as
+        views of one flat buffer each), later ones copy into them in
+        place."""
         if self._p is None:
-            self._p = {n: arg_dict[n].detach().to(
-                self.device, torch.float32, copy=True)
+            self._p_layout, size = _layout(
+                {n: arg_dict[n].shape for n in self.param_names
+                 if self.trainable[n]}, _ALIGN)
+            self._flat_p = torch.zeros(size, dtype=torch.float32,
+                                       device=self.device)
+            flat = _views(self._flat_p, self._p_layout)
+            self._p = {n: flat[n] if n in flat else torch.empty(
+                arg_dict[n].shape, dtype=torch.float32, device=self.device)
                 for n in self.param_names}
-            self._aux = {n: aux_dict[n].detach().to(
-                self.device, torch.float32, copy=True)
-                for n in self.aux_names}
-            return
+            self._aux_layout, size = _layout(
+                {n: aux_dict[n].shape for n in self.aux_names}, 1)
+            self._flat_aux = torch.zeros(size, dtype=torch.float32,
+                                         device=self.device)
+            self._aux = _views(self._flat_aux, self._aux_layout)
         with torch.no_grad():
             for n in self.param_names:
                 self._p[n].copy_(arg_dict[n].detach())
@@ -226,17 +320,74 @@ class FusedSymbolStep:
                                     materialize_grads=True)
         return dict(zip(names, grads))
 
-    def _update(self, grad, aux_up):
+    def _update(self, grad, aux_up, finite=None):
         """The SGD update of the fp32 masters at the device lr scalar
-        times each group's lr_mult, and the aux fold, in place."""
+        times each group's lr_mult, and the aux fold. In place; with
+        ``finite`` (a 0-dim bool device tensor: the guard's verdict) the
+        new values go to scratch buffers laid out as the state, and one
+        select per buffer writes them, or keeps the old ones."""
         with torch.no_grad():
+            new_aux = torch.cat([
+                (aux_up[n] if n in aux_up else self._aux[n]).reshape(-1)
+                for n in self.aux_names]).to(torch.float32) \
+                if self.aux_names else None
+            if finite is None:
+                for (lr_mult, wd), ns in self._groups:
+                    self._fopt.update_([self._p[n] for n in ns],
+                                       [grad[n].float() for n in ns],
+                                       [self._state[n] for n in ns],
+                                       self._group_lr(lr_mult), wd)
+                if new_aux is not None:
+                    self._flat_aux.copy_(new_aux)
+                return
+            new_p = torch.empty_like(self._flat_p)
+            new_s = [torch.empty_like(b) for b in self._flat_state]
+            np_v = _views(new_p, self._p_layout)
+            ns_v = [_views(b, self._p_layout) for b in new_s]
             for (lr_mult, wd), ns in self._groups:
-                lr = self._lr if lr_mult == 1.0 else self._lr * lr_mult
-                self._fopt.update_([self._p[n] for n in ns],
-                                   [grad[n].float() for n in ns],
-                                   [self._state[n] for n in ns], lr, wd)
-            for n, v in aux_up.items():
-                self._aux[n].copy_(v)
+                self._fopt.update_(
+                    [self._p[n] for n in ns], [grad[n].float() for n in ns],
+                    [self._state[n] for n in ns], self._group_lr(lr_mult),
+                    wd, out=([np_v[n] for n in ns],
+                             [tuple(v[n] for v in ns_v) for n in ns]))
+            _select_(finite, new_p, self._flat_p)
+            for new, old in zip(new_s, self._flat_state):
+                _select_(finite, new, old)
+            if new_aux is not None:
+                _select_(finite, new_aux, self._flat_aux)
+
+    def _group_lr(self, lr_mult):
+        return self._lr if lr_mult == 1.0 else self._lr * lr_mult
+
+    def _finite(self, grads):
+        """The guard's verdict: whether the sum of |g| over every
+        gradient (one fp32 scalar; a NaN or Inf anywhere propagates, and
+        an overflow of the sum itself is a gradient explosion) is
+        finite."""
+        norms = torch._foreach_norm(list(grads.values()), 1)
+        return torch.isfinite(torch.stack(norms).sum())
+
+    def _advance_metrics(self, vals, outs, finite):
+        """Advance every attached metric counter on this step's labels
+        (``vals``) and outputs, in place (kept on a skipped step)."""
+        if not self._metric_rules:
+            return
+        preds = dict(zip(self.symbol.list_outputs(), outs))
+        with torch.no_grad():
+            for (lnames, pnames, fn), st in zip(self._metric_rules,
+                                                self._metric_state):
+                new = fn(st, [vals[n] for n in lnames],
+                         [preds[n].detach() for n in pnames])
+                if finite is None:
+                    st.copy_(new)
+                else:
+                    _select_(finite, new, st)
+
+    def _advance_fault_state(self, finite):
+        """[total skips, consecutive skips] in place."""
+        skipped = torch.logical_not(finite).to(torch.int32)
+        f = self.fault_state
+        f.copy_(torch.stack([f[0] + skipped, (f[1] + 1) * skipped]))
 
     def apply(self, grad, aux_up, lr=None):
         """The optimizer update of the fp32 masters and the aux fold
@@ -254,12 +405,38 @@ class FusedSymbolStep:
                 [o.detach() for o in outs])
 
     def _body(self, vals):
-        """Forward, backward, update and aux fold on device inputs
-        ``vals``: the program a capture records. ``(loss, outputs)``."""
+        """Forward, backward, the guard, update, aux fold and metric
+        counters on device inputs ``vals``: the program a capture
+        records. ``(loss, outputs)``."""
         loss, outs, aux_up = self._forward_loss(vals)
         grads = self.backward(loss)
-        self._update(grads, aux_up)
+        finite = self._finite(grads) if self.guard_enabled else None
+        self._update(grads, aux_up, finite)
+        self._advance_metrics(vals, outs, finite)
+        if finite is not None:
+            self._advance_fault_state(finite)
         return loss.detach(), [o.detach() for o in outs]
+
+    def _poisoned(self, vals):
+        """The ``nan_grad:step=N`` fault site: the float data inputs of
+        step N times NaN, before they reach the step (the same program
+        then runs with NaN gradients)."""
+        if not faultinject.fire("nan_grad", step=self.num_update):
+            return vals
+        vals = dict(vals)
+        for n in self.data_names:
+            if vals[n].is_floating_point():
+                vals[n] = vals[n] * float("nan")
+        return vals
+
+    def _run_eager(self, vals, lr):
+        if lr is not None:
+            self.set_lr(lr)
+        loss, outs = self._body(self._on_device(vals))
+        self.num_update += 1
+        self.last_loss = loss
+        self._check_abort()
+        return outs
 
     def step_eager(self, feed, lr=None):
         """One step without a graph: every kernel launched from Python.
@@ -267,33 +444,32 @@ class FusedSymbolStep:
         ``last_loss``."""
         if not self.started:
             raise MXNetError("FusedSymbolStep used before start()")
-        if lr is not None:
-            self.set_lr(lr)
-        loss, outs = self._body(self._on_device(self._inputs(feed)))
-        self.num_update += 1
-        self.last_loss = loss
-        return outs
+        return self._run_eager(self._poisoned(self._inputs(feed)), lr)
 
     def step(self, feed, lr=None):
         """One training step on ``feed`` ({input name: tensor or array});
         ``lr``, when given, is written into the lr scalar first (the
         caller applies the schedule). On a CUDA device the captured
-        program of the feed's signature (see the module docstring); on
-        the CPU ``step_eager``. Returns the graph's outputs (copies); the
-        loss stays on the device in ``last_loss``."""
+        program of the feed's signature and the attached metric slots
+        (see the module docstring); on the CPU the eager step. Returns
+        the graph's outputs (copies); the loss stays on the device in
+        ``last_loss``."""
         if not self.started:
             raise MXNetError("FusedSymbolStep used before start()")
-        vals = self._inputs(feed)
+        vals = self._poisoned(self._inputs(feed))
         sig = compile_mod.arg_signature(list(vals.values()))
-        prog = self._programs.get(sig)
+        pkey = (sig, self._slots_version)
+        prog = self._programs.get(pkey)
         if prog is None:
             key = self._program_key(sig)
             compile_mod.note_entry_point(key.name, key, sig)
-            prog = self._programs[sig] = compile_mod.CapturedProgram(key)
-            if self.captured:
-                return self._warm_step(vals, lr)
+            prog = self._programs[pkey] = compile_mod.CapturedProgram(key)
+            prog.metric_slots = len(self._metric_sigs)
         if not self.captured:
-            return self.step_eager(vals, lr)
+            return self._run_eager(vals, lr)
+        if sig not in self._warm_sigs:
+            self._warm_sigs.add(sig)
+            return self._warm_step(vals, lr)
         if lr is not None:
             self.set_lr(lr)
         if not prog.captured:
@@ -303,15 +479,16 @@ class FusedSymbolStep:
         self.num_update += 1
         loss, outs = prog.outputs
         self.last_loss = loss.clone()
+        self._check_abort()
         return [o.clone() for o in outs]
 
     def _warm_step(self, vals, lr):
-        """The first step at a signature: eager, on a side stream."""
+        """The first step at a feed signature: eager, on a side stream."""
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            outs = self.step_eager(vals, lr)
+            outs = self._run_eager(vals, lr)
         main.wait_stream(side)
         for t in [self.last_loss] + outs:
             t.record_stream(main)
@@ -336,11 +513,175 @@ class FusedSymbolStep:
         for n, v in vals.items():
             prog.static[n].copy_(v, non_blocking=True)
 
+    # -- the guard's lagged abort and its counters ----------------------------
+    def _check_abort(self):
+        """``MXTPU_FT_MAX_CONSEC_SKIPS=K``: after each step, a copy of
+        ``fault_state`` goes to the host behind the step (pinned memory
+        and an event on the card; a clone on the CPU); copies are read
+        once done, and the one from K steps back is waited for. So the
+        step itself never waits, and an abort comes at most K steps
+        after the K-th consecutive skip."""
+        if self._max_consec <= 0 or not self.guard_enabled:
+            return
+        if self.device.type == "cuda":
+            buf = torch.empty(2, dtype=torch.int32, pin_memory=True)
+            buf.copy_(self.fault_state, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self._skip_lag.append((ev, buf))
+        else:
+            self._skip_lag.append((None, self.fault_state.clone()))
+        while self._skip_lag:
+            ev, buf = self._skip_lag[0]
+            if ev is not None and not ev.query():
+                if len(self._skip_lag) <= self._max_consec:
+                    break
+                ev.synchronize()
+            self._skip_lag.popleft()
+            consec = int(buf[1])
+            if consec >= self._max_consec:
+                fault.count("guard.aborts")
+                raise MXNetError(
+                    f"aborting training: {consec} consecutive non-finite "
+                    f"steps were skipped by the gradient guard "
+                    f"(MXTPU_FT_MAX_CONSEC_SKIPS={self._max_consec}); the "
+                    "model state predates the first skipped step: inspect "
+                    "the data and loss scale and resume from the last "
+                    "checkpoint")
+
+    def reset_fault_state(self):
+        """Zero the device skip counters in place
+        (``fault_report(reset=True)``)."""
+        if self.fault_state is None:
+            return
+        self.fault_state.zero_()
+        self._skip_lag.clear()
+
+    # -- in-step metrics (metric_device.py) ------------------------------------
+    @property
+    def num_metric_slots(self):
+        return len(self._metric_state)
+
+    def metric_state(self, idx):
+        """Slot ``idx``'s device counter."""
+        return self._metric_state[idx]
+
+    def attach_metric(self, metric, sig, dtype, lnames, pnames, fn):
+        """Claim an in-step counter slot for ``metric``: a 0-dim ``dtype``
+        counter on the device that ``fn`` advances inside the step. A
+        slot with the same signature whose owner died (or is this metric)
+        is reused, its counter zeroed in place: no new capture. Otherwise
+        a slot is added, and the next step captures anew. Returns the
+        slot's index."""
+        for i, s in enumerate(self._metric_sigs):
+            owner = self._metric_owner[i]
+            o = owner() if owner is not None else None
+            if s == sig and (o is None or o is metric):
+                self._metric_owner[i] = weakref.ref(metric)
+                self._metric_state[i].zero_()
+                return i
+        self._metric_sigs.append(sig)
+        self._metric_rules.append((list(lnames), list(pnames), fn))
+        self._metric_state.append(torch.zeros((), dtype=dtype,
+                                              device=self.device))
+        self._metric_owner.append(weakref.ref(metric))
+        self._slots_version += 1
+        return len(self._metric_sigs) - 1
+
+    def live_metrics(self):
+        """The attached metrics still alive."""
+        out = []
+        for wr in self._metric_owner:
+            m = wr() if wr is not None else None
+            if m is not None:
+                out.append(m)
+        return out
+
+    def detach_metrics(self):
+        """Drop every counter rule (their shapes went stale;
+        ``metric_device`` folds the live windows first). The programs
+        captured with slots go too: their graphs hold the counters."""
+        if not self._metric_rules:
+            return
+        self._metric_sigs = []
+        self._metric_rules = []
+        self._metric_state = []
+        self._metric_owner = []
+        self.metric_detach_epoch += 1
+        self._slots_version += 1
+        self._programs = {k: p for k, p in self._programs.items()
+                          if p.metric_slots == 0}
+
+    def release_metric_slot(self, idx):
+        """Disown one slot (its metric went back to the host path); the
+        rule keeps running until the slot is reused."""
+        if idx < len(self._metric_owner):
+            self._metric_owner[idx] = None
+
+    def reset_metric_state(self, idx):
+        """Zero slot ``idx``'s counter in place."""
+        if idx < len(self._metric_state):
+            self._metric_state[idx].zero_()
+
+    # -- optimizer state io ----------------------------------------------------
+    def states_snapshot(self):
+        """The optimizer state as the JAX package's fused step serializes
+        it, unpickled: ``{"__mxnet_tpu_fused__": 1, "optimizer",
+        "num_update", "state": {param: (numpy leaves)}}`` (a fixed param
+        has no leaves). The device reads are ordered after the last step
+        on the current stream."""
+        leaves = [(n, x) for n in self.param_names
+                  for x in self._state.get(n, ())]
+        host = host_numpy([x for _, x in leaves])
+        state = {n: () for n in self.param_names}
+        for (n, _), h in zip(leaves, host):
+            state[n] += (h,)
+        return {"__mxnet_tpu_fused__": 1,
+                "optimizer": type(self.optimizer).__name__.lower(),
+                "num_update": self.num_update, "state": state}
+
+    def get_states(self):
+        """``states_snapshot()`` pickled: the bytes of a ``.states``
+        file."""
+        return pickle.dumps(self.states_snapshot())
+
+    def set_states(self, data):
+        """Load ``get_states``' bytes (or the JAX package's): each leaf
+        is copied into the momentum it belongs to, in place."""
+        obj = pickle.loads(data) if isinstance(data, (bytes, bytearray)) \
+            else data
+        if not (isinstance(obj, dict) and obj.get("__mxnet_tpu_fused__")):
+            raise MXNetError(
+                "optimizer states were saved by the eager Updater path; "
+                "the fused Module step cannot load them")
+        if not self.started:
+            raise MXNetError("call after bind/init (start() not run)")
+        saved_opt = obj.get("optimizer")
+        cur_opt = type(self.optimizer).__name__.lower()
+        if saved_opt is not None and saved_opt != cur_opt:
+            raise MXNetError(
+                f"optimizer states were saved for '{saved_opt}' but the "
+                f"module now runs '{cur_opt}'")
+        with torch.no_grad():
+            for n in self.param_names:
+                saved = obj["state"].get(n)
+                cur = self._state.get(n, ())
+                if saved is None:
+                    continue
+                if len(saved) != len(cur):
+                    raise MXNetError(
+                        f"saved optimizer state for '{n}' has {len(saved)} "
+                        f"leaves, expected {len(cur)}: optimizer mismatch?")
+                for s, c in zip(saved, cur):
+                    c.copy_(torch.from_numpy(np.asarray(s)).reshape(
+                        c.shape))
+        self.num_update = int(obj["num_update"])
+
     def _program_key(self, sig):
         """The step program's key at one feed signature (the JAX
         package's materials, ``mxnet_tpu/module/fused.py``
-        ``_program_key``, less the mesh, guard, metric and sparse ones
-        this port lacks)."""
+        ``_program_key``: the guard flag and the metric slots' signatures
+        among them, less the mesh and sparse ones this port lacks)."""
         from ..symbol import passes as _passes
         if self._symbol_sha is None:
             self._symbol_sha = compile_mod.symbol_digest(self.symbol)
@@ -348,10 +689,12 @@ class FusedSymbolStep:
         fusion = {"flag": str(config.get("MXTPU_PALLAS_FUSION")),
                   "sites": len(fusion_report["sites"])
                   if fusion_report else 0}
-        extra = {"compute_dtype": str(self.compute_dtype).replace(
+        extra = {"guard": bool(self.guard_enabled),
+                 "compute_dtype": str(self.compute_dtype).replace(
                      "torch.", ""),
                  "trainable": sorted((n, bool(v))
-                                     for n, v in self.trainable.items())}
+                                     for n, v in self.trainable.items()),
+                 "metrics": repr(tuple(self._metric_sigs))}
         return compile_mod.program_key(
             "fused_step", f"fused_step:{self.symbol.name}",
             symbol_sha=self._symbol_sha, input_sigs=sig,

@@ -9,7 +9,12 @@ stashes the batch, ``backward`` does nothing, and ``update`` runs the
 forward, the implicit-loss backward, the optimizer update and the
 BatchNorm aux fold, on the card as a captured CUDA graph. ``set_params``
 after ``init_optimizer`` copies into the step's master tensors, which a
-graph holds by address. That is the only training path of the port:
+graph holds by address. ``update_metric`` after a fused training step
+counts the supported metrics inside the step (``metric_device.py``);
+eval forwards and other metrics take the host path.
+``save_checkpoint`` / ``Module.load`` and ``save_optimizer_states`` /
+``load_optimizer_states`` write and read the JAX package's files. The
+fused step is the only training path of the port:
 ``fused=False`` (the eager per-parameter Updater loop), multiple
 contexts (the device mesh), distributed kvstores, ``group2ctxs`` and
 explicit ``out_grads`` are not ported and raise.
@@ -27,9 +32,10 @@ import numpy as np
 import torch
 
 from .. import optimizer as opt
-from ..base import MXNetError
+from ..base import MXNetError, atomic_write
 from ..context import as_device
 from ..io import DataDesc
+from ..model import load_checkpoint
 from .base_module import BaseModule, _check_input_names
 
 __all__ = ["Module"]
@@ -114,10 +120,52 @@ class Module(BaseModule):
         self._fused = None
         self._feed = None
         self._outputs = []
+        self._outputs_from_step = False
+        self._loaded_params = None
+        self._preload_opt_states = None
         self._shapes = None
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = None
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of ``prefix-symbol.json`` with the params of
+        ``prefix-%04d.params`` (either package's files); they go onto the
+        Module's device at ``bind``, and with
+        ``load_optimizer_states`` ``prefix-%04d.states`` is loaded at
+        ``init_optimizer``."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._loaded_params = (args, auxs)
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = f"{prefix}-{epoch:04d}.states"
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states``."""
+        self._symbol.save(f"{prefix}-symbol.json")
+        param_name = f"{prefix}-{epoch:04d}.params"
+        self.save_params(param_name)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
+        if save_optimizer_states:
+            self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
+
+    def save_optimizer_states(self, fname):
+        """The fused step's optimizer state (``get_states``' bytes)
+        through ``base.atomic_write``."""
+        assert self.optimizer_initialized
+        with atomic_write(fname) as fout:
+            fout.write(self._fused.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Load a ``save_optimizer_states`` file (either package's)."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as f:
+            self._fused.set_states(f.read())
+        self._optimizer.num_update = self._fused.num_update
 
     # -- properties -----------------------------------------------------------
     @property
@@ -178,6 +226,12 @@ class Module(BaseModule):
                                 map(tuple, arg_shapes)))
         self._shapes.update(zip(self._aux_names, map(tuple, aux_shapes)))
         self.binded = True
+        if self._loaded_params is not None:
+            args, auxs = self._loaded_params
+            self._loaded_params = None
+            self.params_initialized = False
+            self.init_params(initializer=None, arg_params=args,
+                             aux_params=auxs)
 
     # -- params ---------------------------------------------------------------
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
@@ -270,6 +324,9 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._maybe_init_fused()
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def _maybe_init_fused(self):
         """Start the fused step (module/fused.py); the configurations it
@@ -317,6 +374,7 @@ class Module(BaseModule):
             is_train = self.for_training
         feed = self._batch_feed(data_batch)
         self._outputs = []
+        self._outputs_from_step = False
         if is_train:
             self._feed = feed
             return
@@ -355,6 +413,7 @@ class Module(BaseModule):
                            else o.lr)
         step = self._fused.step_eager if eager else self._fused.step
         self._outputs = step(self._feed)
+        self._outputs_from_step = True
         self._feed = None
         o.num_update = self._fused.num_update
 
@@ -368,6 +427,17 @@ class Module(BaseModule):
         return self._outputs
 
     def update_metric(self, eval_metric, labels):
+        """Update ``eval_metric`` with ``labels`` and the outputs. After a
+        fused training step the supported metrics are counted inside the
+        step (``metric_device.inline_update``): nothing is read from the
+        card until the metric is. Eval forwards, outputs asked for
+        before ``update`` and the other metrics take the host path."""
+        label_dict = dict(zip(self._label_names, labels or []))
+        if self._outputs_from_step:
+            from .. import metric_device
+            if metric_device.inline_update(
+                    self._fused, eval_metric, label_dict,
+                    dict(zip(self._output_names, self._outputs))):
+                return
         eval_metric.update_dict(
-            dict(zip(self._label_names, labels or [])),
-            dict(zip(self._output_names, self.get_outputs())))
+            label_dict, dict(zip(self._output_names, self.get_outputs())))

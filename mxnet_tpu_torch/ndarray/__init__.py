@@ -21,7 +21,7 @@ from ..symbol.op_info import op_input_names
 from .ndarray import NDArray, array, empty, waitall, _invoke_op
 
 __all__ = ["NDArray", "array", "empty", "waitall", "zeros", "ones", "full",
-           "arange", "random"]
+           "arange", "save", "load", "random"]
 
 
 def _make_op_func(opdef):
@@ -100,6 +100,72 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     if repeat != 1:
         t = t.repeat_interleave(repeat)
     return NDArray(t)
+
+
+# -- serialization. Two formats by extension, as in the JAX package:
+#    *.params  -> the dmlc-binary NDArray map (param_file.py), byte for
+#                 byte the JAX package's
+#    otherwise -> a numpy .npz container with the names under
+#                 ``__mxnet_tpu_names__``
+def _split_save_arg(data):
+    if isinstance(data, (NDArray, torch.Tensor, np.ndarray)):
+        return [data], None
+    if isinstance(data, (list, tuple)):
+        return list(data), None
+    if isinstance(data, dict):
+        return list(data.values()), list(data.keys())
+    raise TypeError("save requires an NDArray, a list or a dict")
+
+
+def save(fname, data):
+    """Save an NDArray, a list or a {name: array} dict (arrays may also
+    be torch tensors or numpy arrays) through ``base.atomic_write``."""
+    import os
+    from ..base import atomic_write
+    from .param_file import _dense_numpy, save_params
+    fname = os.fspath(fname)
+    arrs, names = _split_save_arg(data)
+    if fname.endswith(".params"):
+        save_params(fname, arrs, names if names is not None else [])
+        return
+    names = names if names is not None else [str(i)
+                                             for i in range(len(arrs))]
+    with atomic_write(fname) as f:
+        np.savez(f, __mxnet_tpu_names__=np.array(names, dtype=object),
+                 **{f"arr_{i}": _dense_numpy(a) for i, a in enumerate(arrs)})
+
+
+def _is_dmlc_params(fname):
+    """The 8-byte list magic (``.params`` files of the JAX package's
+    early builds are npz)."""
+    with open(fname, "rb") as f:
+        head = f.read(8)
+    return len(head) == 8 and int.from_bytes(head, "little") == 0x112
+
+
+def load(fname):
+    """Load what ``save`` wrote (or the JAX package's ``nd.save``): a
+    dict for named arrays, else a list. Dense arrays come back as
+    NDArrays on the CPU (the file's device); sparse ones as the stored
+    parts (``param_file.RowSparseStorage`` / ``CSRStorage``)."""
+    import os
+    from .param_file import load_params
+    fname = os.fspath(fname)
+
+    def wrap(a):
+        return NDArray(torch.from_numpy(a)) if isinstance(a, np.ndarray) \
+            else a
+
+    if fname.endswith(".params") and _is_dmlc_params(fname):
+        raw, names = load_params(fname)
+        arrs = [wrap(a) for a in raw]
+        return dict(zip(names, arrs)) if names else arrs
+    with np.load(fname, allow_pickle=True) as zf:
+        names = [str(n) for n in zf["__mxnet_tpu_names__"]]
+        arrs = [wrap(zf[f"arr_{i}"]) for i in range(len(names))]
+    if all(n.isdigit() for n in names):
+        return arrs
+    return dict(zip(names, arrs))
 
 
 from . import random  # noqa: E402,F401

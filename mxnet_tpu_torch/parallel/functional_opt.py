@@ -5,11 +5,12 @@ of ``mxnet_tpu/parallel/functional_opt.py``), SGD only.
 
     init(param)                         -> state tuple (fp32 tensors)
     update(param, grad, state, lr, t, wd) -> (new_param, new_state)
-    update_(params, grads, states, lr, wd)   in place, over lists
+    update_(params, grads, states, lr, wd, out=None)  on lists
 
 ``update`` is pure; ``update_`` applies the same arithmetic, in the same
 order, in place over lists of tensors with ``torch._foreach_*`` (one
-launch per operation for a whole group of parameters). Gradients are
+launch per operation for a whole group of parameters), or into ``out``
+lists (the fused step's guard selects them into the state). Gradients are
 taken in fp32, multiplied by ``rescale_grad``, clipped, then ``wd * p``
 is added (``_g32``); momentum is ``mom = momentum*mom - lr*g`` and then
 ``p += mom``. The other rules of the JAX package are not ported yet.
@@ -40,12 +41,15 @@ class FunctionalOptimizer:
     def update(self, p, g, s, lr, t, wd=0.0):
         return self._update(p, g, s, lr, t, wd)
 
-    def update_(self, params, grads, states, lr, wd=0.0):
-        """In place over lists: ``params`` (fp32), their ``grads`` (fp32,
+    def update_(self, params, grads, states, lr, wd=0.0, out=None):
+        """Over lists: ``params`` (fp32), their ``grads`` (fp32,
         overwritten) and ``states`` (one state tuple per param), all with
         the same ``lr`` (a float or a 0-dim fp32 device tensor) and
-        ``wd``."""
-        self._update_(params, grads, states, lr, wd)
+        ``wd``. In place; or, with ``out=(new_params, new_states)``
+        (lists shaped as ``params`` and ``states``), the same arithmetic
+        written there, leaving ``params`` and ``states`` as they were:
+        bit for bit the values the in-place update would leave."""
+        self._update_(params, grads, states, lr, wd, out)
 
 
 _FACTORIES = {}
@@ -105,15 +109,24 @@ def _make_sgd(kw):
             return p + mom, (mom,)
         return p - lr * g, ()
 
-    def update_(params, grads, states, lr, wd):
+    def update_(params, grads, states, lr, wd, out=None):
         _g32_(grads, kw)
         if wd:
             torch._foreach_add_(grads, params, alpha=float(wd))
         # lr * g, in place in the gradients (a float or a device scalar)
         torch._foreach_mul_(grads, lr if isinstance(lr, torch.Tensor)
                             else float(lr))
+        moms = [s[0] for s in states] if momentum else None
+        if out is not None:
+            # the same operations, in the same order, on copies
+            new_p, new_s = out
+            torch._foreach_copy_(new_p, params)
+            params = new_p
+            if momentum:
+                new_m = [s[0] for s in new_s]
+                torch._foreach_copy_(new_m, moms)
+                moms = new_m
         if momentum:
-            moms = [s[0] for s in states]
             torch._foreach_mul_(moms, float(momentum))
             torch._foreach_sub_(moms, grads)
             torch._foreach_add_(params, moms)

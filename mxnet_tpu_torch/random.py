@@ -49,10 +49,12 @@ def generator(device):
 
 
 def get_state():
-    """The seed and every generator's state, for a checkpoint."""
+    """The seed and every generator's state, for a checkpoint. The states
+    are numpy ``uint8`` arrays, so the snapshot unpickles without torch
+    (the JAX package reads the port's checkpoints)."""
     with _lock:
         return {"seed": _seed[0],
-                "generators": {str(d): g.get_state()
+                "generators": {str(d): g.get_state().numpy().copy()
                                for d, g in _gens.items()}}
 
 
@@ -65,4 +67,4 @@ def set_state(state):
             g = _gens.get(d)
             if g is None:
                 g = _gens[d] = torch.Generator(device=d)
-            g.set_state(st)
+            g.set_state(torch.as_tensor(st, dtype=torch.uint8))

@@ -13,9 +13,9 @@ import sys
 from ..name import NameManager
 from ..ops.registry import _OPS
 from .op_info import op_input_names
-from .symbol import Symbol, var, Variable, Group, load_json, _Node
+from .symbol import Symbol, var, Variable, Group, load_json, load, _Node
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load"]
 
 
 def _node_num_outputs(opdef):

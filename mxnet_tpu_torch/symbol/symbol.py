@@ -22,7 +22,7 @@ from ..ops import get_op, has_op
 from ..ops.registry import parse_attr
 from .op_info import op_input_names
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load"]
 
 _node_uid = itertools.count()
 # ops whose result depends on the walk's mode (batch statistics)
@@ -316,6 +316,13 @@ class Symbol:
             "attrs": {"mxnet_version": ["int", 10100]},
         }, indent=2)
 
+    def save(self, fname):
+        """Write the JSON graph to ``fname`` (through
+        ``base.atomic_write``)."""
+        from ..base import atomic_write
+        with atomic_write(fname, mode="w") as f:
+            f.write(self.tojson())
+
 
 def _hint_param_shapes(node, in_shapes, attrs):
     """Weight/bias/aux/label shapes of layer ops from the data shape."""
@@ -429,3 +436,10 @@ def load_json(json_str):
     outs = [Symbol(nodes[nid], out_i) for nid, out_i, _ in heads]
     return outs[0] if len(outs) == 1 else Group(outs)
 
+
+
+def load(fname):
+    """The symbol of a JSON graph file (``Symbol.save``'s, or the JAX
+    package's)."""
+    with open(fname) as f:
+        return load_json(f.read())
