@@ -132,12 +132,45 @@ script exits non-zero and prints no result. Phases:
    ms per step, memory, the losses (they must fall: the last below the
    first, all below the initial loss) and K4's launches per step (the
    loss's forward and backward).
-14. the kernels line (K1/K2/B1/B2 also with their ``fit`` launches),
-   then the result line.
+14. decode_kernel: D1 (the decode-attention kernel, Triton) against its
+   plain version at GPT-2 small's decode shapes (16 lanes, 12 heads of
+   64, max_seq 1024, mixed positions with inactive lanes), f32 and int8
+   cache, W = 1 (decode) and W = 5 (verify): error and tolerance, ms
+   beside the plain version's, ``F.scaled_dot_product_attention``'s on
+   the same cache and mask (f32; a yardstick the port never calls) and
+   the bound of the rows the positions need.
+15. decode_serving: ``DecodePredictor`` + ``DecodeBatcher`` at GPT-2
+   small's widths (random weights from seed 0), slots 16, prompt buckets
+   (64, 256, 1024), f32 then int8 cache: ``warmup()`` captures one
+   program per bucket and the decode step, serving captures none;
+   ``token_closed_loop`` at 1, 8 and 16 clients, 128 requests at each
+   (``mixed_prompts``, seed 0, 16-512 tokens in equal shares, shuffled
+   so every client draws from the whole mix; 64 new tokens): tokens/s,
+   TTFT p50/p99 (also by prompt length),
+   inter-token p99, D1 launches per decode step (== layers, counted
+   from replays, counts set to 0 just before each run); the decode
+   step's device ms (CUDA events over replays) and a 20-step decode
+   loop's busy share; cache bytes, counted bytes per token against the
+   cacheless re-prefill's, memory. Checks (prompts of 16, 60, 200 and
+   600 tokens, so lanes span up to 5 of D1's 128-row blocks and every
+   prefill bucket): 8 prompts batched equal to solo bit for bit, the captured decode step equal to the eager one
+   bit for bit, and (f32) 4 greedy streams equal to an f64 eager run of
+   the plain functions on every step whose f64 top-2 gap exceeds 1e-3;
+   int8's agreement with f32 is printed. A probe (D1 captured with its
+   visible range one row too long) must fail these checks.
+16. spec_decode: ``SpecDecodePredictor`` (a random 2-layer shrink-2
+   draft, k = 4) streams bit for bit the plain ones; acceptance, the
+   verify step's device ms, D1's W = 5 launches.
+17. decode_disagg: a prefill-role batcher hands lanes to a decode-role
+   one; streams equal the unified ones, and with every handoff lost
+   (``kv_handoff``) the decode side re-prefills, no stream dropped.
+18. the kernels line (K1/K2/B1/B2 also with their ``fit`` launches, D1
+   with its decode_serving launches), then the result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
 """
+import contextlib
 import gc
 import json
 import os
@@ -2622,6 +2655,555 @@ def checkpoint_phase(mt, torch, smi, batches, model):
           f"the truncated checkpoint did not fall back: {row['fallback']}")
 
 
+# ---------------------------------------------------------------------------
+# decode serving: D1, DecodePredictor + DecodeBatcher, speculative decode,
+# disaggregated prefill / decode
+# ---------------------------------------------------------------------------
+# GPT-2 small's published widths (Radford et al. 2019; the gpt2 config's
+# n_vocab / n_embd / n_head / n_layer / n_positions, ffn 4 x n_embd) on the
+# repo's own TransformerLMSpec: no biases, a ReLU FFN and an untied head,
+# so the widths are GPT-2 small's and the model is not. Depth is not cut.
+GPT2_SMALL = {"vocab_size": 50257, "num_embed": 768, "num_heads": 12,
+              "num_layers": 12, "max_seq": 1024, "ffn_hidden": 3072}
+DECODE_SLOTS = 16
+DECODE_BUCKETS = (64, 256, 1024)
+DECODE_NEW_TOKENS = 64
+DECODE_CLIENTS = (1, 8, 16)
+DECODE_REQUESTS = 128      # at each client count, split evenly
+DECODE_PROMPT_LENGTHS = (16, 32, 64, 128, 256, 512)
+CHECK_PROMPTS = 8          # batched against solo
+# 1 to 5 of D1's 128-row blocks by the last token, every prefill bucket
+CHECK_PROMPT_LENGTHS = (16, 60, 200, 600)
+CHECK_TOKENS = 32
+F64_PROMPTS = 4            # held against the f64 plain run
+F64_MARGIN = 1e-3          # steps whose f64 top-2 logit gap is smaller
+                           # are exempt: f32 rounding may pick either
+KV_CACHE_BYTES = {"float32": 1_207_959_552, "int8": 320_864_256}
+# D1's lanes: mixed positions, the zeros as inactive lanes are staged
+D1_POSITIONS = (0, 1, 17, 511, 1023, 0, 0, 0, 300, 1000, 64, 5, 700, 900,
+                128, 33)
+# D1 against its plain version: the outputs are O(1) averages of the V
+# rows; the kernel sums up to 1024 rows in another order (one pass with
+# a running max) than the plain einsum, ~1e-6 apart in f32. The limit
+# leaves 50x room and is far below what a missing or extra row moves.
+D1_TOL = 5e-5
+D1_REPLACES = ("mxnet_tpu/serving/decode/model.py:375-381 and :448-455 "
+               "(decode_step / verify_step attention over the cache, jnp, "
+               "XLA-fused; no pallas_call)")
+
+
+def gpt2_spec(mt, name):
+    return mt.serving.decode.TransformerLMSpec(name=name, **GPT2_SMALL)
+
+
+def d1_case(mt, torch, F, gen, kv, width):
+    """D1 against its plain version at the decode path's shapes: 16
+    lanes of a 1024-row cache, 12 heads of 64, mixed positions; ms beside
+    the plain version's, SDPA's (f32 only: a yardstick the port never
+    calls) and the bound (the rows this run's positions need)."""
+    da = mt.ops.decode_attention
+    dm = mt.serving.decode.model
+    n, m, h, d = DECODE_SLOTS, GPT2_SMALL["max_seq"], 12, 64
+    q = torch.randn(n, width, h, d, device="cuda", generator=gen)
+    kf = torch.randn(n, m, h, d, device="cuda", generator=gen)
+    vf = torch.randn(n, m, h, d, device="cuda", generator=gen)
+    pos = torch.tensor(D1_POSITIONS, dtype=torch.int32, device="cuda")
+    if kv == "int8":
+        k, ks = dm._kv_quant_rows(kf)
+        v, vs = dm._kv_quant_rows(vf)
+        args = (q, k, v, pos, ks, vs)
+    else:
+        args = (q, kf, vf, pos)
+    got = da.decode_attention(*args)
+    ref = da.decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ms = time_ms(lambda: da.decode_attention(*args))
+    plain_ms = time_ms(lambda: da.decode_attention_plain(*args))
+    rows = sum(min(p + width, m) for p in D1_POSITIONS)
+    row_bytes = h * d * (1 if kv == "int8" else 4) + (4 * h if kv == "int8"
+                                                      else 0)
+    io_bytes = 2 * q.numel() * 4 + n * 4
+    nbytes = io_bytes + 2 * rows * row_bytes
+    bound, by = bound_ms(nbytes, 4 * width * rows * h * d, "float32")
+    lib_ms = lib_err = None
+    if kv == "float32":
+        last = pos.long()[:, None] + torch.arange(width, device="cuda")
+        mask = (torch.arange(m, device="cuda") <= last[..., None])[:, None]
+        qs, ksd, vsd = (t.permute(0, 2, 1, 3) for t in (q, kf, vf))
+
+        def lib():
+            return F.scaled_dot_product_attention(qs, ksd, vsd,
+                                                  attn_mask=mask)
+        lib_err = float((lib().permute(0, 2, 1, 3) - ref).abs().max())
+        lib_ms = time_ms(lib)
+    row = {"phase": "decode_kernel", "kernel": "D1", "kv_dtype": kv,
+           "width": width, "lanes": n, "max_seq": m, "heads": h,
+           "head_dim": d, "positions": list(D1_POSITIONS),
+           "max_abs_err": err, "tol": D1_TOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "bytes_needed": nbytes, "rows_read": rows,
+           "bound_ms_all_rows": bound_ms(io_bytes + 2 * n * m * row_bytes,
+                                         4 * width * n * m * h * d,
+                                         "float32")[0],
+           "library_ms": lib_ms,
+           "library": "F.scaled_dot_product_attention, boolean mask"
+           if lib_ms is not None else None, "library_max_abs_err": lib_err}
+    emit(row)
+    check(err <= D1_TOL, f"D1 {kv} W={width}: error {err} > {D1_TOL}")
+    return row
+
+
+def decode_kernel_phase(mt, torch, F, gen):
+    """D1 at W = 1 (decode) and W = 5 (verify at k = 4), f32 and int8,
+    then one call it must refuse."""
+    rows = {(kv, w): d1_case(mt, torch, F, gen, kv, w)
+            for kv in ("float32", "int8") for w in (1, 5)}
+    z = torch.zeros(2, 1, 2, 64, device="cuda", dtype=torch.float16)
+    try:
+        mt.ops.decode_attention.decode_attention(
+            z, z, z, torch.zeros(2, dtype=torch.int32, device="cuda"))
+        raise AssertionError("D1 accepted float16 on CUDA")
+    except mt.MXNetError as e:
+        emit({"phase": "decode_kernel", "raises_on_unsupported_dtype":
+              str(e)})
+    return rows
+
+
+def f64_reference(mt, torch, spec, p64, prompt, stream):
+    """The f64 plain functions on the card (D1's plain version), teacher
+    forced along ``stream``: per step the f64 argmax and top-2 gap.
+    Returns (steps checked, exempt steps, steps that differ)."""
+    dm = mt.serving.decode.model
+    da = mt.ops.decode_attention
+    real = da.decode_attention
+    da.decode_attention = da.decode_attention_plain
+    try:
+        return _f64_steps(dm, torch, spec, p64, prompt, stream)
+    finally:
+        da.decode_attention = real
+
+
+def _f64_steps(dm, torch, spec, p64, prompt, stream):
+    caches = [c.double() for c in dm.init_caches(spec, 1, "float32",
+                                                  "cuda")]
+    plen = len(prompt)
+    checked, exempt, differ = 0, 0, []
+    with torch.inference_mode():
+        for i, tok in enumerate(stream):
+            if i == 0:
+                _, logits = dm._prefill(
+                    spec, p64, caches,
+                    torch.tensor(prompt[None], device="cuda"), plen, 0,
+                    "float32")
+            else:
+                _, logits = dm._decode(
+                    spec, p64, caches,
+                    torch.tensor([stream[i - 1]], dtype=torch.int32,
+                                 device="cuda"),
+                    torch.tensor([plen + i - 1], dtype=torch.int32,
+                                 device="cuda"),
+                    torch.ones(1, dtype=torch.bool, device="cuda"),
+                    "float32")
+                logits = logits[0]
+            top = torch.topk(logits, 2)
+            if float(top.values[0] - top.values[1]) > F64_MARGIN:
+                checked += 1
+                if int(top.indices[0]) != tok:
+                    differ.append(i)
+            else:
+                exempt += 1
+    return checked, exempt, differ
+
+
+def captured_vs_eager(torch, np, pred, prompts):
+    """One decode step of 8 filled lanes as the captured program and as
+    the same functions run eagerly, from the same cache: logits and
+    every cache buffer bit for bit."""
+    slots = [pred.alloc_slot() for _ in prompts]
+    try:
+        toks = {s: pred.prefill(s, p) for s, p in zip(slots, prompts)}
+        with pred._lock:
+            buf = pred._decode_buf(toks)
+            snap = [c.clone() for c in pred._caches]
+            _, logits = pred._call(("decode",), "decode", None, buf)
+            cap = [logits.clone()] + [c.clone() for c in pred._caches]
+            for c, s in zip(pred._caches, snap):
+                c.copy_(s)
+            _, logits = pred._call(("decode",), "decode", None, buf,
+                                   eager=True)
+            eager = [logits] + list(pred._caches)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(cap, eager))
+            diff = float((cap[0] - eager[0]).abs().max())
+    finally:
+        for s in slots:
+            pred.release(s)
+    return same, diff
+
+
+def decode_checks(mt, torch, np, pred, prompts, p64=None):
+    """The served-path checks of one DecodePredictor: 8 prompts batched
+    against solo (bit for bit), the captured decode step against the
+    eager one (bit for bit), and, with ``p64``, the first 4 streams
+    against the f64 plain run on every step with a top-2 gap above
+    F64_MARGIN. Returns (results, the names of the failed checks,
+    the batched streams)."""
+    solo = [list(pred.generate(p, max_new_tokens=CHECK_TOKENS))
+            for p in prompts]
+    bat = mt.serving.decode.DecodeBatcher(pred, max_wait_us=20000,
+                                          name=f"{pred.name}-check")
+    with bat:
+        futs = [bat.submit(p, max_new_tokens=CHECK_TOKENS)
+                for p in prompts]
+        batched = [f.result(timeout=600) for f in futs]
+    same, diff = captured_vs_eager(torch, np, pred, prompts)
+    res = {"batched_equals_solo": batched == solo,
+           "captured_equals_eager": same,
+           "captured_vs_eager_max_logit_diff": diff}
+    fails = [k for k in ("batched_equals_solo", "captured_equals_eager")
+             if not res[k]]
+    if p64 is not None:
+        checked = exempt = 0
+        differ = {}
+        for i in range(F64_PROMPTS):
+            c, e, d = f64_reference(mt, torch, pred.spec, p64, prompts[i],
+                                    batched[i])
+            checked, exempt = checked + c, exempt + e
+            if d:
+                differ[i] = d
+        res.update({"f64_steps_checked": checked,
+                    "f64_steps_exempt": exempt,
+                    "f64_differ_at": differ})
+        if differ:
+            fails.append("f64_greedy_tokens")
+    return res, fails, batched
+
+
+def decode_serving_phase(mt, torch, np, smi, params):
+    """``decode_serving``: DecodePredictor + DecodeBatcher at GPT-2
+    small's widths, f32 then int8 cache (see the module docstring)."""
+    from mxnet_tpu_torch.serving import loadgen
+    dec = mt.serving.decode
+    fb = mt.ops.fused_bn_conv
+    d1 = mt.ops.decode_attention.decode_attention
+    spec = gpt2_spec(mt, "gpt2s")
+    prompts = loadgen.mixed_prompts(
+        {n: 1 for n in DECODE_PROMPT_LENGTHS}, vocab_size=spec.vocab_size,
+        n=DECODE_REQUESTS, seed=SEED)
+    # the wheel's order would give a client only some of the lengths
+    prompts = [prompts[i]
+               for i in np.random.RandomState(SEED).permutation(len(prompts))]
+    check_prompts = loadgen.mixed_prompts(
+        {n: 1 for n in CHECK_PROMPT_LENGTHS}, vocab_size=spec.vocab_size,
+        n=CHECK_PROMPTS, seed=SEED + 1)
+    out, launches, f32_streams = {}, {}, None
+    keep = None
+    for kv in ("float32", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred = dec.DecodePredictor(spec, params, slots=DECODE_SLOTS,
+                                   seq_buckets=DECODE_BUCKETS,
+                                   kv_dtype=kv, name=f"gpt2s-{kv}",
+                                   device="cuda:0")
+        if kv == "float32":
+            params = pred._p            # the staged tensors, shared below
+        tot0 = registry_totals(mt)
+        n_prog = pred.warmup()
+        warm = registry_delta(tot0, registry_totals(mt))
+        setup_s = time.perf_counter() - t0
+        check(n_prog == len(DECODE_BUCKETS) + 1
+              and warm["fresh_compiles"] == len(DECODE_BUCKETS) + 1,
+              f"{kv}: warmup captured {warm} for {DECODE_BUCKETS}")
+        check(pred.kv_cache_bytes() == KV_CACHE_BYTES[kv],
+              f"{kv}: kv_cache_bytes {pred.kv_cache_bytes()}")
+        batcher = dec.DecodeBatcher(pred, max_wait_us=2000,
+                                    name=f"gpt2s-{kv}")
+        batcher.start()
+        tot1 = registry_totals(mt)
+        steps0 = pred.report()["decode_steps"]
+        # the main path: counts set to 0 just before, read just after
+        fb.reset_launch_counts()
+        runs = {}
+        for c in DECODE_CLIENTS:
+            r = loadgen.token_closed_loop(batcher, prompts, c,
+                                          DECODE_REQUESTS // c,
+                                          max_new_tokens=DECODE_NEW_TOKENS)
+            runs[c] = {k: r[k] for k in (
+                "tok_s", "ttft_p50_ms", "ttft_p99_ms", "inter_token_p50_ms",
+                "inter_token_p99_ms", "tokens", "wall_s", "gave_up",
+                "by_length")}
+            runs[c]["requests"] = DECODE_REQUESTS
+            check(r["gave_up"] == 0 and r["tokens"] == DECODE_REQUESTS
+                  * DECODE_NEW_TOKENS, f"{kv} at {c} clients: {r}")
+        torch.cuda.synchronize()
+        n_d1 = d1.launches
+        steps = pred.report()["decode_steps"] - steps0
+        serving = registry_delta(tot1, registry_totals(mt))
+        batcher.stop()
+        launches[kv] = {"D1": n_d1, "decode_steps": steps}
+        check(serving["fresh_compiles"] == 0 and serving["retraces"] == 0,
+              f"{kv}: serving after warmup captured or retraced: {serving}")
+        check(steps > 0 and n_d1 == spec.num_layers * steps,
+              f"{kv}: {n_d1} D1 launches over {steps} decode steps")
+        res, fails, streams = decode_checks(
+            mt, torch, np, pred, check_prompts,
+            p64={n: t.double() for n, t in pred._p.items()}
+            if kv == "float32" else None)
+        check(not fails, f"{kv} served-path checks failed: {fails} {res}")
+        if kv == "float32":
+            f32_streams = streams
+        else:
+            agree = [a == b for s8, s32 in zip(streams, f32_streams)
+                     for a, b in zip(s8, s32)]
+            res["int8_tokens_agreeing_with_f32"] = sum(agree) / len(agree)
+        # the decode step alone: replays of the captured program with all
+        # 16 lanes active at one position (D1 reads position + 1 rows)
+        prog = pred._programs[("decode",)]
+        step_ms = {}
+        for p in (512, 1023):
+            buf = np.zeros((3, DECODE_SLOTS), np.int32)
+            buf[1], buf[2] = p, 1
+            with pred._lock, torch.inference_mode():
+                pred._stage(prog, buf)
+                step_ms[p] = time_ms(prog.replay)
+        for s in range(DECODE_SLOTS):
+            pred.seek_slot(s, 512)
+        feed = {s: 1 + s for s in range(DECODE_SLOTS)}
+        from mxnet_tpu_torch.profile_training import busy_summary, \
+            device_trace
+        trace = device_trace(lambda _: pred.decode(feed), 20)
+        busy = busy_summary(trace, 20, what="decode_step")
+        cost = pred.program_cost("decode")
+        out[kv] = {
+            "setup_s": setup_s, "programs_captured": warm["fresh_compiles"],
+            "serving_registry_delta": serving, "clients": runs,
+            "d1_launches": n_d1, "decode_steps": steps,
+            "d1_launches_per_step": n_d1 / steps,
+            "decode_step_device_ms": {"positions_512": step_ms[512],
+                                      "positions_1023": step_ms[1023]},
+            "decode_loop_20_steps": {
+                k: busy[k] for k in ("traced_wall_ms",
+                                     "device_kernel_ms_per_decode_step",
+                                     "device_busy_share")},
+            "decode_loop_d1_ms_per_step":
+                busy["port_kernels_ms_per_decode_step"]["D1"],
+            "decode_loop_top_kernels": busy[
+                "top_kernels_ms_per_decode_step"][:8],
+            "kv_cache_bytes": pred.kv_cache_bytes(),
+            "decode_bytes_per_token": pred.decode_bytes_per_token(),
+            "reprefill_bytes_per_token_s256":
+                pred.reprefill_bytes_per_token(bucket=256),
+            "decode_step_bytes_counted": cost["bytes accessed"],
+            "decode_step_flops_counted": cost["flops"],
+            "decode_step_bound_ms_counted": bound_ms(
+                cost["bytes accessed"], cost["flops"], "float32"),
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "checks": res}
+        emit(dict({"phase": "decode_serving", "kv_dtype": kv,
+                   "slots": DECODE_SLOTS, "buckets": list(DECODE_BUCKETS),
+                   "widths": GPT2_SMALL, "card": smi}, **out[kv]))
+        check(out[kv]["decode_bytes_per_token"]
+              < out[kv]["reprefill_bytes_per_token_s256"],
+              f"{kv}: decode bytes per token not below re-prefill's")
+        if kv == "float32":
+            keep = pred
+        else:
+            check(out[kv]["decode_bytes_per_token"]
+                  < out["float32"]["decode_bytes_per_token"],
+                  "int8 decode bytes per token not below f32's")
+        del pred, batcher
+    check(out["int8"]["kv_cache_bytes"] < out["float32"]["kv_cache_bytes"],
+          "int8 cache not smaller")
+    d1_fault_probe(mt, torch, np, keep, check_prompts)
+    return keep, launches, f32_streams, check_prompts
+
+
+def d1_fault_probe(mt, torch, np, pred, prompts):
+    """The served-path checks on a predictor whose decode program was
+    captured with D1's visible range off by one row (one stale row seen):
+    they must reject it."""
+    da = mt.ops.decode_attention
+    real = da.decode_attention
+
+    def off_by_one(q, k, v, positions, k_scale=None, v_scale=None):
+        return real(q, k, v, positions + 1, k_scale, v_scale)
+
+    da.decode_attention = off_by_one
+    try:
+        probe = mt.serving.decode.DecodePredictor(
+            pred.spec, pred._p, slots=DECODE_SLOTS,
+            seq_buckets=DECODE_BUCKETS, name="gpt2s-probe",
+            device="cuda:0")
+        probe.warmup()
+    finally:
+        da.decode_attention = real
+    res, fails, _ = decode_checks(mt, torch, np, probe, prompts,
+                                  p64={n: t.double()
+                                       for n, t in pred._p.items()})
+    emit(dict({"phase": "decode_fault_probe",
+               "fault": "D1 captured with positions + 1 (one stale row "
+                        "visible)", "rejected_by": fails}, **res))
+    check(fails, "the decode checks pass D1 with its visible range off "
+                 "by one row")
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_decode_phase(mt, torch, np, smi, pred, prompts, plain_streams):
+    """``spec_decode``: SpecDecodePredictor over the f32 target with a
+    2-layer shrink-2 draft (random, seed 1) at k = 4: streams bit for bit
+    the plain ones, accept rate, verify step ms, D1's W = 5 launches."""
+    dec = mt.serving.decode
+    d1 = mt.ops.decode_attention.decode_attention
+    spec = pred.spec
+    dspec = dec.make_draft_spec(spec, num_layers=2, shrink=2)
+    t0 = time.perf_counter()
+    eng = dec.SpecDecodePredictor(
+        spec, pred._p, dspec, dec.init_params(dspec, seed=1), k=4,
+        slots=DECODE_SLOTS, seq_buckets=DECODE_BUCKETS, name="gpt2s-spec",
+        device="cuda:0")
+    eng.warmup()
+    setup_s = time.perf_counter() - t0
+    tot0 = registry_totals(mt)
+    v0, d0 = eng.report()["verify_steps"], eng.report()["decode_steps"]
+    dd0 = eng.draft.report()["decode_steps"]
+    mt.ops.fused_bn_conv.reset_launch_counts()
+    with dec.DecodeBatcher(eng, max_wait_us=20000, name="gpt2s-spec") as b:
+        futs = [b.submit(p, max_new_tokens=CHECK_TOKENS) for p in prompts]
+        streams = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    n_d1 = d1.launches
+    rep = eng.report()
+    verify_steps, decode_steps = rep["verify_steps"] - v0, \
+        rep["decode_steps"] - d0
+    draft_steps = eng.draft.report()["decode_steps"] - dd0
+    serving = registry_delta(tot0, registry_totals(mt))
+    prog = eng._programs[("verify", 5)]
+    buf = np.zeros((DECODE_SLOTS, 8), np.int32)
+    buf[:, 5:] = (512, 5, 1)
+    with eng._lock, torch.inference_mode():
+        eng._stage(prog, buf)
+        verify_ms = time_ms(prog.replay)
+    row = {"phase": "spec_decode", "k": 4, "draft": {
+        "layers": dspec.num_layers, "embed": dspec.num_embed,
+        "heads": dspec.num_heads, "seed": 1}, "setup_s": setup_s,
+        "streams_equal_plain": streams == plain_streams,
+        "acceptance_rate": rep["spec"]["acceptance_rate"],
+        "accepted_per_step": rep["spec"]["accepted_per_step"],
+        "degrade_events": rep["spec"]["degrade_events"],
+        "verify_steps": verify_steps, "target_decode_steps": decode_steps,
+        "draft_decode_steps": draft_steps, "d1_launches": n_d1,
+        "d1_launches_w5": spec.num_layers * verify_steps,
+        "verify_step_device_ms_positions_512": verify_ms,
+        "serving_registry_delta": serving, "card": smi}
+    emit(row)
+    check(row["streams_equal_plain"], "speculative streams differ from "
+                                      "plain decode")
+    check(verify_steps > 0, "no verify round ran")
+    check(n_d1 == spec.num_layers * (verify_steps + decode_steps)
+          + dspec.num_layers * draft_steps,
+          f"D1 launches {n_d1} against {verify_steps} verify, "
+          f"{decode_steps} decode and {draft_steps} draft steps")
+    check(serving["fresh_compiles"] == 0 and serving["retraces"] == 0,
+          f"speculative serving captured or retraced: {serving}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def decode_disagg_phase(mt, torch, np, smi, pred, prompts, plain_streams):
+    """``decode_disagg``: a prefill-role batcher hands lanes to a
+    decode-role one; the streams must equal the unified ones, and with
+    every handoff lost (``kv_handoff``) the decode side re-prefills with
+    no stream dropped."""
+    from mxnet_tpu_torch import faultinject
+    dec = mt.serving.decode
+    pre_eng = dec.DecodePredictor(pred.spec, pred._p, slots=4,
+                                  seq_buckets=DECODE_BUCKETS,
+                                  name="gpt2s-pre", device="cuda:0")
+    dec_eng = dec.DecodePredictor(pred.spec, pred._p, slots=DECODE_SLOTS,
+                                  seq_buckets=DECODE_BUCKETS,
+                                  name="gpt2s-dec", device="cuda:0")
+    decode_b = dec.DecodeBatcher(dec_eng, max_wait_us=0, name="dis-dec",
+                                 role="decode")
+    prefill_b = dec.DecodeBatcher(pre_eng, max_wait_us=0, name="dis-pre",
+                                  role="prefill")
+    decode_b.start()
+    prefill_b.set_handoff(
+        lambda req, last, produced, lane, t0:
+        bool(decode_b.adopt(req, last, produced, lane, t0)) or True)
+    prefill_b.start()
+    rows = {}
+    try:
+        for lost in (False, True):
+            with (faultinject.inject(kv_handoff={}) if lost
+                  else contextlib.nullcontext()):
+                futs = [prefill_b.submit(p, max_new_tokens=CHECK_TOKENS)
+                        for p in prompts]
+                streams = [f.result(timeout=600) for f in futs]
+            rp = prefill_b.report(reset=True)
+            rd = decode_b.report(reset=True)
+            rows["lost" if lost else "handed"] = {
+                "streams_equal_unified": streams == plain_streams,
+                "handoffs": rp["handoffs"], "adopted": rd["adopted"],
+                "cancelled": rd["cancelled"] + rp["cancelled"],
+                "shed": rd["shed_requests"] + rp["shed_requests"],
+                "handoff_p50_ms": rd["handoff_p50_ms"],
+                "ttft_p50_ms": rp["ttft_p50_ms"]}
+    finally:
+        prefill_b.stop()
+        decode_b.stop()
+    emit({"phase": "decode_disagg", "card": smi, **rows})
+    for what, r in rows.items():
+        check(r["streams_equal_unified"] and r["cancelled"] == 0
+              and r["shed"] == 0 and r["adopted"] == len(prompts),
+              f"disaggregated serving ({what}): {r}")
+    del pre_eng, dec_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_phases(mt, torch, np, F, smi, gen):
+    """Every decode phase; returns the kernels line's D1 entry."""
+    t0 = time.perf_counter()
+    d1_rows = decode_kernel_phase(mt, torch, F, gen)
+    params = mt.serving.decode.init_params(gpt2_spec(mt, "gpt2s"), seed=0)
+    pred, launches, streams, prompts = decode_serving_phase(
+        mt, torch, np, smi, params)
+    del params
+    spec_decode_phase(mt, torch, np, smi, pred, prompts, streams)
+    decode_disagg_phase(mt, torch, np, smi, pred, prompts, streams)
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = d1_rows[("float32", 1)]
+    emit({"phase": "decode_seconds", "seconds": time.perf_counter() - t0})
+    return {"name": "decode_attention", "route": "triton",
+            "source": "mxnet_tpu_torch/kernels/decode_attention_triton.py",
+            "replaces": D1_REPLACES,
+            "launches": sum(v["D1"] for v in launches.values()),
+            "launches_by_cache": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in d1_rows.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "dtype": "float32",
+            "per": "one decode call (W = 1, f32 cache) of 16 lanes at "
+                   "the mixed positions, 12 heads of 64, max_seq 1024",
+            "cases": [{k: x[k] for k in ("kv_dtype", "width", "ms",
+                                         "plain_ms", "bound_ms",
+                                         "library_ms", "max_abs_err")}
+                      for x in d1_rows.values()],
+            "path": "decode_serving (token_closed_loop at 1, 8 and 16 "
+                    "clients, f32 then int8 cache), counts set to 0 just "
+                    "before each run", "status": "ok"}
+
+
 def k4_entry(rows, name, route, launches, what):
     """A K4 user kernel's entry of the kernels line: its times at
     ``what``; launches on its path (the softmax CE's on the Gluon
@@ -2949,6 +3531,11 @@ def main():
     ops = k4_register(mt, fns, triton_scale3())
     k4_rows, k4_path_launches = k4_phase(mt, torch, np, ops)
     gluon_launches = gluon_phases(mt, torch, np, smi, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14.-17. decode serving at GPT-2 small's widths ----------------------
+    d1_entry = decode_phases(mt, torch, np, F, smi, gen)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
@@ -3046,7 +3633,7 @@ def main():
              "large elementwise"),
             ("user_scale3_triton", "triton",
              k4_path_launches["user_scale3_triton"], "large elementwise"))
-    ], "card": smi, "seconds": time.perf_counter() - t_start})
+    ] + [d1_entry], "card": smi, "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -2,8 +2,10 @@
 (counterpart of ``mxnet_tpu/compile/registry.py``).
 
 On the card the counterpart of a compiled XLA program is a CUDA graph.
-``FusedSymbolStep`` (module/fused.py) captures one per feed signature and
-``serving.Predictor`` one per bucket, each under a canonical
+``FusedSymbolStep`` (module/fused.py) captures one per feed signature,
+``serving.Predictor`` one per bucket and ``DecodePredictor``
+(serving/decode/engine.py) one per program of kind ``decode`` (prefill
+per bucket, decode, verify per width, reprefill), each under a canonical
 :class:`~.key.ProgramKey`, through :class:`CapturedProgram`. On the CPU
 both run eagerly and still key their programs, so the retrace guard
 reports the same events there.

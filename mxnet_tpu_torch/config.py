@@ -81,3 +81,36 @@ register("MXTPU_FAULT_INJECT", "", str,
          "Deterministic fault-injection spec, 'site:k=v[:k=v];site2:...' "
          "(faultinject.py) — e.g. 'ckpt_write:byte=100:action=kill', "
          "'nan_grad:step=3'. Empty = no faults. Test-only")
+register("MXTPU_DECODE_SLOTS", 4, int,
+         "Decode batch width (serving/decode): concurrent generation "
+         "slots of the continuous-batching decode program; the KV-cache "
+         "grows linearly with it")
+register("MXTPU_DECODE_SEQ_BUCKETS", "16,64", str,
+         "Prompt-length buckets of the decode prefill program: prompts "
+         "pad to the nearest bucket (clipped to the model's max_seq, "
+         "which is always a bucket)")
+register("MXTPU_DECODE_KV_DTYPE", "float32", str,
+         "KV-cache storage dtype for decode serving: float32 or int8 "
+         "(int8 values with one f32 absmax scale per (slot, position, "
+         "head), dequantized on load by the decode-attention kernel)")
+register("MXTPU_DECODE_MAX_WAIT_US", 2000, int,
+         "DecodeBatcher first-fill window: when no generation is in "
+         "flight, how long the first queued prompt waits for company "
+         "(joins mid-flight are immediate)")
+register("MXTPU_DECODE_MAX_QUEUE", 256, int,
+         "DecodeBatcher admission bound in queued REQUESTS; submits past "
+         "it fail fast with serving.Overloaded")
+register("MXTPU_SPEC_K", 4, int,
+         "Speculation depth (serving/decode/spec.py): draft tokens "
+         "proposed per lane per round; the target verifies k+1 fed "
+         "tokens in one program. Verify width k+1 is compile-key material")
+register("MXTPU_SPEC_DISABLE_BELOW", 0.125, float,
+         "Acceptance-rate floor: below it (windowed) the speculative "
+         "engine degrades to plain decode, and re-probes after "
+         "MXTPU_SPEC_PROBE_STEPS rounds")
+register("MXTPU_SPEC_PROBE_STEPS", 64, int,
+         "Plain-decode rounds a degraded speculative engine serves before "
+         "probing speculation again")
+register("MXTPU_SPEC_WINDOW", 32, int,
+         "Sliding window (rounds) of the speculative engine's acceptance "
+         "rate, accepted-per-step figures and degrade decision")

@@ -21,6 +21,20 @@ index, batch index, call ordinal). The sites the port consults:
 - ``data_iter`` (``io.DataIter.__next__``): ``batch=B`` raises at an
   iterator's B-th batch (1-based), the stand-in for a dying input
   worker.
+- ``decode_step`` (``serving/decode/engine.py``): consulted before each
+  decode program launch, ``token=N`` the engine-wide step ordinal. A
+  raise fails the in-flight generations with the KV-cache un-advanced;
+  ``action=sleep:ms=N`` stretches the step (the slow-decode drill) and
+  the program still runs; ``action=kill`` is the SIGKILL-mid-decode
+  drill.
+- ``spec_verify`` (``serving/decode/spec.py``): consulted once per
+  speculative round (``round=N``). A fire is a divergence storm: the
+  round's proposals are replaced by wrong tokens, the verify program
+  runs for real, acceptance records zero and the windowed degrade
+  policy must drop to plain decode; the stream stays exact.
+- ``kv_handoff`` (``serving/decode/batcher.py``): consulted at every
+  prefill-to-decode lane transfer. A fire loses the exported lane: the
+  decode side re-prefills from the prompt, zero tokens dropped.
 
 The JAX package's other sites come with the subsystems that consult
 them (ROADMAP.md). The same spec always produces the same failure.
@@ -40,6 +54,7 @@ import os
 import signal
 import sys
 import threading
+import time
 
 __all__ = ["FaultInjected", "inject", "parse_spec", "active", "fire",
            "guarded_write", "maybe_truncate", "reset", "fired"]
@@ -131,10 +146,10 @@ class inject:
 
 def _matches(params, ctx):
     """Every armed coordinate present in ``ctx`` must equal it; ``times``,
-    ``action``, ``byte``, ``bytes`` and ``match`` are modifiers, not
-    coordinates."""
+    ``action``, ``byte``, ``bytes``, ``match`` and ``ms`` are modifiers,
+    not coordinates."""
     for k, v in params.items():
-        if k in ("times", "action", "byte", "bytes", "match"):
+        if k in ("times", "action", "byte", "bytes", "match", "ms"):
             continue
         if k in ctx and ctx[k] != v:
             return False
@@ -151,7 +166,9 @@ def _record_fire(site):
 def fire(site, **ctx):
     """Consult a site. True exactly when the armed coordinates match
     ``ctx`` (an implicit 1-based ``call`` ordinal is supplied). Honours
-    ``times=N`` (fire at most N times)."""
+    ``times=N`` (fire at most N times); ``action=kill`` SIGKILLs the
+    process, ``action=sleep`` sleeps ``ms`` milliseconds (default 10)
+    before returning True."""
     params = active(site)
     if params is None:
         return False
@@ -163,8 +180,11 @@ def fire(site, **ctx):
         if "times" in params and _fired.get(site, 0) >= params["times"]:
             return False
         _record_fire(site)
-    if params.get("action") == "kill":
+    action = params.get("action")
+    if action == "kill":
         _sigkill(site)
+    elif action == "sleep":
+        time.sleep(max(0, params.get("ms", 10)) / 1000.0)
     return True
 
 

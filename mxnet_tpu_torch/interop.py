@@ -7,6 +7,8 @@
   parameters that both packages can be fed from.
 - ``gluon_params_from_jax`` carries a JAX Gluon net's parameters onto
   the port's net by name.
+- ``decode_params_from_jax`` checks a decode LM's parameter dict against
+  its ``TransformerLMSpec`` and stages it for ``DecodePredictor``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 
 from .base import MXNetError, torch_dtype
 
-__all__ = ["params_from_jax", "init_params", "gluon_params_from_jax"]
+__all__ = ["params_from_jax", "init_params", "gluon_params_from_jax",
+           "decode_params_from_jax"]
 
 
 def _to_numpy(name, v):
@@ -116,3 +119,20 @@ def gluon_params_from_jax(params, net, device):
         p._deferred_init = (init, [ctx], default_init,
                             NDArray(torch.tensor(a)))
         p._finish_deferred_init()
+
+
+def decode_params_from_jax(params, spec, device):
+    """The JAX package's decode-LM parameters (``{name: numpy}``, as
+    ``mxnet_tpu.serving.decode.init_params`` or ``Module.get_params()``
+    give them) as float32 tensors on ``device``, checked name by name
+    against ``spec.param_shapes()`` (a port ``TransformerLMSpec``); the
+    result feeds ``DecodePredictor`` directly."""
+    shapes = spec.param_shapes()
+    missing = [n for n in shapes if n not in params]
+    extra = [n for n in params if n not in shapes]
+    if missing or extra:
+        raise MXNetError(f"decode params do not fit the spec: missing "
+                         f"{missing}, unexpected {extra}")
+    args, _ = params_from_jax({n: params[n] for n in shapes}, None, device,
+                              dtype="float32", shapes=shapes)
+    return args

@@ -11,7 +11,10 @@
 - ``bn_backward_triton.py`` (Triton): the BN backward's per-channel
   reduction and dx assembly, the kernels under the JAX package's
   analytic fused BN backwards.
+- ``decode_attention_triton.py`` (Triton): D1, the masked decode /
+  verify attention over the f32 or int8 KV-cache of decode serving
+  (jnp in the JAX package, ``serving/decode/model.py``).
 
 Their wrappers, plain versions and launch counters are in
-``ops/fused_bn_conv.py``.
+``ops/fused_bn_conv.py`` (D1's in ``ops/decode_attention.py``).
 """

@@ -81,7 +81,7 @@ __all__ = ["bn_relu_conv_nchw", "bn_relu_conv_nchw_plain",
            "bn_backward_dx", "bn_backward_dx_plain",
            "select_conv_tiles", "conv_tile_failure", "reset_launch_counts",
            "launch_counts", "route_counts", "counter_state", "add_counts",
-           "capture_tally", "KernelPlan"]
+           "capture_tally", "register_wrapper", "KernelPlan"]
 
 # output-tile candidates of the TPU kernels, largest first (the pass's
 # applicability rule, and bn_relu_matmul's bm/bn rule)
@@ -655,13 +655,25 @@ bn_backward_dx.launches = 0
 
 _WRAPPERS = (bn_relu_conv_nchw, bn_act_prologue, bn_relu_matmul_fwd,
              bn_backward_reduce, bn_backward_dx)
+# kernel wrappers of other ops modules that count through ``_count``
+# (``ops/decode_attention.py``); ``launch_counts`` keeps to the five above
+_OTHER_WRAPPERS = {}
+
+
+def register_wrapper(fn):
+    """Let the kernel wrapper ``fn`` of another ops module count its
+    launches through ``_count`` (and a capture's tally), in
+    ``fn.launches``, zeroed by ``reset_launch_counts``."""
+    fn.launches = 0
+    _OTHER_WRAPPERS[fn.__name__] = fn
+    return fn
 
 
 def reset_launch_counts():
     """Set every kernel wrapper's launch count, and K1's and K3's counts
     per route, to 0."""
     with _count_lock:
-        for f in _WRAPPERS:
+        for f in _WRAPPERS + tuple(_OTHER_WRAPPERS.values()):
             f.launches = 0
         for counts in _ROUTE_COUNTS.values():
             for r in counts:
@@ -691,7 +703,7 @@ def counter_state():
 def add_counts(delta, times=1):
     """Add ``times`` x ``delta`` (keys as ``counter_state``'s) to the
     launch counters."""
-    wrappers = {f.__name__: f for f in _WRAPPERS}
+    wrappers = dict(_OTHER_WRAPPERS, **{f.__name__: f for f in _WRAPPERS})
     with _count_lock:
         for key, n in delta.items():
             name, _, route = key.partition("/")

@@ -57,7 +57,8 @@ PORT_KERNELS = {"K1": ("bn_relu_conv1x1", "bn_gemm_wgmma<1,",
                 "K3": ("bn_relu_matmul", "bn_gemm_wgmma<3,"),
                 "B1": ("_bn_bwd_reduce",),
                 "B1 second stage": ("_bn_bwd_sum_parts",),
-                "B2": ("_bn_bwd_dx",)}
+                "B2": ("_bn_bwd_dx",),
+                "D1": ("_decode_attn",)}
 # CPU events of kernel launches (the cuda* and cu* launch calls)
 LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cuLaunchKernelEx")

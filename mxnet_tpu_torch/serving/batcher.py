@@ -130,8 +130,9 @@ class DynamicBatcher:
 
     def stop(self, drain=True):
         """Stop the batching thread. ``drain=True`` serves what is queued
-        first; otherwise queued requests fail with ``Overloaded``. Raises
-        if the drain takes more than 60 s (the thread keeps draining)."""
+        first; otherwise queued requests fail with ``Overloaded`` and
+        in-flight work is cancelled (``_cancel_inflight``). Raises if the
+        drain takes more than 60 s (the thread keeps draining)."""
         with self._cond:
             if not self._running:
                 if self._thread is None or not self._thread.is_alive():
@@ -143,6 +144,7 @@ class DynamicBatcher:
                         "server shutting down"))
                 self._queue.clear()
                 self._queued_rows = 0
+                self._cancel_inflight()
             self._running = False
             self._cond.notify_all()
         self._thread.join(timeout=60)
@@ -151,6 +153,14 @@ class DynamicBatcher:
                              "draining within 60s; call stop() again to "
                              "re-join")
         self._thread = None
+
+    def _cancel_inflight(self):
+        """Hook of ``stop(drain=False)``, called under the queue lock.
+        This batcher's unit of work is a whole request, which always runs
+        to completion, so there is nothing to cancel. The continuous
+        decode batcher (decode/batcher.py) holds generations mid-stream
+        and marks them to end with ``Cancelled`` after the tokens already
+        streamed."""
 
     def __enter__(self):
         return self.start()
