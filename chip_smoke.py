@@ -132,13 +132,24 @@ script exits non-zero and prints no result. Phases:
    ms per step, memory, the losses (they must fall: the last below the
    first, all below the initial loss) and K4's launches per step (the
    loss's forward and backward).
-14. decode_kernel: D1 (the decode-attention kernel, Triton) against its
-   plain version at GPT-2 small's decode shapes (16 lanes, 12 heads of
-   64, max_seq 1024, mixed positions with inactive lanes), f32 and int8
-   cache, W = 1 (decode) and W = 5 (verify): error and tolerance, ms
-   beside the plain version's, ``F.scaled_dot_product_attention``'s on
-   the same cache and mask (f32; a yardstick the port never calls) and
-   the bound of the rows the positions need.
+14. decode_kernel: D1 (the decode-attention kernel, CUDA C++:
+   ``kernels/csrc/decode_attention.cu``) at GPT-2 small's decode shapes
+   (16 lanes, 12 heads of 64, max_seq 1024), f32 and int8 cache, W = 1
+   (decode) and W = 5 (verify), at three position sets (``mixed``, with
+   inactive lanes; ``serving_512``, decode_serving's step; ``one_long``,
+   one lane at 1023): errors against the plain version (``D1_TOL``) and
+   against ``decode_attention_split_plain``, the kernel's own chunk
+   order (``D1_SPLIT_TOL``), two calls bit for bit, a lane alone bit for
+   bit as in the batch; ms timed cold (the calls rotate over at least 12
+   cache buffers, more where 12 would leave the rows in L2) beside the
+   first, Triton form's (``kernels/decode_attention_triton.py``, the
+   yardstick, reached by no path of the package), the plain version's,
+   ``F.scaled_dot_product_attention``'s on the same cache and mask (f32;
+   a yardstick the port never calls) and the bound of the rows the
+   positions need; the warm ms (one buffer back to back) of D1 and the
+   Triton form; the cold ms at R = 32, 64 and 128 rows a chunk. Then
+   ``decode_kernel_contract``: every head_dim and R template, W up to
+   16, ragged max_seq, against both plain versions.
 15. decode_serving: ``DecodePredictor`` + ``DecodeBatcher`` at GPT-2
    small's widths (random weights from seed 0), slots 16, prompt buckets
    (64, 256, 1024), f32 then int8 cache: ``warmup()`` captures one
@@ -152,10 +163,11 @@ script exits non-zero and prints no result. Phases:
    step's device ms (CUDA events over replays) and a 20-step decode
    loop's busy share; cache bytes, counted bytes per token against the
    cacheless re-prefill's, memory. Checks (prompts of 16, 60, 200 and
-   600 tokens, so lanes span up to 5 of D1's 128-row blocks and every
-   prefill bucket): 8 prompts batched equal to solo bit for bit, the captured decode step equal to the eager one
-   bit for bit, and (f32) 4 greedy streams equal to an f64 eager run of
-   the plain functions on every step whose f64 top-2 gap exceeds 1e-3;
+   600 tokens, so lanes span 1 to 10 of D1's 64-row chunks and every
+   prefill bucket): 8 prompts batched equal to solo bit for bit, the
+   captured decode step equal to the eager one bit for bit, and (f32) 4
+   greedy streams equal to an f64 eager run of the plain functions on
+   every step whose f64 top-2 gap exceeds 1e-3;
    int8's agreement with f32 is printed. A probe (D1 captured with its
    visible range one row too long) must fail these checks.
 16. spec_decode: ``SpecDecodePredictor`` (a random 2-layer shrink-2
@@ -164,6 +176,10 @@ script exits non-zero and prints no result. Phases:
 17. decode_disagg: a prefill-role batcher hands lanes to a decode-role
    one; streams equal the unified ones, and with every handoff lost
    (``kv_handoff``) the decode side re-prefills, no stream dropped.
+17b. d1_step_ab: the captured f32 decode step (16 lanes at 512 and at
+   1023) and verify step (at 512), with D1's launch swapped to the
+   Triton form while they are captured, against the same programs on
+   D1, in turns (Triton, D1, D1, Triton).
 18. the kernels line (K1/K2/B1/B2 also with their ``fit`` launches, D1
    with its decode_serving launches), then the result line.
 
@@ -2672,93 +2688,184 @@ DECODE_CLIENTS = (1, 8, 16)
 DECODE_REQUESTS = 128      # at each client count, split evenly
 DECODE_PROMPT_LENGTHS = (16, 32, 64, 128, 256, 512)
 CHECK_PROMPTS = 8          # batched against solo
-# 1 to 5 of D1's 128-row blocks by the last token, every prefill bucket
+# 1 to 10 of D1's 64-row chunks by the last token, every prefill bucket
 CHECK_PROMPT_LENGTHS = (16, 60, 200, 600)
 CHECK_TOKENS = 32
 F64_PROMPTS = 4            # held against the f64 plain run
 F64_MARGIN = 1e-3          # steps whose f64 top-2 logit gap is smaller
                            # are exempt: f32 rounding may pick either
 KV_CACHE_BYTES = {"float32": 1_207_959_552, "int8": 320_864_256}
-# D1's lanes: mixed positions, the zeros as inactive lanes are staged
-D1_POSITIONS = (0, 1, 17, 511, 1023, 0, 0, 0, 300, 1000, 64, 5, 700, 900,
-                128, 33)
 # D1 against its plain version: the outputs are O(1) averages of the V
-# rows; the kernel sums up to 1024 rows in another order (one pass with
-# a running max) than the plain einsum, ~1e-6 apart in f32. The limit
-# leaves 50x room and is far below what a missing or extra row moves.
+# rows; the kernel sums up to 1024 rows in another order (chunks of R
+# rows, each against its own max, combined in chunk order) than the plain
+# einsum, ~1e-6 apart in f32. The limit leaves 50x room and is far below
+# what a missing or extra row moves.
 D1_TOL = 5e-5
+# D1 against decode_attention_split_plain, the same chunks combined in the
+# same order: what is left is the order inside each dot product and sum
+# and the exps' last bits, ~1e-7 apart; 10x tighter than D1_TOL.
+D1_SPLIT_TOL = 5e-6
 D1_REPLACES = ("mxnet_tpu/serving/decode/model.py:375-381 and :448-455 "
                "(decode_step / verify_step attention over the cache, jnp, "
                "XLA-fused; no pallas_call)")
+D1_ROWS_SWEEP = (32, 64, 128)
+# the kernel's contract beyond the path's shapes, against both plain
+# versions: (lanes, W, max_seq, heads, head_dim, cache, rows a chunk)
+D1_CONTRACT = ((3, 1, 100, 2, 16, "float32", 64),
+               (3, 3, 100, 2, 32, "int8", 32),
+               (2, 16, 77, 3, 128, "float32", 32),
+               (2, 2, 300, 1, 256, "int8", 64),
+               (5, 7, 40, 4, 64, "int8", 128),
+               (2, 16, 300, 2, 256, "float32", 64),
+               (4, 5, 700, 3, 16, "int8", 128),
+               (3, 16, 520, 2, 64, "int8", 32))
 
 
 def gpt2_spec(mt, name):
     return mt.serving.decode.TransformerLMSpec(name=name, **GPT2_SMALL)
 
 
-def d1_case(mt, torch, F, gen, kv, width):
-    """D1 against its plain version at the decode path's shapes: 16
-    lanes of a 1024-row cache, 12 heads of 64, mixed positions; ms beside
-    the plain version's, SDPA's (f32 only: a yardstick the port never
-    calls) and the bound (the rows this run's positions need)."""
+def d1_case(mt, torch, F, gen, kv, width, where, layers):
+    """D1 at the decode path's shapes (16 lanes of a 1024-row cache, 12
+    heads of 64) at the positions set ``where``: errors against both
+    plain versions and the Triton form's, bit-identity from run to run;
+    ms cold (the calls rotate over ``cold_turns`` cache buffers) beside the
+    Triton form's, the plain version's and SDPA's (f32 only: a yardstick
+    the port never calls) and the bound (the rows these positions
+    need); ms warm (one buffer back to back) beside the Triton form's;
+    the rows sweep, cold."""
+    from mxnet_tpu_torch import profile_decode_attention as pda
     da = mt.ops.decode_attention
-    dm = mt.serving.decode.model
-    n, m, h, d = DECODE_SLOTS, GPT2_SMALL["max_seq"], 12, 64
+    positions = pda.POSITION_SETS[where]
+    n, m, h, d = layers[0][0].shape
     q = torch.randn(n, width, h, d, device="cuda", generator=gen)
-    kf = torch.randn(n, m, h, d, device="cuda", generator=gen)
-    vf = torch.randn(n, m, h, d, device="cuda", generator=gen)
-    pos = torch.tensor(D1_POSITIONS, dtype=torch.int32, device="cuda")
-    if kv == "int8":
-        k, ks = dm._kv_quant_rows(kf)
-        v, vs = dm._kv_quant_rows(vf)
-        args = (q, k, v, pos, ks, vs)
-    else:
-        args = (q, kf, vf, pos)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    rows = sum(min(p + width, m) for p in positions)
+    nbytes = pda.needed_bytes(positions, width, kv)
+    turns = pda.cold_turns(nbytes, len(layers))
+    sets = [(q, k, v, pos) + ((ks, vs) if kv == "int8" else ())
+            for k, v, ks, vs in layers[:turns]]
+    args = sets[0]
     got = da.decode_attention(*args)
+    again = da.decode_attention(*args)
     ref = da.decode_attention_plain(*args)
+    split = da.decode_attention_split_plain(*args)
+    tri = pda.triton_form(*args)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    ms = time_ms(lambda: da.decode_attention(*args))
-    plain_ms = time_ms(lambda: da.decode_attention_plain(*args))
-    rows = sum(min(p + width, m) for p in D1_POSITIONS)
-    row_bytes = h * d * (1 if kv == "int8" else 4) + (4 * h if kv == "int8"
-                                                      else 0)
-    io_bytes = 2 * q.numel() * 4 + n * 4
-    nbytes = io_bytes + 2 * rows * row_bytes
+    split_err = float((got - split).abs().max())
+    tri_err = float((tri - ref).abs().max())
+    cold = {name: time_ms(pda.rotating(fn, sets), inner=turns)
+            for name, fn in (("d1", da.decode_attention),
+                             ("triton", pda.triton_form),
+                             ("plain", da.decode_attention_plain))}
+    sweep = {}
+    for r in D1_ROWS_SWEEP:
+        plan = da._d1_plan(n, width, m, h, d, kv == "int8", r)
+        sweep[r] = time_ms(pda.rotating(
+            lambda q, k, v, p, ks=None, vs=None, plan=plan:
+            da._d1_run(q, k, v, p, ks, vs, plan), sets), inner=turns)
     bound, by = bound_ms(nbytes, 4 * width * rows * h * d, "float32")
     lib_ms = lib_err = None
     if kv == "float32":
         last = pos.long()[:, None] + torch.arange(width, device="cuda")
         mask = (torch.arange(m, device="cuda") <= last[..., None])[:, None]
-        qs, ksd, vsd = (t.permute(0, 2, 1, 3) for t in (q, kf, vf))
 
-        def lib():
-            return F.scaled_dot_product_attention(qs, ksd, vsd,
-                                                  attn_mask=mask)
-        lib_err = float((lib().permute(0, 2, 1, 3) - ref).abs().max())
-        lib_ms = time_ms(lib)
-    row = {"phase": "decode_kernel", "kernel": "D1", "kv_dtype": kv,
-           "width": width, "lanes": n, "max_seq": m, "heads": h,
-           "head_dim": d, "positions": list(D1_POSITIONS),
-           "max_abs_err": err, "tol": D1_TOL, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        def lib(q, k, v, p):
+            return F.scaled_dot_product_attention(
+                q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                v.permute(0, 2, 1, 3), attn_mask=mask)
+        lib_err = float((lib(*args).permute(0, 2, 1, 3) - ref).abs().max())
+        lib_ms = time_ms(pda.rotating(lib, sets), inner=turns)
+    row = {"phase": "decode_kernel", "kernel": "D1", "route": "cuda",
+           "kv_dtype": kv, "width": width, "positions_set": where,
+           "lanes": n, "max_seq": m, "heads": h, "head_dim": d,
+           "positions": list(positions), "rows": da.D1_ROWS,
+           "max_abs_err": err, "tol": D1_TOL,
+           "split_max_abs_err": split_err, "split_tol": D1_SPLIT_TOL,
+           "repeat_bit_identical": torch.equal(got, again),
+           "ms": cold["d1"], "triton_ms": cold["triton"],
+           "plain_ms": cold["plain"], "library_ms": lib_ms,
+           "timing": f"cold: calls rotate over {turns} cache buffers",
+           "warm_ms": time_ms(lambda: da.decode_attention(*args)),
+           "triton_warm_ms": time_ms(lambda: pda.triton_form(*args)),
+           "warm_timing": "one buffer back to back (its rows in L2)",
+           "rows_sweep_ms": sweep, "triton_max_abs_err": tri_err,
+           "bound_ms": bound, "bound_by": by,
+           "share_of_bound": bound / cold["d1"],
            "bytes_needed": nbytes, "rows_read": rows,
-           "bound_ms_all_rows": bound_ms(io_bytes + 2 * n * m * row_bytes,
-                                         4 * width * n * m * h * d,
-                                         "float32")[0],
-           "library_ms": lib_ms,
            "library": "F.scaled_dot_product_attention, boolean mask"
            if lib_ms is not None else None, "library_max_abs_err": lib_err}
+    if where == "mixed":
+        # a lane's output does not depend on the other lanes' positions
+        alone = torch.zeros_like(pos)
+        alone[4] = pos[4]
+        solo = da.decode_attention(q, args[1], args[2], alone, *args[4:])
+        torch.cuda.synchronize()
+        row["lane_alone_bit_identical"] = torch.equal(solo[4], got[4])
+        check(row["lane_alone_bit_identical"],
+              f"D1 {kv} W={width}: lane 4 differs when alone")
     emit(row)
-    check(err <= D1_TOL, f"D1 {kv} W={width}: error {err} > {D1_TOL}")
+    what = f"D1 {kv} W={width} at {where}"
+    check(err <= D1_TOL, f"{what}: error {err} > {D1_TOL}")
+    check(split_err <= D1_SPLIT_TOL,
+          f"{what}: error {split_err} against the split plain version > "
+          f"{D1_SPLIT_TOL}")
+    check(tri_err <= D1_TOL, f"{what}: the Triton form's error {tri_err}")
+    check(row["repeat_bit_identical"], f"{what}: two calls differ")
     return row
 
 
+def d1_contract(mt, torch, gen):
+    """D1 at the contract's other shapes (D1_CONTRACT: every head_dim
+    and R template, W up to 16, max_seq not a multiple of R),
+    positions from 0 to past max_seq, against both plain versions."""
+    da = mt.ops.decode_attention
+    dm = mt.serving.decode.model
+    cases = []
+    for n, w, m, h, d, kv, r in D1_CONTRACT:
+        q = torch.randn(n, w, h, d, device="cuda", generator=gen)
+        k = torch.randn(n, m, h, d, device="cuda", generator=gen)
+        v = torch.randn(n, m, h, d, device="cuda", generator=gen)
+        pos = torch.randint(0, m + 3, (n,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        pos[0], pos[-1] = 0, m + 2
+        ks = vs = None
+        if kv == "int8":
+            (k, ks), (v, vs) = dm._kv_quant_rows(k), dm._kv_quant_rows(v)
+        args = (q, k, v, pos, ks, vs)
+        got = da._d1_run(*args, da._d1_plan(n, w, m, h, d, kv == "int8", r))
+        ref = da.decode_attention_plain(*args)
+        split = da.decode_attention_split_plain(*args, rows=r)
+        torch.cuda.synchronize()
+        case = {"shape": [n, w, m, h, d], "kv_dtype": kv, "rows": r,
+                "positions": pos.tolist(),
+                "max_abs_err": float((got - ref).abs().max()),
+                "split_max_abs_err": float((got - split).abs().max())}
+        cases.append(case)
+        check(case["max_abs_err"] <= D1_TOL
+              and case["split_max_abs_err"] <= D1_SPLIT_TOL,
+              f"D1 contract case {case}")
+    emit({"phase": "decode_kernel_contract", "tol": D1_TOL,
+          "split_tol": D1_SPLIT_TOL, "cases": cases})
+
+
 def decode_kernel_phase(mt, torch, F, gen):
-    """D1 at W = 1 (decode) and W = 5 (verify at k = 4), f32 and int8,
-    then one call it must refuse."""
-    rows = {(kv, w): d1_case(mt, torch, F, gen, kv, w)
-            for kv in ("float32", "int8") for w in (1, 5)}
+    """D1 at W = 1 (decode) and W = 5 (verify at k = 4), f32 and int8, at
+    each of ``profile_decode_attention.POSITION_SETS``; its contract's
+    other shapes; then one call it must refuse."""
+    from mxnet_tpu_torch import profile_decode_attention as pda
+    rows = {}
+    for kv in ("float32", "int8"):
+        layers = pda.cache_buffers(kv, 64 if kv == "int8" else 24, gen)
+        for where in pda.POSITION_SETS:
+            for w in (1, 5):
+                rows[(kv, w, where)] = d1_case(mt, torch, F, gen, kv, w,
+                                               where, layers)
+        del layers
+        gc.collect()
+        torch.cuda.empty_cache()
+    d1_contract(mt, torch, gen)
     z = torch.zeros(2, 1, 2, 64, device="cuda", dtype=torch.float16)
     try:
         mt.ops.decode_attention.decode_attention(
@@ -2880,6 +2987,28 @@ def decode_checks(mt, torch, np, pred, prompts, p64=None):
     return res, fails, batched
 
 
+def decode_step_ms(torch, np, pred, position):
+    """Device ms of one replay of ``pred``'s captured decode step with all
+    16 lanes active at ``position`` (D1 reads position + 1 rows a lane)."""
+    prog = pred._programs[("decode",)]
+    buf = np.zeros((3, DECODE_SLOTS), np.int32)
+    buf[1], buf[2] = position, 1
+    with pred._lock, torch.inference_mode():
+        pred._stage(prog, buf)
+        return time_ms(prog.replay)
+
+
+def verify_step_ms(torch, np, eng, position):
+    """Device ms of one replay of ``eng``'s captured verify step (k = 4,
+    W = 5) with all 16 lanes at ``position``."""
+    prog = eng._programs[("verify", 5)]
+    buf = np.zeros((DECODE_SLOTS, 8), np.int32)
+    buf[:, 5:] = (position, 5, 1)
+    with eng._lock, torch.inference_mode():
+        eng._stage(prog, buf)
+        return time_ms(prog.replay)
+
+
 def decode_serving_phase(mt, torch, np, smi, params):
     """``decode_serving``: DecodePredictor + DecodeBatcher at GPT-2
     small's widths, f32 then int8 cache (see the module docstring)."""
@@ -2961,14 +3090,8 @@ def decode_serving_phase(mt, torch, np, smi, params):
             res["int8_tokens_agreeing_with_f32"] = sum(agree) / len(agree)
         # the decode step alone: replays of the captured program with all
         # 16 lanes active at one position (D1 reads position + 1 rows)
-        prog = pred._programs[("decode",)]
-        step_ms = {}
-        for p in (512, 1023):
-            buf = np.zeros((3, DECODE_SLOTS), np.int32)
-            buf[1], buf[2] = p, 1
-            with pred._lock, torch.inference_mode():
-                pred._stage(prog, buf)
-                step_ms[p] = time_ms(prog.replay)
+        step_ms = {p: decode_step_ms(torch, np, pred, p)
+                   for p in (512, 1023)}
         for s in range(DECODE_SLOTS):
             pred.seek_slot(s, 512)
         feed = {s: 1 + s for s in range(DECODE_SLOTS)}
@@ -3083,12 +3206,7 @@ def spec_decode_phase(mt, torch, np, smi, pred, prompts, plain_streams):
         rep["decode_steps"] - d0
     draft_steps = eng.draft.report()["decode_steps"] - dd0
     serving = registry_delta(tot0, registry_totals(mt))
-    prog = eng._programs[("verify", 5)]
-    buf = np.zeros((DECODE_SLOTS, 8), np.int32)
-    buf[:, 5:] = (512, 5, 1)
-    with eng._lock, torch.inference_mode():
-        eng._stage(prog, buf)
-        verify_ms = time_ms(prog.replay)
+    verify_ms = verify_step_ms(torch, np, eng, 512)
     row = {"phase": "spec_decode", "k": 4, "draft": {
         "layers": dspec.num_layers, "embed": dspec.num_embed,
         "heads": dspec.num_heads, "seed": 1}, "setup_s": setup_s,
@@ -3169,6 +3287,65 @@ def decode_disagg_phase(mt, torch, np, smi, pred, prompts, plain_streams):
     torch.cuda.empty_cache()
 
 
+def d1_step_ab(mt, torch, np, smi, pred):
+    """The captured f32 decode step (all lanes at 512 and at 1023) and
+    verify step (k = 4, at 512) with D1's launch swapped to the Triton
+    form while they are captured (as ``f64_reference`` swaps the
+    wrapper), against the same programs on D1; in turns (Triton, D1, D1,
+    Triton), device ms of replays."""
+    from mxnet_tpu_torch import profile_decode_attention as pda
+    dec = mt.serving.decode
+    da = mt.ops.decode_attention
+    spec = pred.spec
+    dspec = dec.make_draft_spec(spec, num_layers=2, shrink=2)
+    draft = dec.init_params(dspec, seed=1)
+    real = da.decode_attention
+    engines = {}
+    for form in ("triton", "d1"):
+        da.decode_attention = pda.triton_form if form == "triton" \
+            else real
+        try:
+            one = dec.DecodePredictor(spec, pred._p, slots=DECODE_SLOTS,
+                                      seq_buckets=DECODE_BUCKETS,
+                                      name=f"gpt2s-ab-{form}",
+                                      device="cuda:0")
+            one.warmup()
+            sp = dec.SpecDecodePredictor(
+                spec, pred._p, dspec, draft, k=4, slots=DECODE_SLOTS,
+                seq_buckets=DECODE_BUCKETS, name=f"gpt2s-ab-spec-{form}",
+                device="cuda:0")
+            sp.warmup()
+        finally:
+            da.decode_attention = real
+        engines[form] = (one, sp)
+    ms = {f: {"decode_512": [], "decode_1023": [], "verify_512": []}
+          for f in engines}
+    served = {"decode_512": [], "decode_1023": []}
+    order = ("triton", "d1", "d1", "triton")
+    for form in order:
+        one, sp = engines[form]
+        ms[form]["decode_512"].append(decode_step_ms(torch, np, one, 512))
+        ms[form]["decode_1023"].append(decode_step_ms(torch, np, one, 1023))
+        ms[form]["verify_512"].append(verify_step_ms(torch, np, sp, 512))
+        if form == "d1":
+            # decode_serving's predictor (D1), after its traffic
+            for p in (512, 1023):
+                served[f"decode_{p}"].append(
+                    decode_step_ms(torch, np, pred, p))
+    mean = {f: {k: statistics.mean(v) for k, v in r.items()}
+            for f, r in ms.items()}
+    emit({"phase": "d1_step_ab", "card": smi, "order": list(order),
+          "ms": ms, "mean_ms": mean, "decode_serving_predictor_ms": served,
+          "d1_minus_triton_ms": {k: mean["d1"][k] - mean["triton"][k]
+                                 for k in mean["d1"]},
+          "what": "captured f32 steps, 16 lanes; Triton: the first D1 "
+                  "form captured in place of D1"})
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return mean
+
+
 def decode_phases(mt, torch, np, F, smi, gen):
     """Every decode phase; returns the kernels line's D1 entry."""
     t0 = time.perf_counter()
@@ -3179,26 +3356,32 @@ def decode_phases(mt, torch, np, F, smi, gen):
     del params
     spec_decode_phase(mt, torch, np, smi, pred, prompts, streams)
     decode_disagg_phase(mt, torch, np, smi, pred, prompts, streams)
+    step_ab = d1_step_ab(mt, torch, np, smi, pred)
     del pred
     gc.collect()
     torch.cuda.empty_cache()
-    r = d1_rows[("float32", 1)]
+    r = d1_rows[("float32", 1, "mixed")]
     emit({"phase": "decode_seconds", "seconds": time.perf_counter() - t0})
-    return {"name": "decode_attention", "route": "triton",
-            "source": "mxnet_tpu_torch/kernels/decode_attention_triton.py",
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/decode_attention.cu",
             "replaces": D1_REPLACES,
             "launches": sum(v["D1"] for v in launches.values()),
             "launches_by_cache": launches,
             "max_abs_err": max(x["max_abs_err"] for x in d1_rows.values()),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "dtype": "float32",
+            "ms": r["ms"], "triton_ms": r["triton_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": "float32", "rows": r["rows"], "timing": r["timing"],
+            "triton_source": "mxnet_tpu_torch/kernels/"
+                             "decode_attention_triton.py",
             "per": "one decode call (W = 1, f32 cache) of 16 lanes at "
                    "the mixed positions, 12 heads of 64, max_seq 1024",
-            "cases": [{k: x[k] for k in ("kv_dtype", "width", "ms",
-                                         "plain_ms", "bound_ms",
-                                         "library_ms", "max_abs_err")}
-                      for x in d1_rows.values()],
+            "cases": [{k: x[k] for k in (
+                "kv_dtype", "width", "positions_set", "ms", "triton_ms",
+                "warm_ms", "triton_warm_ms", "plain_ms", "bound_ms",
+                "library_ms", "max_abs_err", "split_max_abs_err")}
+                for x in d1_rows.values()],
+            "step_ab_mean_ms": step_ab,
             "path": "decode_serving (token_closed_loop at 1, 8 and 16 "
                     "clients, f32 then int8 cache), counts set to 0 just "
                     "before each run", "status": "ok"}

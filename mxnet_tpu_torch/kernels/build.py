@@ -5,8 +5,9 @@ shared library with a plain C interface, loaded through ``ctypes``. The
 output lives in ``mxnet_tpu_torch/_build/<hash>/``, keyed on a hash of
 the source text, of every ``csrc/`` header it includes (``#include
 "..."``, followed recursively) and of the flags, so an edit to either
-rebuilds and an unchanged source loads the library already built. ``ptxas -v`` output (registers,
-shared memory, spills) is kept beside each library as ``<name>.log``.
+rebuilds and an unchanged source loads the library already built.
+``ptxas -v`` output (registers, shared memory, spills) is kept beside
+each library as ``<name>.log``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ __all__ = ["build_all", "load", "nvcc_path", "SOURCES"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("bn_relu_conv1x1", "bn_relu_matmul")
+SOURCES = ("bn_relu_conv1x1", "bn_relu_matmul", "decode_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -64,25 +65,29 @@ def _csrc_files(src, seen=None):
     return seen
 
 
-def _lib_path(name):
+def _flags(defines):
+    return FLAGS + tuple("-D" + d for d in defines)
+
+
+def _lib_path(name, defines=()):
     src = os.path.join(_CSRC, name + ".cu")
     digest = hashlib.sha256()
     for path in _csrc_files(src):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0"
                           + f.read())
-    digest.update(" ".join(FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return src, os.path.join(_BUILD, digest.hexdigest()[:16],
                              f"lib{name}.so")
 
 
-def _compile(name):
-    src, lib = _lib_path(name)
+def _compile(name, defines=()):
+    src, lib = _lib_path(name, defines)
     if os.path.exists(lib):
         return lib
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc_path(), *FLAGS, "-o", tmp, src],
+    proc = subprocess.run([nvcc_path(), *_flags(defines), "-o", tmp, src],
                           capture_output=True, text=True)
     with open(lib[:-3] + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
@@ -99,18 +104,20 @@ def build_all():
         return dict(zip(SOURCES, ex.map(_compile, SOURCES)))
 
 
-def load(name):
+def load(name, defines=()):
     """The loaded ``ctypes`` library for ``csrc/<name>.cu``, built first
-    if needed."""
+    if needed; ``defines`` (macro names, ``-D`` each) build a variant of
+    its own, such as D1's ``D1_TRACE``."""
+    key = (name, tuple(defines))
     with _LOCK:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(_compile(name))
-        return _LIBS[name]
+        if key not in _LIBS:
+            _LIBS[key] = ctypes.CDLL(_compile(name, key[1]))
+        return _LIBS[key]
 
 
-def build_log(name):
+def build_log(name, defines=()):
     """ptxas report of the current build of ``name`` ('' if not built)."""
-    log = _lib_path(name)[1][:-3] + ".log"
+    log = _lib_path(name, tuple(defines))[1][:-3] + ".log"
     if not os.path.exists(log):
         return ""
     with open(log) as f:

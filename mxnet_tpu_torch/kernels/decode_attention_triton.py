@@ -1,5 +1,9 @@
-"""D1: masked decode / verify attention over the KV-cache, one Triton
-kernel for the f32 cache and the int8 cache with per-row scales.
+"""The first form of D1, masked decode / verify attention over the
+KV-cache, in Triton: one program per (lane, head). No path of the
+package reaches it; D1 is the CUDA kernel of
+``kernels/csrc/decode_attention.cu``, which splits each lane's rows over
+the card, and ``chip_smoke.py`` times this form beside it on the same
+inputs as its yardstick.
 
 Replaces the jnp attention of ``mxnet_tpu/serving/decode/model.py``
 (``decode_step`` :375-381, ``verify_step`` :448-455), which XLA fuses

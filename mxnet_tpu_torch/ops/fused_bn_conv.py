@@ -189,11 +189,12 @@ def _n_sm(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _c_entry(source, symbol, argtypes):
-    """The C entry point ``symbol`` of ``csrc/<source>.cu``, its library
-    built and loaded on first use (``kernels/build.py`` caches it)."""
+def _c_entry(source, symbol, argtypes, defines=()):
+    """The C entry point ``symbol`` of ``csrc/<source>.cu`` (built with
+    the macros ``defines``), its library built and loaded on first use
+    (``kernels/build.py`` caches it)."""
     from ..kernels import build
-    fn = getattr(build.load(source), symbol)
+    fn = getattr(build.load(source, defines), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
