@@ -104,6 +104,40 @@ script exits non-zero and prints no result. Phases:
    bit-identical to the uninterrupted module's (a restore without the
    momenta must fail); a truncated newest checkpoint falls back to the
    previous one.
+7e. executor_train (Path E): ResNet-50 (s2d) bound with
+   ``sym.simple_bind(ctx=cuda:0, data=(128, 3, 224, 224),
+   softmax_label=(128,), grad_req="write")``, fp32, Xavier init from
+   seed 0: the train-mode pass sites (28 / 16); three ``forward(
+   is_train=True)`` + ``backward()`` (warm, capture, replay) held against
+   the same bind with the passes off (loss, every gradient, the aux,
+   ``FP32_TRAIN_LIMITS``), a probe with B2's c0 dropped in each backward
+   (eager) that must fail it; ``grad_req="add"`` over two backward calls
+   against twice the write bind's gradients; K1 (fp32 route) / K2 / B1 /
+   B2 launches a step counted from replays (K1 56, B1 and B2 44); eager
+   and captured steps in turns (host and event ms, median and spread),
+   memory.
+7f. module_eager: ``Module(fused=False)`` with Adam on that bind, 5
+   steps at batch 128 through the Updater: the first step's update of
+   every parameter against Adam in float64 on the same weights and
+   gradients (a probe without the bias correction must fail), ms a step
+   and the losses.
+7g. fused_rules (Path F): the phase-7 configuration (bf16, batch 128)
+   with Adam in the captured step: three replays against three eager
+   steps (bit-identical or within twice the eager spread: masters, both
+   moments, aux, ``t``); a planted NaN step leaves every leaf
+   bit-identical and ``t`` advances; Adam's captured step against SGD's
+   in turns; then every other rule (lars and signsgd put in the step
+   directly) at the same configuration: three replays against eager
+   steps of the same module, sgld with its noise at 0 and then its
+   noise's variance and fresh draws per replay.
+7h. eval_capture: ``Module.forward(is_train=False)`` on the executor's
+   captured eval program (fp32) against the eager walk, ``score``
+   captured and eager, launches a forward, eager and captured forwards
+   in turns (host and event ms).
+7i. monitor: ``Monitor(interval=2)`` on the phase-7 configuration's
+   Module, eager regime (Adam, fp32) and fused (bf16, SGD): names and
+   statistics of the monitored batches against the plain walk's op
+   outputs and arguments and the executor's own gradient arrays.
 8. rtc_build: the user's CUDA C++ kernels (K4, the user-kernel hook)
    compiled at run time through ``rtc.CudaModule``, with the ptxas
    report; the user's Triton kernel is compiled at its first launch.
@@ -180,8 +214,9 @@ script exits non-zero and prints no result. Phases:
    1023) and verify step (at 512), with D1's launch swapped to the
    Triton form while they are captured, against the same programs on
    D1, in turns (Triton, D1, D1, Triton).
-18. the kernels line (K1/K2/B1/B2 also with their ``fit`` launches, D1
-   with its decode_serving launches), then the result line.
+18. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``
+   and ``fused_adam`` launches, D1 with its decode_serving launches),
+   then the result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
@@ -3387,6 +3422,746 @@ def decode_phases(mt, torch, np, F, smi, gen):
                     "before each run", "status": "ok"}
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the bound Executor (Path E: executor_train, module_eager), every
+# optimizer rule in the captured fused step (Path F: fused_rules), the
+# captured eval forward (eval_capture) and Monitor (monitor)
+# ---------------------------------------------------------------------------
+# forward(is_train=True) + backward() calls per executor before Path E's
+# check: the warm run (eager), the capture (and its replay), a replay
+EXEC_STEPS = 3
+EXEC_AB_RUNS = ("eager", "captured", "captured", "eager")
+EXEC_AB_STEPS = 5
+# grad_req="add": two backward calls (replays) summed in place against
+# the sum of two of the write bind's replays; cuDNN's weight-gradient sums
+# round differently from run to run (an H100 read 1.1e-5 between two such
+# sums), so the rule is the captured checks': bit-identical, or within
+# twice the spread of two write replays (relative L2 over all gradients)
+# Path E's K1/B1/B2 launches a step: forward(is_train=True) then
+# backward(), whose grad program walks its own training forward
+EXEC_K1_PER_STEP = 56
+EXEC_B_PER_STEP = 44
+ADAM_HP = {"learning_rate": 0.001, "wd": 1e-4}
+MODULE_EAGER_STEPS = 5
+# module_eager's first Adam step against Adam's arithmetic in float64 on
+# the same weights and gradients: relative L2 of each parameter's new
+# value. Storing it in fp32 rounds it by up to 2^-24 (6e-8) relative,
+# and a few fp32 operations add as much; the limit is about 16 of those
+# roundings. Adam's first update is about lr = 1e-3 an element, so the
+# probe (Adam without its bias correction, an update 0.32x as large)
+# moves a weight by ~7e-4 in absolute terms, far above the limit.
+ADAM_W_REL_LIMIT = 1e-6
+# Path F's timed runs: Adam's captured step against SGD's, in turns
+RULE_AB_RUNS = ("sgd", "adam", "adam", "sgd", "sgd", "adam")
+# every other rule trains the phase-7 configuration (ResNet-50 at its
+# widths, 224x224, 1000 classes, batch 128, bf16): the warm step, the
+# capture, then three replays against three eager steps
+RULES_STEPS = 4
+RULE_CASES = (("sgd", {"momentum": 0.9}), ("nag", {"momentum": 0.9}),
+              ("lbsgd", {"momentum": 0.9, "warmup_epochs": 1,
+                         "updates_per_epoch": 8, "batch_scale": 4}),
+              ("lars", {"momentum": 0.9}), ("adamax", {}), ("nadam", {}),
+              ("ftml", {}), ("adagrad", {}), ("rmsprop", {}),
+              ("rmsprop", {"centered": True}), ("adadelta", {}),
+              ("ftrl", {}), ("signsgd", {}), ("signum", {"momentum": 0.9}),
+              ("sgld", {}), ("dcasgd", {"momentum": 0.5}), ("test", {}))
+# the Monitor's statistics (mean |x|) against the plain walk's, relative:
+# the op outputs and arguments come from the same walk on the same values
+# (~1e-7: the Monitor's mean multiplies the sum by the reciprocal of the
+# count); the gradients against the mean |g| of the same executor's
+# grad_dict after the same backward, the very arrays the Monitor reads
+# (the kernels-against-library gap of the gradients is executor_train's
+# check)
+MONITOR_REL_LIMIT = 1e-5
+MONITOR_GRAD_REL_LIMIT = 1e-6
+
+
+def init_executor(mt, torch, exe, seed):
+    """``profile_training.build_module``'s init (Xavier gaussian, in, 2,
+    from ``seed``, in the Module's order) into a bound executor."""
+    from mxnet_tpu_torch import initializer
+    init = initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                              magnitude=2)
+    gen = torch.Generator().manual_seed(seed)
+    attrs = exe._symbol.attr_dict()
+    with torch.no_grad():
+        for d in (exe.arg_dict, exe.aux_dict):
+            for n in sorted(d):
+                if n in ("data", "softmax_label"):
+                    continue
+                init(initializer.InitDesc(n, attrs.get(n)), d[n]._data, gen)
+
+
+def exe_result(torch, exe):
+    """(loss, {param: gradient}, {aux: value}) of the executor's last
+    backward: the loss from its softmax output and label."""
+    out = exe.outputs[0]._data.float()
+    lab = exe.arg_dict["softmax_label"]._data.long()
+    loss = -torch.log(out.gather(1, lab[:, None]).clamp_min(1e-30)).sum()
+    grads = {n: g._data.clone() for n, g in exe.grad_dict.items()
+             if n not in ("data", "softmax_label")}
+    return loss, grads, {n: a._data.clone() for n, a in exe.aux_dict.items()}
+
+
+def exe_steps(torch, exe, n):
+    for _ in range(n):
+        exe.forward(is_train=True)
+        exe.backward()
+    torch.cuda.synchronize()
+    return exe_result(torch, exe)
+
+
+def kernel_counts(fb):
+    return {k: fb.launch_counts()[w] for k, w in KERNEL_WRAPPERS.items()}
+
+
+def executor_train_phase(mt, torch, np, smi, batches):
+    """Path E: ResNet-50 (s2d) bound with ``simple_bind`` at batch 128,
+    fp32 (TF32 off), grad_req write. Returns {kernel: launches} and the
+    steps they were counted over."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.model_zoo.symbols import resnet
+    fb = mt.ops.fused_bn_conv
+    sym = resnet.get_symbol(1000, 50, "3,224,224", stem="s2d")
+    feed = {"data": batches[0].data[0], "softmax_label": batches[0].label[0]}
+    shapes = {n: tuple(v.shape) for n, v in feed.items()}
+    t0 = time.perf_counter()
+
+    def bind(grad_req="write"):
+        exe = sym.simple_bind(ctx="cuda:0", grad_req=grad_req, **shapes)
+        init_executor(mt, torch, exe, SEED)
+        for n, v in feed.items():
+            exe.arg_dict[n][:] = v
+        return exe
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the same bind with the passes off: library ops only
+    torch.cuda.reset_peak_memory_stats()
+    with config.override("MXTPU_PALLAS_FUSION", "0"), \
+            config.override("MXTPU_PASS_RESIDUAL_FUSION", "0"):
+        ref = bind()
+    check(all(e["status"] == "disabled" for e in ref.pass_report["passes"]),
+          "the passes-off bind was rewritten")
+    fb.reset_launch_counts()
+    want = exe_steps(torch, ref, EXEC_STEPS)
+    check(sum(fb.launch_counts().values()) == 0,
+          "the passes-off bind hit a kernel")
+    del ref
+    free()
+
+    exe = bind()
+    sites = {e["pass"]: len(e["sites"]) for e in exe.pass_report["passes"]}
+    check(exe.pass_report["tag"] == "executor"
+          and exe.pass_report["mode"] == "train"
+          and sites["pallas_fusion"] == 28 and sites["residual_fusion"] == 16,
+          f"executor train-mode pass sites {sites}")
+    got = exe_steps(torch, exe, EXEC_STEPS)
+    progs = exe._progs.captured
+    check(set(progs) == {"fwd_train", "grad"}
+          and all(p.captured for p in progs.values()),
+          f"the executor's programs were not captured: {list(progs)}")
+    summ = grad_check_summary(*got, want)
+    fails = training_failures(summ, FP32_TRAIN_LIMITS)
+
+    # the planted fault: B2 without its c0 term at one call of every
+    # backward, in an executor run eagerly (a replay calls no Python)
+    real_dx = fb.bn_backward_dx
+    calls = [0]
+
+    def faulty_dx(dy, x, xhat, scale, cx=None, c0=None):
+        calls[0] += 1
+        if calls[0] % EXEC_B_PER_STEP == FAULT_B2_CALL and c0 is not None:
+            c0 = torch.zeros_like(c0)
+        return real_dx(dy, x, xhat, scale, cx, c0)
+
+    probe = bind()
+    probe.captured = False
+    fb.bn_backward_dx = faulty_dx
+    try:
+        probe_res = exe_steps(torch, probe, EXEC_STEPS)
+    finally:
+        fb.bn_backward_dx = real_dx
+    del probe
+    free()
+    probe_summ = grad_check_summary(*probe_res, want)
+    rejected = training_failures(probe_summ, FP32_TRAIN_LIMITS)
+    del probe_res
+
+    # grad_req="add": two backward calls against two of the write bind's
+    names = sorted(got[1])
+
+    def flat(e):
+        return torch.cat([e.grad_dict[n]._data.reshape(-1) for n in names])
+
+    add = bind("add")
+    add.backward()                  # the warm run, then the capture
+    add.backward()
+    for g in add.grad_dict.values():
+        g._data.zero_()
+    add.backward()                  # two replays, added in place
+    add.backward()
+    exe.backward()
+    g1 = flat(exe)
+    exe.backward()
+    g2 = flat(exe)
+    summed = flat(add)
+    add_err = rel_l2(summed, g1 + g2)
+    add_spread = rel_l2(g2, g1)
+    once_err = rel_l2(g1, g1 + g2)
+    add_ok = add_err == 0.0 or add_err <= 2 * add_spread
+    del add, g1, g2, summed
+    free()
+
+    # launches a step from replays, then eager and captured steps in turns
+    fb.reset_launch_counts()
+    routes0 = dict(fb.route_counts()["bn_relu_conv_nchw"])
+    n_steps = 4
+    for _ in range(n_steps):
+        exe.forward(is_train=True)
+        exe.backward()
+    torch.cuda.synchronize()
+    launches = kernel_counts(fb)
+    routes = {r: v - routes0.get(r, 0) for r, v in
+              fb.route_counts()["bn_relu_conv_nchw"].items()}
+    runs = []
+
+    def step(i):
+        exe.forward(is_train=True)
+        exe.backward()
+
+    exe.captured = False            # one eager step before the turns
+    step(0)
+    for mode in EXEC_AB_RUNS:
+        exe.captured = mode == "captured"
+        r = timed_runs(torch, step, EXEC_AB_STEPS)
+        runs.append(dict(r, mode=mode))
+    exe.captured = True
+    row = {"phase": "executor_train", "batch": TRAIN_BATCH,
+           "dtype": "float32", "tf32": False,
+           "bind": "ResNet-50 (s2d) simple_bind(ctx=cuda:0, grad_req="
+                   "'write'), Xavier init from seed 0",
+           "pass_sites": sites,
+           "programs": {k: p.record.as_dict() for k, p in progs.items()},
+           "check": summ, "limits": FP32_TRAIN_LIMITS, "failures": fails,
+           "against": f"the same bind with the passes off (library ops), "
+                      f"after {EXEC_STEPS} forward+backward each (the "
+                      "last a replay)",
+           "fault_probe": {"fault": f"B2 call {FAULT_B2_CALL} of each "
+                                    "backward with c0 = 0 (eager)",
+                           "rejected_by": rejected, **probe_summ},
+           "grad_req_add": {"rel_l2_vs_two_write_calls": add_err,
+                            "write_spread": add_spread,
+                            "rule": "bit-identical, or <= 2 x the spread "
+                                    "of two write replays",
+                            "one_call_vs_two": once_err},
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+           "k1_routes_per_step": {r: v / n_steps for r, v in routes.items()
+                                  if v},
+           "counted_from": "CUDA graph replays of fwd_train and grad",
+           "host_ms_per_step": ab_summary(runs, "host_ms"),
+           "event_ms_per_step": ab_summary(runs, "event_ms"),
+           "order": list(EXEC_AB_RUNS), "steps_per_run": EXEC_AB_STEPS,
+           "max_memory_allocated_gb": max(
+               r["max_memory_allocated_gb"] for r in runs),
+           "max_memory_reserved_gb": max(
+               r["max_memory_reserved_gb"] for r in runs),
+           "setup_s": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    check(not fails, f"executor step against the passes-off bind: {fails}")
+    check(rejected, "the executor check passes a planted fault")
+    check(add_ok, f"grad_req add: {add_err} against two write calls, "
+                  f"spread {add_spread}")
+    check(launches["K1"] == EXEC_K1_PER_STEP * n_steps
+          and launches["B1"] == EXEC_B_PER_STEP * n_steps
+          and launches["B2"] == EXEC_B_PER_STEP * n_steps
+          and launches["K2"] > 0,
+          f"executor launches {launches} over {n_steps} steps")
+    check(routes.get("fp32", 0) == EXEC_K1_PER_STEP * n_steps,
+          f"executor K1 routes {routes}: fp32 expected")
+    del exe, got, want
+    free()
+    return launches, n_steps, row
+
+
+def adam64(w, g, hp, rescale, wd, t=1, bias_correction=True):
+    """One Adam step in float64 from zero moments (the eager class's
+    formula: the bias correction folded into lr)."""
+    g = g * rescale + wd * w
+    m = (1 - 0.9) * g
+    v = (1 - 0.999) * g * g
+    lr = hp["learning_rate"]
+    if bias_correction:
+        lr = lr * (1 - 0.999 ** t) ** 0.5 / (1 - 0.9 ** t)
+    return w - lr * m / (v.sqrt() + 1e-8)
+
+
+def module_eager_phase(mt, torch, np, smi, batches):
+    """Path E, second half: ``Module(fused=False)`` with Adam on the same
+    bind, 5 steps at batch 128 through the Updater."""
+    from mxnet_tpu_torch import profile_training as pt
+    m = pt.build_module(TRAIN_BATCH, SEED, compute_dtype=None,
+                        optimizer="adam", optimizer_params=ADAM_HP,
+                        fused=False)
+    check(m._fused is None, "Module(fused=False) started the fused step")
+    o = m._optimizer
+    b = batches[0]
+    m.forward(b, is_train=True)
+    m.backward()
+    torch.cuda.synchronize()
+    w0 = {n: v.double().clone() for n, v in m.get_params()[0].items()}
+    g = {n: m._exec.grad_dict[n]._data.double().clone() for n in w0}
+    m.update()
+    w1 = m.get_params()[0]
+    errs, probe_errs = {}, {}
+    for i, n in enumerate(m._param_names):
+        wd = o._get_wd(i)
+        want = adam64(w0[n], g[n], ADAM_HP, o.rescale_grad, wd)
+        bad = adam64(w0[n], g[n], ADAM_HP, o.rescale_grad, wd,
+                     bias_correction=False)
+        errs[n] = rel_l2(w1[n], want)
+        probe_errs[n] = rel_l2(w1[n], bad)
+    del w0, g
+    worst = max(errs, key=errs.get)
+    losses, ms = [], []
+    for i in range(1, MODULE_EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.run_step(m, batches[i % 4])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out = m.get_outputs()[0].float()
+        lab = batches[i % 4].label[0].long()
+        losses.append(float(-torch.log(out.gather(1, lab[:, None])
+                                       .clamp_min(1e-30)).mean()))
+    progs = m._exec._progs.captured
+    row = {"phase": "module_eager", "batch": TRAIN_BATCH,
+           "optimizer": "adam", "hp": ADAM_HP, "dtype": "float32",
+           "first_step": {"weight_rel_l2_worst": errs[worst],
+                          "worst": worst,
+                          "weight_rel_l2_median": statistics.median(
+                              errs.values()),
+                          "limit": ADAM_W_REL_LIMIT,
+                          "against": "Adam's arithmetic in float64 on the "
+                                     "same weights and gradients"},
+           "fault_probe": {"fault": "Adam without its bias correction",
+                           "weight_rel_l2_least": min(probe_errs.values()),
+                           "weight_rel_l2_median": statistics.median(
+                               probe_errs.values())},
+           "ms_per_step": ms, "steps_2_to_5_losses": losses,
+           "programs": {k: p.record.as_dict() for k, p in progs.items()},
+           "card": smi}
+    emit(row)
+    check(errs[worst] <= ADAM_W_REL_LIMIT,
+          f"Module(fused=False) Adam step: {errs[worst]} at {worst}")
+    check(max(probe_errs.values()) > ADAM_W_REL_LIMIT,
+          "the Adam check passes an update without bias correction")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def rule_state(f):
+    """A fused step's state as copies: the fp32 masters, every optimizer
+    leaf, the aux and t."""
+    leaves = {f"{n}:{j}": x.clone() for n, s in f._state.items()
+              for j, x in enumerate(s)}
+    out = {"weights": {n: p.detach().clone() for n, p in f._p.items()},
+           "aux": {n: v.clone() for n, v in f._aux.items()},
+           "t": {"t": f._t.clone().float().reshape(1)}}
+    if leaves:           # sgd without momentum, signsgd, sgld: none
+        out["leaves"] = leaves
+    return out
+
+
+def reset_step(f, init):
+    """Back to ``init`` (params, aux), the rule's fresh state, t = 0, in
+    place."""
+    f.load_params(*init)
+    f.reset_state()
+
+
+def override_rule(torch, m, name, kw):
+    """The rules with no optimizer class of their own (lars, signsgd):
+    the fused step's rule replaced before its first step."""
+    from mxnet_tpu_torch.parallel import functional_opt
+    f = m._fused
+    f._fopt = functional_opt.create(
+        name, rescale_grad=m._optimizer.rescale_grad, **kw)
+    f._init_state()
+
+
+def rule_captured_vs_eager(torch, fc, fe, feeds, lrs):
+    """``fc``'s captured steps (its program captured already) against
+    ``fe``'s eager steps (twice, for the spread) from the same state."""
+    init = [{n: t.clone() for n, t in d.items()} for d in fe.params()]
+
+    def run(f, step):
+        reset_step(f, init)
+        for feed, lr in zip(feeds, lrs):
+            step(feed, lr)
+        torch.cuda.synchronize()
+        return rule_state(f)
+
+    e1 = run(fe, fe.step_eager)
+    e2 = run(fe, fe.step_eager)
+    (prog,) = fc._programs.values()
+    r0 = prog.record.replays
+    c = run(fc, fc.step)
+    check(prog.record.replays - r0 == len(feeds),
+          f"captured steps were not replays: {prog.record.as_dict()}")
+    spread = state_diff(torch, e2, e1)
+    diff = state_diff(torch, c, e1)
+    return diff, spread, same_within(diff, spread)
+
+
+def fused_rules_phase(mt, torch, np, smi, batches):
+    """Path F: the phase-7 configuration (bf16, batch 128) with Adam in
+    the captured step; then every other rule at the same configuration."""
+    from mxnet_tpu_torch import faultinject, profile_training as pt
+    from mxnet_tpu_torch.parallel import functional_opt
+    fb = mt.ops.fused_bn_conv
+    feeds = [{"data": b.data[0], "softmax_label": b.label[0]}
+             for b in batches[:3]]
+    adam = pt.build_module(TRAIN_BATCH, SEED, optimizer="adam",
+                           optimizer_params=ADAM_HP)
+    twin = pt.build_module(TRAIN_BATCH, SEED, optimizer="adam",
+                           optimizer_params=ADAM_HP)
+    fc, fe = adam._fused, twin._fused
+    fc.step(feeds[0], 1e-3)            # the warm step (eager)
+    fc.step(feeds[1], 1e-3)            # the capture
+    diff, spread, fails = rule_captured_vs_eager(torch, fc, fe, feeds,
+                                            CHECK_LRS)
+    del twin, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the guard with Adam: a planted NaN step on the captured step
+    for i in range(2):
+        pt.run_step(adam, batches[i])
+    torch.cuda.synchronize()
+    before = rule_state(fc)
+    totals0 = registry_totals(mt)
+    with faultinject.inject(f"nan_grad:step={fc.num_update}"):
+        pt.run_step(adam, batches[2])
+    torch.cuda.synchronize()
+    after = rule_state(fc)
+    delta = registry_delta(totals0, registry_totals(mt))
+    t_moved = float(after["t"]["t"] - before["t"]["t"])
+    after.pop("t"), before.pop("t")
+    skip = state_diff(torch, after, before)
+    mt.fault_report(reset=True)
+
+    # Adam's captured step against SGD's, in turns; Adam's launches
+    sgd = pt.build_module(TRAIN_BATCH, SEED)
+    for i in range(3):
+        pt.run_step(sgd, batches[i % 4])
+    fb.reset_launch_counts()
+    for i in range(4):
+        pt.run_step(adam, batches[i % 4])
+    torch.cuda.synchronize()
+    adam_launches = kernel_counts(fb)
+    runs = []
+    for mode in RULE_AB_RUNS:
+        m = adam if mode == "adam" else sgd
+        r = timed_runs(torch, lambda i: pt.run_step(m, batches[i % 4]),
+                       AB_STEPS)
+        runs.append(dict(r, mode=mode))
+    host = ab_summary(runs, "host_ms", ("sgd", "adam"))
+    event = ab_summary(runs, "event_ms", ("sgd", "adam"))
+    del sgd, adam, fc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every other rule at the same configuration: 3 replays against 3
+    # eager steps of the same module from the same state
+    t_rules = time.perf_counter()
+    sfeeds = [{"data": b.data[0], "softmax_label": b.label[0]}
+              for b in batches[:RULES_STEPS]]
+    lrs = (0.01,) * RULES_STEPS
+    rules = {}
+    for name, kw in RULE_CASES:
+        label = name + ("_centered" if kw.get("centered") else "")
+        cls = "sgd" if name in ("lars", "signsgd") else name
+        ckw = {} if cls != name else kw
+        m = pt.build_module(TRAIN_BATCH, SEED, optimizer=cls,
+                            optimizer_params=dict(ckw, **ADAM_HP))
+        if cls != name:
+            override_rule(torch, m, name, kw)
+        fc = fe = m._fused
+        old = functional_opt.sgld_noise_scale
+        if name == "sgld":
+            functional_opt.sgld_noise_scale = 0.0
+        try:
+            fc.step(sfeeds[0], 0.01)
+            fc.step(sfeeds[1], 0.01)
+            d, s, f = rule_captured_vs_eager(torch, fc, fe, sfeeds[1:],
+                                             lrs[1:])
+        finally:
+            functional_opt.sgld_noise_scale = old
+        entry = {"captured_vs_eager": {g: {k: v[k] for k in
+                                           ("bit_identical",
+                                            "worst_rel_l2")}
+                                       for g, v in d.items()},
+                 "eager_spread": {g: v["worst_rel_l2"]
+                                  for g, v in s.items()},
+                 "t": int(fc._t), "failures": f}
+        if name == "sgld":
+            # the noise on, in a step captured with it: two replays from
+            # one state draw anew, against the noiseless eager step
+            init = [{n: t.clone() for n, t in dd.items()}
+                    for dd in fe.params()]
+            fn = pt.build_module(TRAIN_BATCH, SEED, optimizer="sgld",
+                                 optimizer_params=ADAM_HP)._fused
+            fn.step(sfeeds[0], 0.01)
+            fn.step(sfeeds[1], 0.01)
+            noisy = []
+            for _ in range(2):
+                reset_step(fn, init)
+                fn.step(sfeeds[1], 0.01)
+                noisy.append(torch.cat([p.reshape(-1) for p in
+                                        fn._p.values()]).clone())
+            del fn
+            reset_step(fe, init)
+            functional_opt.sgld_noise_scale = 0.0
+            try:
+                fe.step_eager(sfeeds[1], 0.01)
+            finally:
+                functional_opt.sgld_noise_scale = old
+            clean = torch.cat([p.reshape(-1) for p in fe._p.values()])
+            var = [float((x - clean).var()) / 0.01 for x in noisy]
+            entry["noise_var_over_lr"] = var
+            entry["replays_draw_anew"] = not torch.equal(*noisy)
+            f = f + ([] if all(0.8 < v < 1.25 for v in var)
+                     and entry["replays_draw_anew"] else ["noise"])
+            entry["failures"] = f
+        rules[label] = entry
+        del fc, fe, m
+        gc.collect()
+    torch.cuda.empty_cache()
+    rules_s = time.perf_counter() - t_rules
+    row = {"phase": "fused_rules", "batch": TRAIN_BATCH, "dtype": "bfloat16",
+           "adam": {"hp": ADAM_HP, "lrs": list(CHECK_LRS),
+                    "captured_vs_eager": diff, "eager_spread": spread,
+                    "failures": fails,
+                    "guard": {"state": skip, "t_advanced": t_moved,
+                              "compile_report_delta": delta},
+                    "launches_per_step": {k: v / 4 for k, v in
+                                          adam_launches.items()}},
+           "adam_vs_sgd": {"host_ms_per_step": host,
+                           "event_ms_per_step": event,
+                           "order": list(RULE_AB_RUNS),
+                           "steps_per_run": AB_STEPS,
+                           "adam_minus_sgd_event_ms":
+                               event["adam"]["median"]
+                               - event["sgd"]["median"]},
+           "rules": {"net": "the phase-7 configuration", "batch":
+                     TRAIN_BATCH, "steps": RULES_STEPS, "seconds": rules_s,
+                     "cases": rules},
+           "rule": "per group: bit-identical, or worst relative L2 <= 2 x "
+                   "the eager spread; sgld with its noise at 0, then its "
+                   "noise's variance over lr (0.8-1.25) and two replays "
+                   "from one state drawing anew",
+           "card": smi}
+    emit(row)
+    check(not fails, f"Adam's replays against its eager steps: {fails}")
+    check(all(v["bit_identical"] for v in skip.values()) and t_moved == 1
+          and delta["replays"] == 1 and delta["fresh_compiles"] == 0,
+          f"Adam's skipped step: {skip}, t moved {t_moved}, {delta}")
+    bad = {k: v["failures"] for k, v in rules.items() if v["failures"]}
+    check(not bad, f"rules' replays against their eager steps: {bad}")
+    check(all(v["t"] == RULES_STEPS - 1 for v in rules.values()),
+          "t did not advance on the device")
+    check(all(adam_launches[k] > 0 for k in adam_launches),
+          f"Adam's step launches {adam_launches}")
+    return adam_launches, 4, row
+
+
+def eval_capture_phase(mt, torch, np, smi, batches):
+    """``Module.forward(is_train=False)`` and ``score`` on the
+    executor's captured eval program, against the eager walk."""
+    from mxnet_tpu_torch import profile_training as pt
+    fb = mt.ops.fused_bn_conv
+    m = pt.build_module(TRAIN_BATCH, SEED)
+    pt.run_step(m, batches[0])
+    outs = []
+    for i in range(3):                 # warm, capture, replay
+        if i == 2:
+            fb.reset_launch_counts()
+        m.forward(batches[i], is_train=False)
+        outs.append(m.get_outputs()[0].clone())
+    torch.cuda.synchronize()
+    launches = kernel_counts(fb)
+    prog = m._exec._progs.captured["fwd_eval"]
+    m._exec.captured = False
+    eager = []
+    for _ in range(2):
+        m.forward(batches[2], is_train=False)
+        eager.append(m.get_outputs()[0].clone())
+    torch.cuda.synchronize()
+    bit = torch.equal(outs[2], eager[0])
+    err, spread = rel_l2(outs[2], eager[0]), rel_l2(eager[1], eager[0])
+    acc_e = m.score(four_batches(mt, batches), "acc")[0][1]
+    runs = []
+    for mode in EXEC_AB_RUNS:
+        m._exec.captured = mode == "captured"
+        r = timed_runs(torch, lambda i: m.forward(batches[i % 4],
+                                                  is_train=False),
+                       AB_STEPS)
+        runs.append(dict(r, mode=mode))
+    m._exec.captured = True
+    r0 = prog.record.replays
+    acc_c = m.score(four_batches(mt, batches), "acc")[0][1]
+    replays = prog.record.replays - r0
+    row = {"phase": "eval_capture", "batch": TRAIN_BATCH,
+           "program": prog.record.as_dict(),
+           "launches_per_forward": launches,
+           "captured_vs_eager": {"bit_identical": bit, "rel_l2": err,
+                                 "eager_spread": spread},
+           "score_acc": {"captured": acc_c, "eager": acc_e,
+                         "replays": replays},
+           "host_ms_per_forward": ab_summary(runs, "host_ms"),
+           "event_ms_per_forward": ab_summary(runs, "event_ms"),
+           "order": list(EXEC_AB_RUNS), "forwards_per_run": AB_STEPS,
+           "card": smi}
+    emit(row)
+    check(bit or err <= 2 * spread, f"captured eval forward: {row}")
+    check(acc_c == acc_e and replays == 4, f"score: {row['score_acc']}")
+    check(launches["K1"] == 28 and launches["K2"] > 0
+          and launches["B1"] == 0, f"eval launches {launches}")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def monitor_expectation(torch, sym, params, aux, feed, post, grads):
+    """The Monitor's statistics from the plain walk: every op output of
+    the original graph at the pre-update ``params`` (training mode), the
+    args after the update (``post``), and the mean |g| of the executor's
+    gradient arrays ``grads`` after the step's backward."""
+    amap = dict(params, **aux, **feed)
+    internals = {}
+    with torch.no_grad():
+        sym.eval_arrays_ex(amap, training=True, internals=internals)
+    stats = {n: float(v.float().abs().mean()) for n, v in internals.items()}
+    for n in sym.list_arguments():
+        stats[n] = float((post[n] if n in post else feed[n])
+                         .float().abs().mean())
+        stats[n + "_grad"] = float(grads[n].abs().mean())
+    return stats
+
+
+def monitor_phase(mt, torch, np, smi, batches):
+    """``Monitor(interval=2)`` on the phase-7 configuration's Module, in
+    the eager regime (Adam, fp32) and the fused one (bf16, SGD): names
+    and statistics of batches 0 and 2 against the plain walk's."""
+    from mxnet_tpu_torch import profile_training as pt
+    out = {}
+    for regime, fused, opt_name, hp in (
+            ("eager", False, "adam", ADAM_HP),
+            ("fused", None, "sgd", pt.SGD_PARAMS)):
+        m = pt.build_module(TRAIN_BATCH, SEED, optimizer=opt_name,
+                            optimizer_params=hp, fused=fused,
+                            compute_dtype=None if fused is False
+                            else "bfloat16")
+        sym = m.symbol
+        mon = mt.monitor.Monitor(2, sort=True)
+        m.install_monitor(mon)
+        worst = {"values": (0.0, None), "grads": (0.0, None)}
+        names_ok, counts = True, []
+        for i, b in enumerate(batches[:3]):
+            feed = {"data": b.data[0], "softmax_label": b.label[0].float()}
+            pre_a, pre_x = (
+                {n: v.clone() for n, v in d.items()}
+                for d in m.get_params())
+            mon.tic()
+            pt.run_step(m, b)
+            res = mon.toc()
+            counts.append(len(res))
+            if i % 2:
+                continue
+            post = {n: v.clone() for n, v in m.get_params()[0].items()}
+            grads = {n: g._data for n, g in m._exec.grad_dict.items()}
+            want = monitor_expectation(torch, sym, pre_a, pre_x, feed,
+                                       post, grads)
+            got = {k: float(v) for _, k, v in res}
+            names_ok &= sorted(got) == sorted(want)
+            for k in want:
+                if k in got:
+                    err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                    g = "grads" if k.endswith("_grad") else "values"
+                    if err > worst[g][0]:
+                        worst[g] = (err, k)
+        out[regime] = {"stats_per_batch": counts, "names_match": names_ok,
+                       "worst_rel_err": {g: {"err": e, "name": n}
+                                         for g, (e, n) in worst.items()}}
+        del m, mon
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = {"phase": "monitor", "interval": 2,
+           "net": "the phase-7 configuration", "batch": TRAIN_BATCH,
+           "regimes": out,
+           "limits": {"values": MONITOR_REL_LIMIT,
+                      "grads": MONITOR_GRAD_REL_LIMIT},
+           "against": "mean |x| of every op output of the original graph's "
+                      "plain walk at the pre-update params, the post-update "
+                      "params, the executor's gradient arrays after the "
+                      "step's backward",
+           "card": smi}
+    emit(row)
+    for regime, r in out.items():
+        w = r["worst_rel_err"]
+        check(r["names_match"] and w["values"]["err"] <= MONITOR_REL_LIMIT
+              and w["grads"]["err"] <= MONITOR_GRAD_REL_LIMIT
+              and r["stats_per_batch"][1] == 0
+              and r["stats_per_batch"][0] == r["stats_per_batch"][2] > 0,
+              f"Monitor in the {regime} regime: {r}")
+    return row
+
+
+def slice10_phases(mt, torch, np, smi, batches):
+    """Phases 7e-7i (slice 10). Returns the kernels line's extra fields
+    for K1/K2/B1/B2: the Executor path's and the Adam step's launches."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    exe_launches, exe_steps_n, _ = executor_train_phase(mt, torch, np, smi,
+                                                        batches)
+    lap("executor_train")
+    module_eager_phase(mt, torch, np, smi, batches)
+    lap("module_eager")
+    adam_launches, adam_steps, _ = fused_rules_phase(mt, torch, np, smi,
+                                                     batches)
+    lap("fused_rules")
+    eval_capture_phase(mt, torch, np, smi, batches)
+    lap("eval_capture")
+    monitor_phase(mt, torch, np, smi, batches)
+    lap("monitor")
+    emit({"phase": "slice10_seconds", "seconds": seconds})
+    return {k: {"executor": {
+        "launches": exe_launches[k],
+        "launches_per_step": exe_launches[k] / exe_steps_n,
+        "steps": exe_steps_n,
+        "path": "Executor forward(is_train=True) + backward() replays "
+                "(Path E, fp32), counts set to 0 just before"},
+        "fused_adam": {
+            "launches": adam_launches[k],
+            "launches_per_step": adam_launches[k] / adam_steps,
+            "steps": adam_steps,
+            "path": "Module(fused=True) with Adam (Path F, bf16), counts "
+                    "set to 0 just before"}} for k in KERNEL_WRAPPERS}
+
+
 def k4_entry(rows, name, route, launches, what):
     """A K4 user kernel's entry of the kernels line: its times at
     ``what``; launches on its path (the softmax CE's on the Gluon
@@ -3705,6 +4480,12 @@ def main():
         ab_row["host_ms_per_step"]["captured"]["median"])
     checkpoint_phase(mt, torch, smi, batches,
                      ft_guard_phase(mt, torch, smi, batches))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7e.-7i. the bound Executor, Module(fused=False), every rule in the
+    # captured step, the captured eval forward, Monitor (slice 10) --------
+    slice10 = slice10_phases(mt, torch, np, smi, batches)
     del batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3757,7 +4538,8 @@ def main():
                     "launches_per_step": fit_launches[launch_key]
                     / fit_steps, "steps": fit_steps,
                     "path": "Module.fit (bench.py phase A2), counts set "
-                            "to 0 just before it"}}, **extra)
+                            "to 0 just before it"}}, **extra,
+            **slice10[key])
 
     pf = "mxnet_tpu/ops/pallas_fused.py"
     k3 = k3_default["bfloat16"]

@@ -24,7 +24,12 @@ guard inside the captured step, ``fault`` (``fault_report()``) and
 ``faultinject``, ``checkpoint.CheckpointManager`` with ``fit``'s
 auto-resume, ``callback``, the remaining ``metric`` classes, ``model``
 checkpoints and the ``.params`` format (``nd.save`` / ``nd.load``,
-``ndarray.param_file``), byte for byte the JAX package's.
+``ndarray.param_file``), byte for byte the JAX package's. Slice 10
+covers the bound ``executor.Executor`` (``Symbol.simple_bind`` /
+``bind``, captured forward and grad programs), ``Module(fused=False)``
+with the ``optimizer.Updater``, every optimizer rule (the eager classes
+and ``parallel.functional_opt``, also inside the captured fused step)
+and ``monitor.Monitor``.
 """
 from . import base, config, context
 from .base import MXNetError
@@ -53,6 +58,7 @@ from .compile import compile_report
 from . import fault, faultinject
 from .fault import fault_report
 from . import callback, checkpoint, metric_device, model
+from . import executor, monitor
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
@@ -61,4 +67,4 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon",
            "compile", "compile_report", "fault", "faultinject",
            "fault_report", "callback", "checkpoint", "metric_device",
-           "model"]
+           "model", "executor", "monitor"]

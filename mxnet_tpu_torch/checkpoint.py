@@ -21,7 +21,8 @@ Layout (one directory per checkpoint, ``<prefix>-NNNNNN/``), the JAX
 package's, so either package restores the other's checkpoint:
 
     params.params      arg:/aux: map, the .params format
-    optimizer.states   the fused step's get_states() bytes (optional)
+    optimizer.states   the Module's optimizer states (optional): the fused
+                       step's get_states() bytes, or the Updater's
     extra.pkl          RNG snapshot + pickled metric + user extras
     MANIFEST.json      {tag, epoch, nbatch, files: {name: {crc32, size}}}
 
@@ -148,19 +149,19 @@ class CheckpointManager:
             [aux_params[k] for k in aux_params])))
         args_np = {k: host[k] for k in arg_params}
         auxs_np = {k: host[k] for k in aux_params}
-        fused = getattr(module, "_fused", None)
         opt_state = None
         if self.save_optimizer_states and \
                 getattr(module, "optimizer_initialized", False):
             # the host copy now, the pickling with the other files
-            opt_state = fused.states_snapshot()
+            opt_state = module._opt_states_snapshot()
         payload = {"rng": _random.get_state(),
                    "metric": _pickle_or_none(eval_metric),
                    "extra": extra}
         meta = {"tag": int(epoch), "epoch": int(epoch),
                 "nbatch": int(nbatch),
-                "num_update": int(fused.num_update if fused is not None
-                                  else 0),
+                "num_update": int(module._optimizer.num_update
+                                  if getattr(module, "_optimizer", None)
+                                  is not None else 0),
                 "time": time.time(),
                 "compile": compile_mod.compile_report()["totals"]}
         sym_path = os.path.join(self.directory,
@@ -340,8 +341,7 @@ class CheckpointManager:
         module.set_params(state.arg_params, state.aux_params)
         if load_optimizer and state.opt_states is not None and \
                 getattr(module, "optimizer_initialized", False):
-            module._fused.set_states(state.opt_states)
-            module._optimizer.num_update = module._fused.num_update
+            module._set_opt_states(state.opt_states)
         if restore_rng and state.rng is not None:
             if "generators" in state.rng:
                 _random.set_state(state.rng)

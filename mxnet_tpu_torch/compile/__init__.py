@@ -15,19 +15,19 @@ graph: the step and each bucket are captured once and replayed.
 Not ported: ``cache.py`` (the persistent ``.mxprog`` cache), its CLI,
 ``load_or_compile`` and ``guarded_loaded_program`` (loads from disk), since
 a CUDA graph cannot be serialized (``compile_report()["cache"]`` says
-so); ``JitProgram`` / ``shared_programs`` (the bound Executor's shared
-jits: the port has no bound Executor yet) and ``donation_supported``
-(XLA buffer donation). :class:`CapturedProgram` takes their place.
+so); ``JitProgram`` and ``donation_supported`` (XLA buffer donation).
+:class:`CapturedProgram` takes their place; :func:`shared_programs`
+shares a bound Executor's captured programs between equal keys.
 """
 from __future__ import annotations
 
 from .key import (ProgramKey, program_key, arg_signature,
                   optimizer_fingerprint, symbol_digest)
 from .registry import (ProgramRecord, CapturedProgram, note_entry_point,
-                       compile_report, reset)
+                       compile_report, reset, shared_programs)
 
 __all__ = [
     "ProgramKey", "program_key", "arg_signature", "optimizer_fingerprint",
     "symbol_digest", "ProgramRecord", "CapturedProgram", "note_entry_point",
-    "compile_report", "reset",
+    "compile_report", "reset", "shared_programs",
 ]

@@ -29,6 +29,11 @@ calls that launch onto the capturing stream go to a tally of their own
 replay adds the tally: the counters say how many kernels ran, also
 while other threads launch kernels on their streams during a capture.
 
+- :func:`shared_programs`: the bound ``Executor``'s programs, shared
+  (weakly) between executors whose program keys are equal, so two
+  identical binds capture once; ``compile_report()`` counts captures
+  per unique key.
+
 Not ported: the persistent program cache (``cache.py``, the ``.mxprog``
 files and ``load_or_compile``'s loads). A CUDA graph cannot be
 serialized, so every process captures its programs anew.
@@ -37,11 +42,12 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 
 import torch
 
 __all__ = ["ProgramRecord", "CapturedProgram", "note_entry_point",
-           "compile_report", "reset", "CACHE_REASON"]
+           "compile_report", "reset", "CACHE_REASON", "shared_programs"]
 
 CACHE_REASON = ("a CUDA graph cannot be serialized; every process "
                 "captures its programs anew (the persistent .mxprog "
@@ -51,6 +57,7 @@ _lock = threading.Lock()
 _records = {}            # digest -> ProgramRecord
 _entry_points = {}       # name -> (ProgramKey, arg_sig)
 _retraces = {}           # name -> {"count": int, "events": [...]}
+_shared = weakref.WeakValueDictionary()   # digest -> executor programs
 _MAX_RETRACE_EVENTS = 8
 
 
@@ -144,12 +151,16 @@ class CapturedProgram:
     def captured(self):
         return self.graph is not None
 
-    def capture(self, fn, capture_error_mode="global"):
+    def capture(self, fn, capture_error_mode="global", generators=()):
         """Capture ``fn()`` on the current device. A capture that fails
         raises (the error of ``torch.cuda.graph``); the launch counters
-        are left as they were."""
+        are left as they were. ``generators``: explicit CUDA generators
+        ``fn`` draws from, registered with the graph (each replay then
+        draws anew)."""
         from ..ops import fused_bn_conv
         graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        for g in generators:
+            graph.register_generator_state(g)
         t0 = time.perf_counter()
         with fused_bn_conv.capture_tally(stream) as delta, \
                 torch.cuda.graph(graph, pool=self.pool, stream=stream,
@@ -182,6 +193,23 @@ class CapturedProgram:
         fused_bn_conv.add_counts(self.launches)
         with _lock:
             self._live_record().replays += 1
+
+
+def shared_programs(key, make):
+    """``make()`` (an object holding an executor key's programs) memoized
+    weakly on the key digest: ``(programs, was_shared)``. It is
+    collectable once the last executor holding it dies."""
+    with _lock:
+        held = _shared.get(key.digest)
+        if held is not None:
+            return held, True
+    built = make()
+    with _lock:
+        existing = _shared.get(key.digest)
+        if existing is not None:
+            return existing, True
+        _shared[key.digest] = built
+    return built, False
 
 
 def compile_report(reset=False):

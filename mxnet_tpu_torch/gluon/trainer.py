@@ -1,13 +1,16 @@
 """Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``;
 reference: python/mxnet/gluon/trainer.py).
 
-One device: the Trainer applies the optimizer's rule
-(``parallel/functional_opt.py``) in place, one list update for each
-group of parameters that share lr and wd, as the fused step does; the
-states live in an ``optimizer.Updater``. kvstore ``None``, ``"device"`` and
-``"local"`` need no reduction on one device; any other kvstore raises
-(several devices are not ported yet). ``step(batch_size)`` sets
-``rescale_grad = 1/batch_size``.
+One device: the Trainer applies the optimizer's rule, any of
+``parallel/functional_opt.py``'s, in place, one list update for each
+group of parameters that share lr, wd and update count, as the fused
+step does; each parameter's state is a tuple of the rule's leaves
+(``rule.init``; one leaf is kept as an NDArray, as the eager classes
+keep SGD's momentum). kvstore ``None``, ``"device"`` and ``"local"``
+need no reduction on one device; any other kvstore raises (several
+devices are not ported yet). ``step(batch_size)`` sets ``rescale_grad =
+1/batch_size``. ``save_states`` / ``load_states`` pickle the states
+(numpy leaves) with the optimizer object, so a file crosses no package.
 """
 from __future__ import annotations
 
@@ -81,6 +84,7 @@ class Trainer:
         o = self._optimizer
         o.rescale_grad = self._scale / batch_size
         states = self._updaters[0].states
+        rule = functional_opt.from_optimizer(o)
         groups = {}
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
@@ -102,16 +106,51 @@ class Trainer:
                 self._last_grad_seq[i] = seq
             weight = param.data()
             if i not in states:
-                states[i] = o.create_state(i, weight)
+                states[i] = _as_state(rule.init(weight._data))
             o._update_count(i)
-            ws, gs, ss = groups.setdefault((o._get_lr(i), o._get_wd(i)),
-                                           ([], [], []))
+            ws, gs, ss = groups.setdefault(
+                (o._get_lr(i), o._get_wd(i), o._index_update_count[i]),
+                ([], [], []))
             ws.append(weight._data)
             gs.append(param.grad()._data)
-            ss.append(() if states[i] is None else (states[i]._data,))
-        rule = functional_opt.from_optimizer(o)
+            ss.append(_leaves(states[i]))
         with torch.no_grad():
-            for (lr, wd), (ws, gs, ss) in groups.items():
-                # update_ overwrites the gradients it is given; the
-                # Parameters' gradients stay as backward wrote them
-                rule.update_(ws, torch._foreach_mul(gs, 1.0), ss, lr, wd)
+            for (lr, wd, t), (ws, gs, ss) in groups.items():
+                rule.update_(ws, gs, ss, lr, wd, t=t)
+
+    def save_states(self, fname):
+        """Write the Updater's states with the optimizer object (the
+        reference's pickle: ``Updater.get_states(dump_optimizer=True)``)."""
+        from ..base import atomic_write
+        with atomic_write(fname) as fout:
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Load a ``save_states`` file onto the parameters' device."""
+        with open(fname, "rb") as f:
+            data = f.read()
+        updater = self._updaters[0]
+        updater.set_states(data, device=self._params[0].data()._data.device
+                           if self._params else None)
+        self._optimizer = updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+
+
+def _as_state(leaves):
+    """A rule's leaves as the Updater keeps a state: None, one NDArray or
+    a tuple of them (SGD's momentum is one NDArray, as in the eager
+    classes)."""
+    from ..ndarray import NDArray
+    if not leaves:
+        return None
+    if len(leaves) == 1:
+        return NDArray(leaves[0])
+    return tuple(NDArray(x) for x in leaves)
+
+
+def _leaves(state):
+    if state is None:
+        return ()
+    if isinstance(state, (tuple, list)):
+        return tuple(x._data for x in state)
+    return (state._data,)

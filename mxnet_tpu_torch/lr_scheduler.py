@@ -1,10 +1,14 @@
 """Learning-rate schedulers (counterpart of ``mxnet_tpu/lr_scheduler.py``;
-reference: python/mxnet/lr_scheduler.py:53-140): the step schedules."""
+reference: python/mxnet/lr_scheduler.py:53-140): the step schedules,
+the polynomial decay, and the JAX package's cosine decay and linear
+warmup."""
 from __future__ import annotations
 
 import logging
+import math
 
-__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "PolyScheduler", "CosineScheduler", "WarmupScheduler"]
 
 
 class LRScheduler:
@@ -77,3 +81,66 @@ class MultiFactorScheduler(LRScheduler):
             else:
                 return self.base_lr
         return self.base_lr
+
+
+class PolyScheduler(LRScheduler):
+    """Polynomial decay to zero at ``max_update``."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2):
+        super().__init__(base_lr)
+        assert isinstance(max_update, int)
+        if max_update < 1:
+            raise ValueError("maximum number of updates must be strictly "
+                             "positive")
+        self.base_lr_orig = self.base_lr
+        self.max_update = max_update
+        self.power = pwr
+        self.base_lr = self.base_lr_orig
+
+    def __call__(self, num_update):
+        if num_update <= self.max_update:
+            self.base_lr = self.base_lr_orig * \
+                pow(1.0 - float(num_update) / float(self.max_update),
+                    self.power)
+        return self.base_lr
+
+
+class CosineScheduler(LRScheduler):
+    """Cosine decay from ``base_lr`` to ``final_lr`` at ``max_update``,
+    after an optional linear warmup."""
+
+    def __init__(self, max_update, base_lr=0.01, final_lr=0.0,
+                 warmup_steps=0, warmup_begin_lr=0.0):
+        super().__init__(base_lr)
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.warmup_steps = warmup_steps
+        self.warmup_begin_lr = warmup_begin_lr
+        self.max_lr = base_lr
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.warmup_begin_lr + \
+                (self.max_lr - self.warmup_begin_lr) * \
+                num_update / max(1, self.warmup_steps)
+        progress = min(1.0, (num_update - self.warmup_steps) /
+                       max(1, self.max_update - self.warmup_steps))
+        return self.final_lr + (self.max_lr - self.final_lr) * \
+            0.5 * (1 + math.cos(math.pi * progress))
+
+
+class WarmupScheduler(LRScheduler):
+    """Linear warmup in front of another scheduler."""
+
+    def __init__(self, scheduler, warmup_steps, warmup_begin_lr=0.0):
+        super().__init__(scheduler.base_lr)
+        self.scheduler = scheduler
+        self.warmup_steps = warmup_steps
+        self.warmup_begin_lr = warmup_begin_lr
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.warmup_begin_lr + \
+                (self.base_lr - self.warmup_begin_lr) * \
+                num_update / max(1, self.warmup_steps)
+        return self.scheduler(num_update)

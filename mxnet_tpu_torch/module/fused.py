@@ -18,11 +18,21 @@ algorithm choice and the autograd engine's device thread); the next one
 copies the feed into static input buffers, captures the step and
 replays it; every later one is the copy, then ``replay()``. The base
 learning rate is a 0-dim fp32 device scalar (``set_lr``, written before
-each step) that the graph reads, so a schedule never needs a new capture.
+each step) that the graph reads, so a schedule never needs a new capture;
+so is the update count ``t`` (int32), which the step reads as ``t + 1``
+and advances on every step, a skipped one included, as the JAX
+package's ``_t_dev`` does: a replay never reuses a count baked in at
+capture.
 A replay's outputs live in the graph's memory and the next replay
 overwrites them: ``step`` returns copies, and ``last_loss`` is one. A
 capture that fails raises; there is no fallback to the eager step. The
 CPU runs ``step_eager``, the same arithmetic without a graph.
+
+The optimizer is any rule of ``parallel/functional_opt.py``. Each
+state leaf is parameter-shaped (one flat buffer laid out as the masters)
+or 0-dim (nadam's ``m_schedule``: one buffer with an element per
+parameter); sgd without momentum has none. sgld draws its noise from the
+step's own device generator, registered with each captured graph.
 
 Dtype flow (the JAX package's): fp32 master params, optimizer state
 and aux; with a ``compute_dtype`` every fp32 param, aux and input is
@@ -36,8 +46,8 @@ decides whether the update lands. The update computes the new params,
 momenta, aux and metric counters out of place and ``torch.where``
 selects them or the old ones into the state, so a skipped step leaves
 the state bit-identical and a clean step is bit-identical to the
-unguarded update. The trainable masters, each momentum leaf and the aux
-each live in one flat fp32 buffer (a view per name, 256-byte aligned
+unguarded update. The trainable masters, each optimizer-state leaf and
+the aux each live in one flat fp32 buffer (a view per name, 256-byte aligned
 for the masters), so a select is one launch per buffer, not one per
 tensor. The device carries ``fault_state`` = [total skips,
 consecutive skips] (int32[2]); ``fault.fault_report()`` reads it, and
@@ -53,14 +63,19 @@ exactly one new capture, which the retrace guard reports. Counters,
 life (a graph holds their addresses): resets and loads write into them.
 
 ``get_states`` / ``set_states`` serialize the optimizer state as the
-JAX package's fused step does (the same pickled object, leaf for leaf),
-so either package resumes from the other's file.
+JAX package's fused step does (the same pickled object, leaf for leaf,
+for every rule; ``set_states`` sets ``t`` from ``num_update``), so
+either package resumes from the other's file.
 
 Not ported (ROADMAP queue A): the device mesh and data-parallel batch
 sharding, the ZeRO-1 sharded update, partition rules, row-sparse
-embedding routing, the persistent program cache (a CUDA graph cannot be
-serialized), small-parameter packing and the optimizer rules other than
-SGD.
+embedding routing and lazy row updates, the persistent program cache (a
+CUDA graph cannot be serialized) and small-parameter packing (the
+parameters of each (lr_mult, wd) group lie side by side in the flat
+buffers instead, and an elementwise rule with parameter-shaped leaves
+updates each group as one slice, its gradients gathered into one padded
+buffer; lars, lbsgd's lars warmup and nadam update a view per
+parameter).
 """
 from __future__ import annotations
 
@@ -97,8 +112,12 @@ def _layout(shapes, align):
     return out, off
 
 
-def _views(buf, layout):
-    """{name: view of ``buf``} of a ``_layout``."""
+def _views(buf, layout, names=None):
+    """{name: view of ``buf``} of a ``_layout``; with ``names``, the list
+    of those names' views."""
+    if names is not None:
+        return [buf[o:o + math.prod(s)].view(s)
+                for o, s in (layout[n] for n in names)]
     return {n: buf[o:o + math.prod(s)].view(s)
             for n, (o, s) in layout.items()}
 
@@ -138,14 +157,24 @@ class FusedSymbolStep:
                           for n in self.param_names}
         self._wd_eff = {n: optimizer.wd * optimizer.wd_mult.get(n, 1.0)
                         for n in self.param_names}
+        # params sharing (lr_mult, wd) update together, laid out side by
+        # side in the flat buffers: one slice per group for an
+        # elementwise rule, one foreach launch per operation otherwise
+        groups = {}
+        for n in self.param_names:
+            if self.trainable[n]:
+                groups.setdefault((self._lr_mults[n], self._wd_eff[n]),
+                                  []).append(n)
+        self._groups = sorted(groups.items())
         self.pass_report = None
-        self._fwd = self._fwd_loss = None
+        self._fwd_loss = None
         self._run_arg_names = symbol.list_arguments()
         self._run_aux_names = list(aux_names)
         self._p = self._state = self._aux = None
+        self._t = None           # the update count, a 0-dim device int32
+        self._gen = None         # sgld's noise generator
         self._leaves = None      # the last training forward's param leaves
         self._lr = None
-        self._groups = None
         # (feed signature, metric slots version) -> CapturedProgram
         self._programs = {}
         self._warm_sigs = set()  # feed signatures that ran their warm step
@@ -188,34 +217,56 @@ class FusedSymbolStep:
             device=self.device, compute_dtype=self.compute_dtype,
             data_names=set(self.data_names) | set(self.label_names))
         run_sym = fused_sym if fused_sym is not None else self.symbol
-        self._fwd, self._fwd_loss, _ = build_graph_fns(run_sym)
+        _, self._fwd_loss, _ = build_graph_fns(run_sym)
         self._run_arg_names = run_sym.list_arguments()
         self._run_aux_names = run_sym.list_auxiliary_states()
         self.load_params(arg_dict, aux_dict)
-        # every optimizer state leaf is param-shaped (SGD's momentum):
-        # one flat buffer per leaf, laid out as the masters
-        n_leaves = len(self._fopt.init(torch.empty(0, device="meta")))
-        self._flat_state = [torch.zeros(self._flat_p.numel(),
-                                        dtype=torch.float32,
-                                        device=self.device)
-                            for _ in range(n_leaves)]
-        leaves = [_views(b, self._p_layout) for b in self._flat_state]
-        self._state = {n: tuple(v[n] for v in leaves)
-                       for n in self._p_layout}
+        self._init_state()
         self._lr = torch.full((), float(self.optimizer.lr),
                               dtype=torch.float32, device=self.device)
+        self._t = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self._fopt.needs_key:
+            from .. import random as _random
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(_random._seed[0])
         self.fault_state = torch.zeros(2, dtype=torch.int32,
                                        device=self.device)
         self._skip_lag.clear()
         fault.register_guard(self)
-        # params sharing (lr_mult, wd) update together: one foreach
-        # launch per operation per group
-        groups = {}
-        for n in self.param_names:
-            if self.trainable[n]:
-                groups.setdefault((self._lr_mults[n], self._wd_eff[n]),
-                                  []).append(n)
-        self._groups = sorted(groups.items())
+
+    def _init_state(self):
+        """One flat fp32 buffer per state leaf: a parameter-shaped leaf
+        laid out as the masters, a 0-dim one as one element per
+        trainable parameter; each filled with the rule's ``init`` of the
+        parameter's initial value."""
+        names = list(self._p_layout)
+        proto = self._fopt.init(torch.empty(0, device="meta"))
+        scalar_layout = {n: (i, ()) for i, n in enumerate(names)}
+        self._leaf_layouts = [self._p_layout if tuple(x.shape) == (0,)
+                              else scalar_layout for x in proto]
+        self._flat_state = [
+            torch.zeros(self._flat_p.numel() if lay is self._p_layout
+                        else len(names), dtype=torch.float32,
+                        device=self.device)
+            for lay in self._leaf_layouts]
+        leaves = [_views(b, lay) for b, lay in
+                  zip(self._flat_state, self._leaf_layouts)]
+        self._state = {n: tuple(v[n] for v in leaves) for n in names}
+        self._fill_state()
+
+    def _fill_state(self):
+        with torch.no_grad():
+            for n, leaves in self._state.items():
+                for dst, x in zip(leaves, self._fopt.init(self._p[n])):
+                    dst.copy_(x)
+
+    def reset_state(self):
+        """The rule's initial state of the current masters, ``t`` = 0 and
+        ``num_update`` = 0, written in place (a captured graph holds the
+        buffers)."""
+        self._fill_state()
+        self._t.zero_()
+        self.num_update = 0
 
     def load_params(self, arg_dict, aux_dict):
         """Set the master params and aux (optimizer state is kept): the
@@ -224,8 +275,10 @@ class FusedSymbolStep:
         place."""
         if self._p is None:
             self._p_layout, size = _layout(
-                {n: arg_dict[n].shape for n in self.param_names
-                 if self.trainable[n]}, _ALIGN)
+                {n: arg_dict[n].shape for _, ns in self._groups
+                 for n in ns}, _ALIGN)
+            self._zpad = torch.zeros(_ALIGN, dtype=torch.float32,
+                                     device=self.device)
             self._flat_p = torch.zeros(size, dtype=torch.float32,
                                        device=self.device)
             flat = _views(self._flat_p, self._p_layout)
@@ -281,15 +334,6 @@ class FusedSymbolStep:
         aux_vals = [self._cast(self._aux[n]) for n in self._run_aux_names]
         return arg_vals, aux_vals
 
-    def forward(self, feed, training=False):
-        """The graph's outputs on the current params, without a gradient
-        or an update (training: batch statistics, no aux fold)."""
-        with torch.no_grad():
-            arg_vals, aux_vals = self._values(
-                self._on_device(self._inputs(feed)))
-            outs, _ = self._fwd(arg_vals, aux_vals, training)
-        return list(outs)
-
     def _forward_loss(self, vals):
         """The recorded forward. It differentiates fresh leaves that alias
         the masters (``detach``: no copy), made anew each step: autograd
@@ -321,40 +365,93 @@ class FusedSymbolStep:
         return dict(zip(names, grads))
 
     def _update(self, grad, aux_up, finite=None):
-        """The SGD update of the fp32 masters at the device lr scalar
-        times each group's lr_mult, and the aux fold. In place; with
-        ``finite`` (a 0-dim bool device tensor: the guard's verdict) the
-        new values go to scratch buffers laid out as the state, and one
-        select per buffer writes them, or keeps the old ones."""
+        """The optimizer update of the fp32 masters at the device lr
+        scalar times each group's lr_mult and the count ``t + 1``, the
+        aux fold, and ``t`` advanced. In place; with ``finite`` (a 0-dim
+        bool device tensor: the guard's verdict) the new values go to
+        scratch buffers laid out as the state, and one select per buffer
+        writes them, or keeps the old ones (``t`` advances either way).
+        The gradients ``grad`` are the step's own and may be written."""
         with torch.no_grad():
+            t1 = self._t + 1
+            kw = {"t": t1, "key": self._gen}
             new_aux = torch.cat([
                 (aux_up[n] if n in aux_up else self._aux[n]).reshape(-1)
                 for n in self.aux_names]).to(torch.float32) \
                 if self.aux_names else None
             if finite is None:
                 for (lr_mult, wd), ns in self._groups:
-                    self._fopt.update_([self._p[n] for n in ns],
-                                       [grad[n].float() for n in ns],
-                                       [self._state[n] for n in ns],
-                                       self._group_lr(lr_mult), wd)
+                    self._fopt.update_(*self._operands(grad, ns),
+                                       self._group_lr(lr_mult), wd,
+                                       donate_grads=True, **kw)
                 if new_aux is not None:
                     self._flat_aux.copy_(new_aux)
+                self._t.copy_(t1)
                 return
             new_p = torch.empty_like(self._flat_p)
             new_s = [torch.empty_like(b) for b in self._flat_state]
-            np_v = _views(new_p, self._p_layout)
-            ns_v = [_views(b, self._p_layout) for b in new_s]
             for (lr_mult, wd), ns in self._groups:
                 self._fopt.update_(
-                    [self._p[n] for n in ns], [grad[n].float() for n in ns],
-                    [self._state[n] for n in ns], self._group_lr(lr_mult),
-                    wd, out=([np_v[n] for n in ns],
-                             [tuple(v[n] for v in ns_v) for n in ns]))
+                    *self._operands(grad, ns), self._group_lr(lr_mult), wd,
+                    out=self._operands(None, ns, new_p, new_s)[::2],
+                    donate_grads=True, **kw)
             _select_(finite, new_p, self._flat_p)
             for new, old in zip(new_s, self._flat_state):
                 _select_(finite, new, old)
             if new_aux is not None:
                 _select_(finite, new_aux, self._flat_aux)
+            self._t.copy_(t1)
+
+    def _group_span(self, ns):
+        """(start, end) of the group ``ns`` in the flat buffers when the
+        rule is elementwise with parameter-shaped leaves and the group's
+        views tile the span in order (padding included), else None. A
+        rule written in place (sgd) takes a view per parameter: it makes
+        no temporary per operation, so gathering the gradients would
+        only add their copy."""
+        if not self._fopt.elementwise or self._fopt.inplace is not None \
+                or any(lay is not self._p_layout
+                       for lay in self._leaf_layouts):
+            return None
+        start = pos = self._p_layout[ns[0]][0]
+        for n in ns:
+            off, shape = self._p_layout[n]
+            if off != pos:
+                return None
+            pos = off + -(-math.prod(shape) // _ALIGN) * _ALIGN
+        return start, pos
+
+    def _operands(self, grad, ns, flat_p=None, flat_state=None):
+        """``update_``'s (params, grads, states) of group ``ns``: one
+        slice each of the flat buffers (``flat_p`` / ``flat_state``,
+        default the masters and the state) and the gradients gathered
+        into one padded buffer when ``_group_span`` allows it, else a
+        view per parameter. ``grad`` None leaves the gradients out."""
+        span = self._group_span(ns)
+        if span is not None:
+            flat_p = self._flat_p if flat_p is None else flat_p
+            flat_state = self._flat_state if flat_state is None \
+                else flat_state
+            a, b = span
+            gs = None
+            if grad is not None:
+                pieces = []
+                for n in ns:
+                    g = grad[n].float().reshape(-1)
+                    pieces.append(g)
+                    pad = -g.numel() % _ALIGN
+                    if pad:
+                        pieces.append(self._zpad[:pad])
+                gs = [torch.cat(pieces)]
+            return [flat_p[a:b]], gs, [tuple(x[a:b] for x in flat_state)]
+        gs = None if grad is None else [grad[n].float() for n in ns]
+        if flat_p is None:
+            return ([self._p[n] for n in ns], gs,
+                    [self._state[n] for n in ns])
+        pv = _views(flat_p, self._p_layout, ns)
+        sv = [_views(x, lay, ns) for x, lay in zip(flat_state,
+                                                   self._leaf_layouts)]
+        return pv, gs, [tuple(v[i] for v in sv) for i in range(len(ns))]
 
     def _group_lr(self, lr_mult):
         return self._lr if lr_mult == 1.0 else self._lr * lr_mult
@@ -391,7 +488,8 @@ class FusedSymbolStep:
 
     def apply(self, grad, aux_up, lr=None):
         """The optimizer update of the fp32 masters and the aux fold
-        (``lr``, when given, is written into the lr scalar first)."""
+        (``lr``, when given, is written into the lr scalar first); it
+        consumes ``grad``, whose tensors may be overwritten."""
         if lr is not None:
             self.set_lr(lr)
         self._update(grad, aux_up)
@@ -501,7 +599,9 @@ class FusedSymbolStep:
                                       device=self.device)
                        for n, v in vals.items()}
         try:
-            prog.capture(lambda: self._body(prog.static))
+            prog.capture(lambda: self._body(prog.static),
+                         generators=(self._gen,) if self._gen is not None
+                         else ())
         except Exception as e:
             raise MXNetError(f"capturing the fused step "
                              f"{prog.key.name} as a CUDA graph failed: "
@@ -673,9 +773,10 @@ class FusedSymbolStep:
                         f"saved optimizer state for '{n}' has {len(saved)} "
                         f"leaves, expected {len(cur)}: optimizer mismatch?")
                 for s, c in zip(saved, cur):
-                    c.copy_(torch.from_numpy(np.asarray(s)).reshape(
-                        c.shape))
+                    c.copy_(torch.from_numpy(np.array(s, np.float32))
+                            .reshape(c.shape))
         self.num_update = int(obj["num_update"])
+        self._t.fill_(self.num_update)
 
     def _program_key(self, sig):
         """The step program's key at one feed signature (the JAX

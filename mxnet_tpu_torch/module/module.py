@@ -2,22 +2,38 @@
 ``mxnet_tpu/module/module.py``; reference: python/mxnet/module/module.py
 — bind :363, init_optimizer :472, forward/backward/update :570-651).
 
-In the steady state (``init_optimizer`` with a local or no kvstore and
-``grad_req='write'``) forward, backward and update collapse into one
-``FusedSymbolStep`` per batch (module/fused.py): a training ``forward``
-stashes the batch, ``backward`` does nothing, and ``update`` runs the
-forward, the implicit-loss backward, the optimizer update and the
-BatchNorm aux fold, on the card as a captured CUDA graph. ``set_params``
-after ``init_optimizer`` copies into the step's master tensors, which a
-graph holds by address. ``update_metric`` after a fused training step
-counts the supported metrics inside the step (``metric_device.py``);
-eval forwards and other metrics take the host path.
-``save_checkpoint`` / ``Module.load`` and ``save_optimizer_states`` /
-``load_optimizer_states`` write and read the JAX package's files. The
-fused step is the only training path of the port:
-``fused=False`` (the eager per-parameter Updater loop), multiple
-contexts (the device mesh), distributed kvstores, ``group2ctxs`` and
-explicit ``out_grads`` are not ported and raise.
+``bind`` binds an ``executor.Executor`` (``Symbol.simple_bind``): the
+params, their gradients and the aux states are its arrays, and
+``get_params`` hands out their tensors. Two training regimes, as in the
+JAX package:
+
+- the fused step (``fused=None`` or ``True`` with grad_req ``'write'``
+  and no ``inputs_need_grad``): forward, backward and update collapse
+  into one ``FusedSymbolStep`` per batch (module/fused.py). A training
+  ``forward`` stashes the batch, ``backward`` does nothing, and
+  ``update`` runs the forward, the implicit-loss backward, the
+  optimizer update (any rule of ``parallel/functional_opt.py``) and the
+  BatchNorm aux fold, on the card as a captured CUDA graph. The step
+  owns fp32 masters; the executor's arrays are synced from them when
+  they are read (``get_params``, an eval forward). ``backward(out_grads=
+  ...)`` leaves the fused regime before the first update (a warning)
+  and raises after it. ``update_metric`` after a fused step counts the
+  supported metrics inside the step (``metric_device.py``);
+- the eager loop (``fused=False``, grad_req ``'add'`` / ``'null'``,
+  ``inputs_need_grad``): ``forward`` / ``backward`` run the executor's
+  programs (captured CUDA graphs on the card), and ``update`` calls the
+  ``optimizer.Updater`` on each parameter, which writes the new weight
+  into the executor's array in place.
+
+An eval ``forward`` runs the executor's captured eval program in both
+regimes. A batch of another shape reshapes the executor. ``Monitor``
+(``install_monitor``) taps the executor; in the fused regime a monitored
+batch also runs the executor's forward and backward at the pre-update
+params, and the params are synced after the step. ``save_checkpoint`` /
+``Module.load`` and ``save_optimizer_states`` / ``load_optimizer_states``
+write and read the JAX package's files (the fused step's pickle, or the
+Updater's). Multiple contexts (the device mesh), distributed kvstores,
+``group2ctxs`` and ``state_names`` are not ported and raise.
 
 Device: ``context`` is a ``torch.device``, a device string or a list of
 one. Without one the Module runs on ``cuda:0`` and raises when CUDA is
@@ -64,7 +80,8 @@ def _as_tensor(name, v):
 
 
 class Module(BaseModule):
-    """A bound symbol trained with a fused step.
+    """A symbol bound to an Executor, trained by the fused step or the
+    eager Updater loop.
 
     Parameters
     ----------
@@ -72,8 +89,10 @@ class Module(BaseModule):
     data_names, label_names : sequences of input names
     context : torch.device, str or a list of one; default ``cuda:0``
     fixed_param_names : params that are not updated
-    fused : None or True (the fused step); False raises
-    compute_dtype : e.g. "bfloat16": fp32 master weights, the step in bf16
+    fused : None (the fused step when the configuration allows it), True
+        (the fused step, or raise) or False (the eager Updater loop)
+    compute_dtype : e.g. "bfloat16": the fused step's compute dtype (fp32
+        master weights)
     """
 
     def __init__(self, symbol, data_names=("data",),
@@ -89,15 +108,12 @@ class Module(BaseModule):
                     "(data parallelism over several cards) is not ported")
             context = context[0]
         self._device = as_device(context)
-        if fused is False:
-            raise NotImplementedError(
-                "Module(fused=False): the eager per-parameter update path "
-                "is not ported; the fused step is the training path")
         if group2ctxs or state_names or \
                 (work_load_list is not None and len(set(work_load_list)) > 1):
             raise NotImplementedError(
                 "group2ctxs, state_names and uneven work_load_list are not "
                 "ported")
+        self._fused_requested = fused
         self._compute_dtype = compute_dtype
         self._symbol = symbol
         self._data_names = list(data_names) if data_names is not None \
@@ -114,13 +130,17 @@ class Module(BaseModule):
                              if x not in input_names]
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
+        self._exec = None
         self._arg_params = None
         self._aux_params = None
         self._optimizer = None
+        self._updater = None
         self._fused = None
         self._feed = None
         self._outputs = []
         self._outputs_from_step = False
+        self._params_dirty = False
+        self._monitor = None
         self._loaded_params = None
         self._preload_opt_states = None
         self._shapes = None
@@ -154,18 +174,33 @@ class Module(BaseModule):
             self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
 
     def save_optimizer_states(self, fname):
-        """The fused step's optimizer state (``get_states``' bytes)
-        through ``base.atomic_write``."""
+        """The fused step's optimizer state (``get_states``' bytes), or
+        the Updater's, through ``base.atomic_write``."""
         assert self.optimizer_initialized
         with atomic_write(fname) as fout:
-            fout.write(self._fused.get_states())
+            fout.write(self._fused.get_states() if self._fused is not None
+                       else self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """Load a ``save_optimizer_states`` file (either package's)."""
         assert self.optimizer_initialized
         with open(fname, "rb") as f:
-            self._fused.set_states(f.read())
-        self._optimizer.num_update = self._fused.num_update
+            self._set_opt_states(f.read())
+
+    def _opt_states_snapshot(self):
+        """The optimizer state on the host, unpickled (a checkpoint
+        pickles it with its other files)."""
+        if self._fused is not None:
+            return self._fused.states_snapshot()
+        return opt.loads_states(self._updater.get_states())
+
+    def _set_opt_states(self, states):
+        """Load optimizer state (bytes or the unpickled object)."""
+        if self._fused is not None:
+            self._fused.set_states(states)
+            self._optimizer.num_update = self._fused.num_update
+        else:
+            self._updater.set_states(states, device=self._device)
 
     # -- properties -----------------------------------------------------------
     @property
@@ -199,32 +234,37 @@ class Module(BaseModule):
 
     @property
     def pass_report(self):
-        """The train-mode rewrite pipeline's report (after
-        ``init_optimizer``)."""
-        return self._fused.pass_report if self._fused is not None else None
+        """The train-mode rewrite pipeline's report: the fused step's
+        (after ``init_optimizer``), else the executor's."""
+        if self._fused is not None:
+            return self._fused.pass_report
+        return self._exec.pass_report if self._exec is not None else None
 
     # -- bind -----------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        """Fix the input shapes and infer every param and aux shape."""
+        """Bind an Executor for the input shapes: every param, gradient
+        and aux array allocated on the device (``shared_module``: its
+        argument arrays are shared)."""
         if force_rebind:
+            self._exec = None
             self.binded = False
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
-        if inputs_need_grad or shared_module is not None:
-            raise NotImplementedError(
-                "inputs_need_grad and shared_module are not ported")
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         self._data_shapes = _norm_shapes(data_shapes)
         self._label_shapes = _norm_shapes(label_shapes)
         self._grad_req = grad_req if for_training else "null"
-        arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+        shared_buffer = shared_module._exec.arg_dict \
+            if shared_module is not None else None
+        self._exec = self._symbol.simple_bind(
+            ctx=self._device, grad_req=self._grad_req,
+            shared_buffer=shared_buffer,
             **dict(self._data_shapes + self._label_shapes))
-        self._shapes = dict(zip(self._symbol.list_arguments(),
-                                map(tuple, arg_shapes)))
-        self._shapes.update(zip(self._aux_names, map(tuple, aux_shapes)))
+        self._bind_arrays()
         self.binded = True
         if self._loaded_params is not None:
             args, auxs = self._loaded_params
@@ -232,6 +272,31 @@ class Module(BaseModule):
             self.params_initialized = False
             self.init_params(initializer=None, arg_params=args,
                              aux_params=auxs)
+        if shared_module is not None and shared_module.params_initialized:
+            _, aux = shared_module.get_params()
+            with torch.no_grad():
+                for n, v in aux.items():
+                    self._aux_params[n].copy_(v)
+            self.params_initialized = True
+
+    def _bind_arrays(self):
+        """The params and aux are the executor's arrays' tensors."""
+        ex = self._exec
+        self._shapes = {n: tuple(a.shape) for n, a in
+                        list(ex.arg_dict.items()) + list(ex.aux_dict.items())}
+        self._arg_params = {n: ex.arg_dict[n]._data
+                            for n in self._param_names}
+        self._aux_params = {n: ex.aux_dict[n]._data for n in self._aux_names}
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind the executor to new input shapes, sharing the params
+        (reference: module.py:448)."""
+        assert self.binded
+        self._data_shapes = _norm_shapes(data_shapes)
+        self._label_shapes = _norm_shapes(label_shapes)
+        self._exec = self._exec.reshape(
+            **dict(self._data_shapes + self._label_shapes))
+        self._bind_arrays()
 
     # -- params ---------------------------------------------------------------
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
@@ -247,13 +312,6 @@ class Module(BaseModule):
         assert self.binded, "call bind before initializing the parameters"
         if initializer is None and (arg_params is None or not force_init):
             initializer = init_mod.Uniform(0.01)
-        if self._arg_params is None:
-            self._arg_params = {
-                n: torch.zeros(self._shapes[n], device=self._device)
-                for n in self._param_names}
-            self._aux_params = {
-                n: torch.zeros(self._shapes[n], device=self._device)
-                for n in self._aux_names}
         attrs = self._symbol.attr_dict()
 
         def _impl(name, arr, cache):
@@ -277,19 +335,28 @@ class Module(BaseModule):
             for name, arr in sorted(self._aux_params.items()):
                 _impl(name, arr, aux_params)
         self.params_initialized = True
+        self._params_dirty = False
         if self._fused is not None and self._fused.started:
             self._fused.load_params(self._arg_params, self._aux_params)
 
-    def get_params(self):
-        """(arg_params, aux_params): {name: fp32 tensor on the device}."""
-        assert self.binded and self.params_initialized
-        if self._fused is not None and self._fused.started:
+    def _sync_params(self):
+        """After fused steps: the masters and aux into the executor's
+        arrays."""
+        if self._params_dirty and self._fused is not None and \
+                self._fused.started:
             args, aux = self._fused.params()
             with torch.no_grad():
                 for n, v in args.items():
                     self._arg_params[n].copy_(v)
                 for n, v in aux.items():
                     self._aux_params[n].copy_(v)
+        self._params_dirty = False
+
+    def get_params(self):
+        """(arg_params, aux_params): {name: fp32 tensor on the device},
+        the executor's arrays."""
+        assert self.binded and self.params_initialized
+        self._sync_params()
         return self._arg_params, self._aux_params
 
     # -- optimizer ------------------------------------------------------------
@@ -297,8 +364,9 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """Create the optimizer (``rescale_grad`` = 1/batch unless given)
-        and start the fused step: the train-mode rewrite passes run on
-        the bound shapes here."""
+        and its Updater, and start the fused step when the configuration
+        allows it: the train-mode rewrite passes run on the bound shapes
+        there."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
@@ -322,29 +390,67 @@ class Module(BaseModule):
                 "(%s vs. %s). Is this intended?", optimizer.rescale_grad,
                 rescale_grad)
         self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
         self._maybe_init_fused()
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def _grad_req_of(self, name):
+        return self._exec.grad_req.get(name, "null")
+
     def _maybe_init_fused(self):
-        """Start the fused step (module/fused.py); the configurations it
-        cannot run raise, as ``Module(fused=True)`` does in the JAX
-        package."""
+        """Start the fused step (module/fused.py) unless ``fused=False``
+        or the configuration needs the eager loop; with ``fused=True``
+        such a configuration raises, as in the JAX package."""
+        if self._fused_requested is False:
+            return
+        blockers = []
         if self._grad_req != "write":
-            raise NotImplementedError(
-                f"grad_req={self._grad_req!r}: the fused step writes "
-                "gradients ('write') only")
+            blockers.append(f"grad_req={self._grad_req!r}")
+        if self.inputs_need_grad:
+            blockers.append("inputs_need_grad")
+        if blockers:
+            if self._fused_requested:
+                raise MXNetError(
+                    f"Module(fused=True) impossible with: {blockers}")
+            return
         from .fused import FusedSymbolStep
-        trainable = {n: n not in self._fixed_param_names
+        trainable = {n: self._grad_req_of(n) != "null"
+                     and n not in self._fixed_param_names
                      for n in self._param_names}
-        self._fused = FusedSymbolStep(
-            self._symbol, self._data_names, self._label_names,
-            self._param_names, self._aux_names, trainable, self._optimizer,
-            compute_dtype=self._compute_dtype, device=self._device)
+        try:
+            self._fused = FusedSymbolStep(
+                self._symbol, self._data_names, self._label_names,
+                self._param_names, self._aux_names, trainable,
+                self._optimizer, compute_dtype=self._compute_dtype,
+                device=self._device)
+        except ValueError as e:
+            # an optimizer class without a functional rule
+            if self._fused_requested:
+                raise
+            self._fused = None
+            self.logger.warning(
+                "fused Module step unavailable (%s); training with the "
+                "eager per-parameter update loop", e)
+            return
         self._fused.start(self._arg_params, self._aux_params,
                           dict(self._data_shapes + self._label_shapes))
+
+    def _degrade_fused(self, what):
+        """Leave the fused regime for a call it cannot run: a warning
+        before the first update, an error after it (the optimizer state
+        cannot be handed to the Updater mid-run)."""
+        if self._fused is None:
+            return
+        if self._fused.num_update > 0:
+            raise MXNetError(
+                f"{what} is incompatible with the fused update path once "
+                "training has begun; construct Module(..., fused=False)")
+        self.logger.warning(
+            "%s disables the fused update path; using the eager loop", what)
+        self._fused = None
 
     # -- compute --------------------------------------------------------------
     def _batch_feed(self, data_batch):
@@ -354,48 +460,64 @@ class Module(BaseModule):
         if self._label_shapes and data_batch.label:
             for (name, _), arr in zip(self._label_shapes, data_batch.label):
                 feed[name] = arr
-        for name, v in feed.items():
-            if tuple(v.shape) != self._shapes[name]:
-                raise MXNetError(
-                    f"input '{name}' has shape {tuple(v.shape)}, bound "
-                    f"{self._shapes[name]} (reshape is not ported)")
         return feed
 
+    def _reshape_for(self, feed):
+        """Reshape the executor when the batch's shapes differ from the
+        bound ones."""
+        if all(tuple(v.shape) == self._shapes[n] for n, v in feed.items()):
+            return
+        new = {n: tuple(v.shape) for n, v in feed.items()}
+        self.reshape([(n, new.get(n, s)) for n, s in self._data_shapes],
+                     [(n, new.get(n, s)) for n, s in self._label_shapes])
+
     def forward(self, data_batch, is_train=None):
-        """A training forward stashes the batch for ``update``; an eval
-        forward runs the rewritten graph with the moving statistics.
-        Both need the fused step, so come after ``init_optimizer``."""
+        """A training forward in the fused regime stashes the batch for
+        ``update``; otherwise the executor runs its forward (captured
+        on the card), an eval forward with the moving statistics."""
         assert self.binded and self.params_initialized
-        if self._fused is None:
-            raise MXNetError("forward before init_optimizer: the port runs "
-                             "the graph through the fused step, which "
-                             "init_optimizer starts")
         if is_train is None:
             is_train = self.for_training
         feed = self._batch_feed(data_batch)
+        self._reshape_for(feed)
         self._outputs = []
         self._outputs_from_step = False
-        if is_train:
-            self._feed = feed
-            return
         self._feed = None
-        for n in self._label_names:
-            feed.setdefault(n, torch.zeros(self._shapes[n]))
-        self._outputs = self._fused.forward(feed, training=False)
+        if is_train and self._fused is not None:
+            self._feed = feed
+            mon = self._monitor
+            if mon is not None and mon.activated:
+                # a monitored batch: the tapped forward and backward at
+                # the pre-update params (observation only)
+                self._sync_params()
+                self._exec.forward(is_train=True, **feed)
+                self._exec.backward()
+            return
+        self._sync_params()
+        self._exec.forward(is_train=is_train, **feed)
+        self._outputs = [o._data for o in self._exec.outputs]
 
     def backward(self, out_grads=None):
-        """The implicit-loss backward runs inside ``update``'s fused
-        step; explicit ``out_grads`` are not ported."""
+        """The executor's backward; in the fused regime the implicit-loss
+        backward runs inside ``update``'s step, and ``out_grads`` leave
+        the regime (``_degrade_fused``)."""
         assert self.binded and self.params_initialized
-        if out_grads is not None:
-            raise NotImplementedError(
-                "backward(out_grads=...) is not ported; the fused step "
-                "differentiates the graph's implicit losses")
+        if self._fused is not None and out_grads is not None:
+            self._degrade_fused("backward(out_grads=...)")
+        if self._fused is not None and self._feed is not None:
+            return
+        if self._fused is None and self._feed is not None:
+            # just left the fused regime with a batch pending
+            self._exec.forward(is_train=True, **self._feed)
+            self._feed = None
+        self._exec.backward(out_grads=out_grads)
+        self._outputs = [o._data for o in self._exec.outputs]
 
     def update(self):
-        """Run the fused step on the stashed training batch: the
-        schedule's learning rate goes into the step's device scalar,
-        then the step runs (a CUDA graph replay on the card)."""
+        """The fused step on the stashed training batch (the schedule's
+        learning rate goes into the step's device scalar, then the step
+        runs: a CUDA graph replay on the card); in the eager regime the
+        Updater on every trainable parameter."""
         self._update()
 
     def _update(self, eager=False):
@@ -403,6 +525,14 @@ class Module(BaseModule):
         in place of the graph (an A/B of the two on one tree)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
+        if self._fused is None:
+            for i, name in enumerate(self._param_names):
+                if self._grad_req_of(name) == "null" or \
+                        name in self._fixed_param_names:
+                    continue
+                self._updater(i, self._exec.grad_dict[name],
+                              self._exec.arg_dict[name])
+            return
         if self._feed is None:
             raise MXNetError(
                 "update() without a pending training forward; call "
@@ -415,16 +545,30 @@ class Module(BaseModule):
         self._outputs = step(self._feed)
         self._outputs_from_step = True
         self._feed = None
+        self._params_dirty = True
         o.num_update = self._fused.num_update
+        if self._monitor is not None and self._monitor.activated:
+            # Monitor.toc reads the executor's arrays: the post-step
+            # params
+            self._sync_params()
 
     def get_outputs(self, merge_multi_context=True):
-        """The last step's (or eval forward's) outputs; between a
-        training forward and ``update``, a forward with batch statistics
-        on the current params."""
+        """The last step's (or forward's) outputs as tensors; between a
+        fused training forward and ``update``, a training forward of the
+        executor on the current params."""
         assert self.binded and self.params_initialized
         if not self._outputs and self._feed is not None:
-            self._outputs = self._fused.forward(self._feed, training=True)
+            self._sync_params()
+            self._exec.forward(is_train=True, **self._feed)
+            self._outputs = [o._data for o in self._exec.outputs]
         return self._outputs
+
+    def get_input_grads(self, merge_multi_context=True):
+        """The gradients of the data inputs (``bind(inputs_need_grad=
+        True)``), as tensors."""
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return [self._exec.grad_dict[n]._data for n in self._data_names]
 
     def update_metric(self, eval_metric, labels):
         """Update ``eval_metric`` with ``labels`` and the outputs. After a
@@ -441,3 +585,11 @@ class Module(BaseModule):
                 return
         eval_metric.update_dict(
             label_dict, dict(zip(self._output_names, self.get_outputs())))
+
+    def install_monitor(self, mon):
+        """Attach a Monitor to the executor. In the fused regime the
+        batches inside its interval also run the executor's tapped
+        forward and backward; the others stay on the captured step."""
+        assert self.binded
+        self._monitor = mon
+        mon.install(self._exec)

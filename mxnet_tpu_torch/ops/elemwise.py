@@ -73,3 +73,9 @@ _SCALAR = {
 for _name, _fn in _SCALAR.items():
     register_op(_name, aliases=[_name.lstrip("_")])(
         (lambda f: lambda data, scalar=0.0, **kw: f(data, scalar))(_fn))
+
+
+@register_op("Cast", aliases=["cast"])
+def cast(data, dtype="float32", **kw):
+    from ..dtype import resolve_dtype
+    return data.to(resolve_dtype(dtype))

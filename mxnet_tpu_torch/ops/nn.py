@@ -176,6 +176,29 @@ def softmax_output(data, label=None, grad_scale=1.0, ignore_label=-1.0,
     return torch.softmax(data, dim=1 if multi_output else -1)
 
 
+@register_op("SVMOutput")
+def svm_output(data, label=None, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False, **kw):
+    """Forward of SVMOutput: the scores; its hinge backward is an
+    implicit loss (``executor._IMPLICIT_LOSS``)."""
+    return data
+
+
+@register_op("LinearRegressionOutput")
+def linear_regression_output(data, label=None, grad_scale=1.0, **kw):
+    return data
+
+
+@register_op("MAERegressionOutput")
+def mae_regression_output(data, label=None, grad_scale=1.0, **kw):
+    return data
+
+
+@register_op("LogisticRegressionOutput")
+def logistic_regression_output(data, label=None, grad_scale=1.0, **kw):
+    return torch.sigmoid(data)
+
+
 def softmax_output_loss(data, label, grad_scale=1.0, ignore_label=-1.0,
                         use_ignore=False, multi_output=False,
                         normalization="null", smooth_alpha=0.0, **kw):

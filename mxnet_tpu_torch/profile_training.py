@@ -72,18 +72,23 @@ def card():
         check=True).stdout.strip().splitlines()[0]
 
 
-def build_module(batch, seed=0, compute_dtype="bfloat16", device="cuda:0"):
-    """``bench.py main()``'s Module on the port, bound at ``batch``."""
+SGD_PARAMS = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def build_module(batch, seed=0, compute_dtype="bfloat16", device="cuda:0",
+                 optimizer="sgd", optimizer_params=None, fused=None):
+    """``bench.py main()``'s Module on the port, bound at ``batch``
+    (another ``optimizer`` or ``fused`` regime when given)."""
     sym = resnet.get_symbol(1000, 50, "3,224,224", stem="s2d")
-    m = mod.Module(sym, context=device, compute_dtype=compute_dtype)
+    m = mod.Module(sym, context=device, compute_dtype=compute_dtype,
+                   fused=fused)
     m.bind(data_shapes=[("data", (batch, 3, 224, 224))],
            label_shapes=[("softmax_label", (batch,))])
     m.init_params(initializer.Xavier(rnd_type="gaussian", factor_type="in",
                                      magnitude=2),
                   generator=torch.Generator().manual_seed(seed))
-    m.init_optimizer(kvstore=None, optimizer="sgd",
-                     optimizer_params={"learning_rate": 0.1,
-                                       "momentum": 0.9, "wd": 1e-4})
+    m.init_optimizer(kvstore=None, optimizer=optimizer,
+                     optimizer_params=dict(optimizer_params or SGD_PARAMS))
     return m
 
 

@@ -10,6 +10,10 @@ OP_INPUTS = {
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
     "SoftmaxOutput": (["data", "label"], []),
     "Softmax": (["data", "label"], []),
+    "LinearRegressionOutput": (["data", "label"], []),
+    "LogisticRegressionOutput": (["data", "label"], []),
+    "MAERegressionOutput": (["data", "label"], []),
+    "SVMOutput": (["data", "label"], []),
     "Activation": (["data"], []),
     "Pooling": (["data"], []),
     "Flatten": (["data"], []),

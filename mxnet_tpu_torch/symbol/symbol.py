@@ -8,13 +8,16 @@ each op on ``meta`` tensors (the JAX package uses ``jax.eval_shape``).
 ``eval_arrays`` is the eval-mode graph walk over torch tensors;
 ``eval_arrays_ex`` walks in either mode and returns the BatchNorm
 running-statistics fold (``_bn_aux_updates``) beside the outputs.
-Executors, segmented evaluation and device placement are not ported.
+``simple_bind`` / ``bind`` give a bound ``executor.Executor``; ``eval``
+binds and runs a forward. Segmented evaluation and device placement
+(``group2ctx``) are not ported.
 """
 from __future__ import annotations
 
 import itertools
 import json
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -120,13 +123,138 @@ class Symbol:
             return [name for s in self._group for name in s.list_outputs()]
         return [self.output_name]
 
+    def get_internals(self):
+        """A group over every node output."""
+        outs = []
+        for node in self._topo_nodes():
+            for i in range(node.num_outputs):
+                outs.append(Symbol(node, i))
+        return Group(outs)
+
+    def get_children(self):
+        if not self._node.inputs:
+            return None
+        return Group([Symbol(p, i) for p, i in self._node.inputs])
+
+    def __getitem__(self, index):
+        if self._group is not None:
+            if isinstance(index, str):
+                for s in self._group:
+                    if index in (s.name, s.output_name):
+                        return s
+                raise ValueError(f"no output named {index}")
+            return self._group[index]
+        if isinstance(index, str):
+            return self.get_internals()[index]
+        outs = [Symbol(self._node, i)
+                for i in range(self._node.num_outputs)]
+        return outs[index]
+
+    def __iter__(self):
+        if self._group is not None:
+            return iter(self._group)
+        return iter([Symbol(self._node, i)
+                     for i in range(self._node.num_outputs)])
+
+    def __len__(self):
+        if self._group is not None:
+            return len(self._group)
+        return self._node.num_outputs
+
     # -- composition ----------------------------------------------------------
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("the port adds symbols only (scalar ops are "
-                             "not ported yet)")
+    def _binop(self, op_name, other, rev=False):
         from . import _symbol_op
-        return _symbol_op("broadcast_add", [self, other], {})
+        if isinstance(other, Symbol):
+            a, b = (other, self) if rev else (self, other)
+            return _symbol_op(op_name, [a, b], {})
+        scalar_ops = {
+            "broadcast_add": "_plus_scalar", "broadcast_sub":
+            ("_rminus_scalar" if rev else "_minus_scalar"),
+            "broadcast_mul": "_mul_scalar", "broadcast_div":
+            ("_rdiv_scalar" if rev else "_div_scalar"),
+            "broadcast_power":
+            ("_rpower_scalar" if rev else "_power_scalar"),
+        }
+        return _symbol_op(scalar_ops[op_name], [self], {"scalar": other})
+
+    def __add__(self, other):
+        return self._binop("broadcast_add", other)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop("broadcast_sub", other)
+
+    def __rsub__(self, other):
+        return self._binop("broadcast_sub", other, rev=True)
+
+    def __mul__(self, other):
+        return self._binop("broadcast_mul", other)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop("broadcast_div", other)
+
+    def __rtruediv__(self, other):
+        return self._binop("broadcast_div", other, rev=True)
+
+    def __pow__(self, other):
+        return self._binop("broadcast_power", other)
+
+    def __neg__(self):
+        from . import _symbol_op
+        return _symbol_op("negative", [self], {})
+
+    def _unop(self, op_name, **attrs):
+        from . import _symbol_op
+        return _symbol_op(op_name, [self],
+                          {k: v for k, v in attrs.items() if v is not None})
+
+    def reshape(self, *shape, **kwargs):
+        if "shape" in kwargs:
+            shape = kwargs.pop("shape")
+        elif len(shape) == 1:
+            shape = shape[0]
+        if isinstance(shape, int):
+            shape = (shape,)
+        return self._unop("Reshape", shape=tuple(shape), **kwargs)
+
+    def flatten(self):
+        return self._unop("Flatten")
+
+    def transpose(self, axes=None):
+        return self._unop("transpose", axes=axes)
+
+    def swapaxes(self, dim1, dim2):
+        return self._unop("SwapAxis", dim1=dim1, dim2=dim2)
+
+    def expand_dims(self, axis):
+        return self._unop("expand_dims", axis=axis)
+
+    def squeeze(self, axis=None):
+        return self._unop("squeeze", axis=axis)
+
+    def astype(self, dtype):
+        return self._unop("Cast", dtype=str(np.dtype(dtype)))
+
+    def sum(self, axis=None, keepdims=False):
+        return self._unop("sum", axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._unop("mean", axis=axis, keepdims=keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._unop("max", axis=axis, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._unop("min", axis=axis, keepdims=keepdims)
+
+    def clip(self, a_min, a_max):
+        return self._unop("clip", a_min=a_min, a_max=a_max)
+
+    def slice_axis(self, axis, begin, end):
+        return self._unop("slice_axis", axis=axis, begin=begin, end=end)
 
     def _output_symbols(self):
         return list(self._group) if self._group is not None else [self]
@@ -177,7 +305,7 @@ class Symbol:
         return ups
 
     def eval_arrays_ex(self, arg_arrays, training=False, preset=None,
-                       capture=()):
+                       capture=(), internals=None):
         """Evaluate the outputs from tensors for every variable; returns
         ``(outputs, aux_updates, captured)``.
 
@@ -189,7 +317,8 @@ class Symbol:
         subgraph, so variables only reachable through it need not be in
         ``arg_arrays``. ``capture``: (node, out_idx) pairs whose values
         are returned in ``captured``, in order (the implicit-loss heads'
-        inputs)."""
+        inputs). ``internals``: a dict filled with every op node's
+        outputs by output name (the Monitor's interpreted walk)."""
         cache = dict(preset) if preset else {}
         aux_updates = {}
 
@@ -207,6 +336,9 @@ class Symbol:
             outs, attrs = Symbol._apply_node_op(node, ins, training)
             for i, o in enumerate(outs):
                 cache[(id(node), i)] = o
+                if internals is not None:
+                    suffix = "_output" if i == 0 else f"_output{i}"
+                    internals[node.name + suffix] = o
             aux_updates.update(Symbol._bn_aux_updates(
                 node, outs, attrs, training, lambda p: node_out(p, 0)))
             return cache[key]
@@ -295,6 +427,74 @@ class Symbol:
             try_node(node)
         return shapes, node_out_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """Every argument, output and aux state is fp32, as in the JAX
+        package."""
+        dt = np.float32
+        return ([dt] * len(self.list_arguments()),
+                [dt] * len(self._output_symbols()),
+                [dt] * len(self.list_auxiliary_states()))
+
+    # -- binding -------------------------------------------------------------
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **kwargs):
+        """Allocate fp32 arrays for the shapes inferred from ``kwargs``
+        on ``ctx`` (default ``cuda:0``) and bind them: gradients unless
+        ``grad_req`` is ``'null'``. Arrays named in ``shared_buffer`` are
+        taken from it (the rest go into it)."""
+        from ..executor import Executor
+        from ..ndarray import NDArray
+        from ..context import as_device
+        if group2ctx:
+            raise NotImplementedError("group2ctx placement is not ported")
+        dev = as_device(ctx)
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+
+        def _alloc(shape):
+            return NDArray(torch.zeros(shape, dtype=torch.float32,
+                                       device=dev))
+
+        args = {}
+        for n, sh in zip(self.list_arguments(), arg_shapes):
+            if shared_buffer is not None and n in shared_buffer and \
+                    tuple(shared_buffer[n].shape) == tuple(sh):
+                args[n] = shared_buffer[n]
+            else:
+                args[n] = _alloc(sh)
+                if shared_buffer is not None:
+                    shared_buffer[n] = args[n]
+        reqs = grad_req if isinstance(grad_req, dict) else \
+            {n: grad_req for n in args}
+        grads = {n: _alloc(sh) for n, sh in zip(self.list_arguments(),
+                                                 arg_shapes)
+                 if reqs.get(n, "null") != "null"}
+        aux = {n: _alloc(sh) for n, sh in
+               zip(self.list_auxiliary_states(), aux_shapes)}
+        return Executor(self, dev, args, grads, grad_req, aux)
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """Bind the given arrays (dicts by name, or lists in
+        ``list_arguments`` / ``list_auxiliary_states`` order)."""
+        from ..executor import Executor
+        from ..context import as_device
+        if group2ctx:
+            raise NotImplementedError("group2ctx placement is not ported")
+        arg_names = self.list_arguments()
+        if isinstance(args, (list, tuple)):
+            args = dict(zip(arg_names, args))
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(arg_names, args_grad))
+        if isinstance(aux_states, (list, tuple)):
+            aux_states = dict(zip(self.list_auxiliary_states(), aux_states))
+        return Executor(self, as_device(ctx), args or {}, args_grad,
+                        grad_req, aux_states or {})
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` with no gradient and run one forward."""
+        return self.bind(ctx, kwargs, grad_req="null").forward()
+
     # -- serialization (MXNet JSON graph format) ------------------------------
     def tojson(self):
         """Serialize to the JSON graph format the JAX package writes."""
@@ -350,11 +550,14 @@ def _hint_param_shapes(node, in_shapes, attrs):
         c = data_shape[int(attrs.get("axis", 1))]
         want = {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
                 "moving_var": (c,)}
-    elif node.op in ("SoftmaxOutput", "Softmax"):
+    elif node.op in ("SoftmaxOutput", "Softmax", "SVMOutput"):
         if attrs.get("multi_output"):
             want = {"label": (data_shape[0],) + tuple(data_shape[2:])}
         else:
             want = {"label": tuple(data_shape[:-1])}
+    elif node.op in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                     "MAERegressionOutput"):
+        want = {"label": tuple(data_shape)}
     else:
         return None
     hints = {}
