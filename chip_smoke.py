@@ -214,9 +214,47 @@ script exits non-zero and prints no result. Phases:
    1023) and verify step (at 512), with D1's launch swapped to the
    Triton form while they are captured, against the same programs on
    D1, in turns (Triton, D1, D1, Triton).
+17c. lm_fit (slice 11, ``bench.py:401-440`` at its own sizes): the
+   corpus's next-char windows of 16, ``np.random.seed(7)``, a shuffled
+   ``NDArrayIter`` of 32; ``build_symbol`` of the target
+   (``TransformerLMSpec(28, 128, 8 heads, 4 layers, 64)``, 4 epochs) and
+   of the draft (``make_draft_spec(spec, 2, 4)``, 6 epochs) through
+   ``Module.fit`` on cuda:0 with Adam lr 3e-3, Xavier and
+   ``Accuracy(axis=2)`` counted in the captured step: each accuracy at
+   least the JAX package's CPU fit's less 0.05 (``LM_JAX_ACC``), ms a
+   step, one capture and one retrace (the metric attach) per fit, the
+   steps between metric reads under ``set_sync_debug_mode("error")``;
+   then (after lm_serve) three replays of each step against three eager
+   steps of the same step: masters, both moments and ``t`` bit-identical
+   or within twice the eager spread.
+17d. lm_serve: ``DecodePredictor.from_module`` on the fitted target
+   streams 16 prompts equal to a predictor of cloned weights; one more
+   training step of the Module leaves them unchanged; the Module's
+   captured eval forward against the prompt program (``_prefill``) at
+   every position of 4 windows (probabilities within
+   ``LM_EVAL_PROB_LIMIT``, greedy tokens equal where the top-2 logit gap
+   exceeds ``F64_MARGIN``).
+17e. lm_spec (``bench.py:431-470``): ``SpecDecodePredictor`` of the
+   fitted pair (slots 8, buckets (16, 32), k = 4) against the plain
+   predictor: streams bit for bit, tokens/s and TTFT p99 at 1 and 8
+   clients, accepted tokens per verify round above 1.5, D1's launches
+   (W = 5 in the verify steps) counted from replays; then
+   ``distill_draft`` at its defaults and its draft's acceptance.
+17f. lm_full: ``build_symbol(TransformerLMSpec(**GPT2_SMALL), 1024)`` at
+   batch 8 (nothing else cut), fp32 without TF32, Adam lr 3e-4: one
+   step's loss and gradients at batch 2 against the float64 plain walk
+   (limits from the fp32 plain walk's own error), a probe whose mask
+   shows each position its successor must fail it; ``Module.fit`` over
+   4 staged batches of random ids (eager, capture, replay), replays
+   against eager steps, 10 timed replays (events, tokens/s, memory), a
+   device trace (busy share, top kernels, the foreach kernels' share),
+   ``from_module``'s prefill token of a 512-token prompt against the
+   eval forward's argmax, ``CausalSelfAttention`` forward + backward
+   beside SDPA's (a yardstick), Embedding's gradient bit for bit twice.
+   ``slice11_seconds`` gives each phase's seconds.
 18. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``
-   and ``fused_adam`` launches, D1 with its decode_serving launches),
-   then the result line.
+   and ``fused_adam`` launches, D1 with its decode_serving launches and
+   its ``lm_spec`` launches), then the result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
@@ -2187,7 +2225,7 @@ def four_batches(mt, batches):
     as bench.py's phase A2 cycles its batches."""
     class _Staged(mt.io.DataIter):
         def __init__(self):
-            super().__init__(batch_size=TRAIN_BATCH)
+            super().__init__(batch_size=int(batches[0].data[0].shape[0]))
             self.i = 0
             self.provide_data = [mt.io.DataDesc(
                 "data", tuple(batches[0].data[0].shape))]
@@ -2205,6 +2243,38 @@ def four_batches(mt, batches):
     return _Staged()
 
 
+def fit_callback(torch, n_batches, epochs, frequent, speedo, sync_window):
+    """A ``fit`` batch-end callback around ``speedo`` (which reads the
+    metric every ``frequent`` batches): from batch ``frequent`` of epoch
+    0 on, with ``sync_window``, every step between two metric reads runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync
+    there raises. Returns (callback, epoch end times, [steps run in the
+    window], CUDA events of the last epoch's steps)."""
+    marks, window, events = [], [0], []
+
+    def on_batch(param):
+        last = param.nbatch == n_batches - 1
+        if torch.cuda.get_sync_debug_mode() == 2:
+            window[0] += 1
+        if param.epoch == epochs - 1:
+            # one event a step on the card's clock (no sync)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        # the metric is read at the Speedometer interval and (after the
+        # last batch) by the epoch log: syncs are allowed there
+        if last or param.nbatch % frequent == 0:
+            torch.cuda.set_sync_debug_mode(0)
+        speedo(param)
+        if last:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        elif sync_window and (param.epoch, param.nbatch) >= (0, frequent):
+            torch.cuda.set_sync_debug_mode("error")
+
+    return on_batch, marks, window, events
+
+
 def fit_run(mt, torch, batches, metric, sync_window):
     """One ``Module.fit`` of phase A2 on a fresh Module (the phase-7
     configuration): 2 epochs of 40 batches, ``metric``, a
@@ -2216,30 +2286,9 @@ def fit_run(mt, torch, batches, metric, sync_window):
     fb = mt.ops.fused_bn_conv
     model = pt.build_module(TRAIN_BATCH, SEED)
     it = mt.io.ResizeIter(four_batches(mt, batches), FIT_BATCHES)
-    speedo = mt.callback.Speedometer(TRAIN_BATCH, SPEEDO_FREQUENT)
-    marks, window, events = [], [0], []
-
-    def on_batch(param):
-        last = param.nbatch == FIT_BATCHES - 1
-        if torch.cuda.get_sync_debug_mode() == 2:
-            window[0] += 1
-        if param.epoch == FIT_EPOCHS - 1:
-            # one event a step on the card's clock (no sync)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-        # the metric is read at the Speedometer interval and (after the
-        # last batch) by the epoch log: syncs are allowed there
-        if last or param.nbatch % SPEEDO_FREQUENT == 0:
-            torch.cuda.set_sync_debug_mode(0)
-        speedo(param)
-        if last:
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-        elif sync_window and (param.epoch, param.nbatch) >= \
-                (0, SPEEDO_FREQUENT):
-            torch.cuda.set_sync_debug_mode("error")
-
+    on_batch, marks, window, events = fit_callback(
+        torch, FIT_BATCHES, FIT_EPOCHS, SPEEDO_FREQUENT,
+        mt.callback.Speedometer(TRAIN_BATCH, SPEEDO_FREQUENT), sync_window)
     torch.cuda.synchronize()
     # the retrace guard keys entry points by name, and every Module of
     # this symbol shares one: start this fit's report from nothing
@@ -3772,8 +3821,9 @@ def rule_state(f):
     leaves = {f"{n}:{j}": x.clone() for n, s in f._state.items()
               for j, x in enumerate(s)}
     out = {"weights": {n: p.detach().clone() for n, p in f._p.items()},
-           "aux": {n: v.clone() for n, v in f._aux.items()},
            "t": {"t": f._t.clone().float().reshape(1)}}
+    if f._aux:           # the LM has none
+        out["aux"] = {n: v.clone() for n, v in f._aux.items()}
     if leaves:           # sgd without momentum, signsgd, sgld: none
         out["leaves"] = leaves
     return out
@@ -3810,11 +3860,11 @@ def rule_captured_vs_eager(torch, fc, fe, feeds, lrs):
 
     e1 = run(fe, fe.step_eager)
     e2 = run(fe, fe.step_eager)
-    (prog,) = fc._programs.values()
-    r0 = prog.record.replays
+    r0 = sum(p.record.replays for p in fc._programs.values())
     c = run(fc, fc.step)
-    check(prog.record.replays - r0 == len(feeds),
-          f"captured steps were not replays: {prog.record.as_dict()}")
+    replays = sum(p.record.replays for p in fc._programs.values()) - r0
+    check(replays == len(feeds),
+          f"the captured steps were {replays} replays, not {len(feeds)}")
     spread = state_diff(torch, e2, e1)
     diff = state_diff(torch, c, e1)
     return diff, spread, same_within(diff, spread)
@@ -4162,6 +4212,737 @@ def slice10_phases(mt, torch, np, smi, batches):
                     "set to 0 just before"}} for k in KERNEL_WRAPPERS}
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the decode LM trained on the port (lm_fit, lm_serve, lm_spec)
+# and its training step at GPT-2 small's widths (lm_full)
+# ---------------------------------------------------------------------------
+# bench.py:401-405's corpus, copied (this script imports nothing of
+# bench.py), and bench.py's fit of its speculative pair at its own sizes
+LM_CORPUS = ("the quick brown fox jumps over the lazy dog. "
+             "pack my box with five dozen liquor jugs. "
+             "how vexingly quick daft zebras jump. "
+             "sphinx of black quartz judge my vow. ") * 12
+LM_DEVICE = "cuda:0"
+LM_SEQ = 16
+LM_BATCH = 32
+LM_LR = 3e-3
+LM_NP_SEED = 7             # bench.py seeds numpy's global RNG so
+LM_TARGET = {"num_embed": 128, "num_heads": 8, "num_layers": 4,
+             "max_seq": 64}
+LM_EPOCHS = {"target": 4, "draft": 6}
+# the JAX package's own fit of the same pair (same data, windows,
+# shuffle seed, optimizer, initializer and epochs) on the CPU, the
+# final next-char accuracy of each: `JAX_PLATFORMS=cpu python
+# tests/torch_lm_reference.py`, figures in PERF.md). The port's fits draw
+# another Xavier init (torch's generator), so each accuracy is held to
+# the JAX package's less LM_ACC_SLACK rather than equal
+LM_JAX_ACC = {"target": 0.9372351694915254, "draft": 0.9358448093220338}
+LM_ACC_SLACK = 0.05
+LM_SPEEDO = 20
+LM_CHECK_LRS = (3e-3, 1.5e-3, 7.5e-4)
+LM_SLOTS = 8
+LM_BUCKETS = (16, 32)
+LM_NEW_TOKENS = 16
+LM_PER_CLIENT = {1: 8, 8: 3}          # bench.py's closed loops
+LM_PROMPTS = 16
+# bench.py:373-377: each verify launch must commit well over one token
+LM_ACCEPT_BAR = 1.5
+LM_EVAL_ROWS = 4           # windows of the eval forward held position by
+# position against the reprefill program: both fp32, the same math in
+# another order (a batched walk against one prompt's), ~1e-7 apart in
+# probability; the limit leaves 100x and is far below what a wrong
+# mask or a missing layer moves (O(0.1))
+LM_EVAL_PROB_LIMIT = 1e-5
+# lm_full: GPT-2 small's widths, nothing cut but the batch
+LM_FULL_BATCH = 8
+LM_FULL_CHECK_BATCH = 2
+LM_FULL_LR = 3e-4
+LM_FULL_STAGED = 4
+LM_FULL_WARMUP = 3         # eager, the capture, a replay
+LM_FULL_TIMED = 10
+LM_FULL_TRACE = 3
+LM_FULL_PROMPT = 512
+# the fused fp32 step's gradients against float64 may be at most this
+# many times the plain fp32 walk's error against float64 (plus a
+# floor), over all gradients and in each parameter
+LM_FULL_GRAD_FACTOR = 3.0
+LM_FULL_GRAD_FLOOR = 1e-6
+LM_ATTN_SHAPE = (8, 1024, 12, 64)
+
+
+def lm_windows(np):
+    """bench.py's next-char windows of the corpus: (chars, ids, data,
+    label)."""
+    chars = sorted(set(LM_CORPUS))
+    ids = np.asarray([chars.index(c) for c in LM_CORPUS], np.int32)
+    nw = len(ids) - LM_SEQ - 1
+    data = np.stack([ids[i:i + LM_SEQ] for i in range(nw)])
+    label = np.stack([ids[i + 1:i + LM_SEQ + 1]
+                      for i in range(nw)]).astype(np.float32)
+    return chars, ids, data, label
+
+
+def lm_fit_run(mt, torch, np, spec, data, label, epochs, name):
+    """bench.py's ``_fit_lm`` on the port: ``Module.fit`` of
+    ``build_symbol(spec, 16)`` on cuda:0 over a shuffled ``NDArrayIter``
+    (numpy's global RNG), Adam lr 3e-3, Xavier, ``Accuracy(axis=2)``
+    counted inside the captured step and a ``Speedometer(32, 20)``;
+    every step between two metric reads runs under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns the module and
+    a row."""
+    dec = mt.serving.decode
+    it = mt.io.NDArrayIter(data.astype(np.float32), label, LM_BATCH,
+                           shuffle=True, last_batch_handle="discard")
+    n_batches = it.num_data // LM_BATCH
+    m = mt.mod.Module(symbol=dec.build_symbol(spec, LM_SEQ),
+                      data_names=("data",),
+                      label_names=("softmax_label",), context=LM_DEVICE)
+    m.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    m.init_params(mt.init.Xavier(),
+                  generator=torch.Generator().manual_seed(SEED))
+    metric = mt.metric.Accuracy(axis=2, name=name)
+    on_batch, _, window, events = fit_callback(
+        torch, n_batches, epochs, LM_SPEEDO,
+        mt.callback.Speedometer(LM_BATCH, LM_SPEEDO), True)
+    torch.cuda.synchronize()
+    mt.compile_report(reset=True)
+    totals0 = registry_totals(mt)
+    t0 = time.perf_counter()
+    try:
+        m.fit(it, eval_metric=metric, batch_end_callback=on_batch,
+              optimizer="adam", optimizer_params={"learning_rate": LM_LR},
+              num_epoch=epochs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    delta = registry_delta(totals0, registry_totals(mt))
+    pname = next(iter(m._fused._programs.values())).key.name
+    events_ = mt.compile_report()["retraces"].get(pname, {}) \
+        .get("events", [])
+    gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    steps = epochs * n_batches
+    want_window = n_batches - LM_SPEEDO - 1 + (epochs - 1) * \
+        (n_batches - 1)
+    row = {"model": name, "layers": spec.num_layers,
+           "embed": spec.num_embed, "heads": spec.num_heads,
+           "vocab": spec.vocab_size, "epochs": epochs,
+           "batches_per_epoch": n_batches, "steps": steps,
+           "accuracy": float(metric.get()[1]),
+           "jax_package_cpu_accuracy": LM_JAX_ACC[name],
+           "fit_s": fit_s,
+           "ms_per_step_last_epoch_events": statistics.median(gaps),
+           "steps_in_sync_check": window[0],
+           "steps_in_sync_check_due": want_window,
+           "compile_report_delta": delta,
+           "retrace_detail": events_[-1].get("detail") if events_
+           else None}
+    check(delta["fresh_compiles"] == 1 and delta["retraces"] == 1
+          and delta["replays"] == steps - 1,
+          f"lm_fit {name}: one capture (with the metric slot), one "
+          f"retrace (the attach) and replays after it expected: {delta}")
+    check(row["retrace_detail"] == ["extra.metrics"],
+          f"lm_fit {name}: the retrace guard did not name the metric "
+          f"material: {row['retrace_detail']}")
+    check(window[0] == want_window,
+          f"lm_fit {name}: {window[0]} steps ran under the sync check, "
+          f"{want_window} due")
+    check(row["accuracy"] >= LM_JAX_ACC[name] - LM_ACC_SLACK,
+          f"lm_fit {name}: accuracy {row['accuracy']} below the JAX "
+          f"package's {LM_JAX_ACC[name]} less {LM_ACC_SLACK}")
+    return m, row
+
+
+def lm_replays_vs_eager(torch, m, feeds, lrs):
+    """Replays of ``m``'s captured step (captured already, with its
+    metric slot) against eager steps of the same step from the same
+    state: masters, both of Adam's moments and t."""
+    f = m._fused
+    diff, spread, fails = rule_captured_vs_eager(torch, f, f, feeds, lrs)
+    check(not fails, f"captured steps differ from eager ones in {fails}: "
+                     f"{diff} (eager spread {spread})")
+    return {"replays": len(feeds), "vs_eager": diff,
+            "eager_spread": spread}
+
+
+def lm_streams(pred, prompts, n=LM_NEW_TOKENS):
+    return [list(pred.generate(p, max_new_tokens=n)) for p in prompts]
+
+
+def lm_eval_vs_reprefill(mt, torch, np, m, spec, data, label):
+    """The Module's captured eval forward (the executor's fp32 program)
+    over a batch of windows, held position by position against the
+    serving functions' prompt program on the same weights: the
+    probabilities within LM_EVAL_PROB_LIMIT, and the greedy token equal
+    wherever the program's top-2 logit gap exceeds F64_MARGIN."""
+    dm = mt.serving.decode.model
+    batch = mt.io.DataBatch([torch.from_numpy(data[:LM_BATCH]
+                                              .astype(np.float32))],
+                            [torch.from_numpy(label[:LM_BATCH])])
+    m.forward(batch, is_train=False)
+    probs = m.get_outputs()[0]
+    p = {k: v.detach().clone() for k, v in m.get_params()[0].items()}
+    caches = dm.init_caches(spec, 1, "float32", LM_DEVICE)
+    worst, checked, exempt, differ = 0.0, 0, 0, []
+    with torch.inference_mode():
+        for r in range(LM_EVAL_ROWS):
+            toks = torch.tensor(data[r][None].astype(np.int32),
+                                device=LM_DEVICE)
+            for n in range(1, LM_SEQ + 1):
+                _, logits = dm._prefill(spec, p, caches, toks, n, 0,
+                                        "float32")
+                worst = max(worst, float(
+                    (torch.softmax(logits, -1) - probs[r, n - 1])
+                    .abs().max()))
+                top = torch.topk(logits, 2)
+                if float(top.values[0] - top.values[1]) > F64_MARGIN:
+                    checked += 1
+                    if int(top.indices[0]) != int(
+                            probs[r, n - 1].argmax()):
+                        differ.append((r, n - 1))
+                else:
+                    exempt += 1
+    return {"rows": LM_EVAL_ROWS, "positions": LM_SEQ,
+            "max_abs_prob_err": worst, "limit": LM_EVAL_PROB_LIMIT,
+            "greedy_checked": checked, "greedy_exempt": exempt,
+            "greedy_differ": differ}
+
+
+def lm_serve_phase(mt, torch, np, smi, m, spec, params, prompts, data,
+                   label):
+    """``lm_serve``: ``DecodePredictor.from_module`` on the fitted target
+    against a predictor built from a cloned dict of its weights (streams
+    token for token); one more training step of the Module leaves the
+    first predictor's streams as they were; the Module's captured eval
+    forward against the serving functions on the same weights."""
+    dec = mt.serving.decode
+    pred = dec.DecodePredictor.from_module(m, spec, slots=LM_SLOTS,
+                                           seq_buckets=LM_BUCKETS,
+                                           name="lm-from-module")
+    ref = dec.DecodePredictor(spec, {k: v.clone() for k, v in
+                                     params.items()},
+                              slots=LM_SLOTS, seq_buckets=LM_BUCKETS,
+                              name="lm-cloned", device=LM_DEVICE)
+    streams = lm_streams(pred, prompts)
+    same_as_cloned = streams == lm_streams(ref, prompts)
+    before = {k: v.clone() for k, v in m.get_params()[0].items()}
+    b = mt.io.DataBatch([torch.from_numpy(data[:LM_BATCH]
+                                          .astype(np.float32))],
+                        [torch.from_numpy(label[:LM_BATCH])])
+    m.forward(b, is_train=True)
+    m.backward()
+    m.update()
+    torch.cuda.synchronize()
+    moved = max(float((m.get_params()[0][k] - v).abs().max())
+                for k, v in before.items())
+    unchanged = lm_streams(pred, prompts) == streams
+    ev = lm_eval_vs_reprefill(mt, torch, np, m, spec, data, label)
+    row = {"phase": "lm_serve", "device": str(pred.device),
+           "prompts": len(prompts), "new_tokens": LM_NEW_TOKENS,
+           "from_module_equals_cloned": same_as_cloned,
+           "module_params_moved_by": moved,
+           "streams_unchanged_after_training": unchanged,
+           "eval_forward_vs_prefill": ev, "card": smi}
+    emit(row)
+    check(pred.device.type == "cuda", "from_module left the card")
+    check(same_as_cloned, "from_module streams differ from a predictor "
+                          "of cloned weights")
+    check(moved > 0, "the extra training step moved no weight")
+    check(unchanged, "the predictor's streams changed when its Module "
+                     "trained on")
+    check(ev["max_abs_prob_err"] <= LM_EVAL_PROB_LIMIT,
+          f"eval forward against the prompt program: {ev}")
+    check(not ev["greedy_differ"] and ev["greedy_checked"] > 0,
+          f"eval forward's greedy tokens differ: {ev}")
+    return row
+
+
+def lm_closed_loops(mt, eng, prompts):
+    from mxnet_tpu_torch.serving import loadgen
+    out = {}
+    with mt.serving.decode.DecodeBatcher(eng, max_wait_us=2000,
+                                         max_queue=4096,
+                                         name=f"{eng.name}-loop") as bat:
+        for n, per in LM_PER_CLIENT.items():
+            r = loadgen.token_closed_loop(bat, prompts, n, per,
+                                          max_new_tokens=LM_NEW_TOKENS)
+            out[str(n)] = {"tok_s": r["tok_s"],
+                           "ttft_p99_ms": r["ttft_p99_ms"],
+                           "inter_token_p99_ms": r["inter_token_p99_ms"]}
+    return out
+
+
+def lm_batched_streams(mt, eng, prompts):
+    with mt.serving.decode.DecodeBatcher(eng, max_wait_us=20000,
+                                         name=f"{eng.name}-check") as bat:
+        futs = [bat.submit(p, max_new_tokens=LM_NEW_TOKENS)
+                for p in prompts]
+        return [f.result(timeout=600) for f in futs]
+
+
+def lm_spec_phase(mt, torch, np, smi, spec, params, dspec, dparams,
+                  prompts):
+    """``lm_spec`` (bench.py:431-470): the fitted pair speculatively
+    against plain decode at 1 and 8 clients; streams bit for bit the
+    plain ones; accepted tokens per verify round against bench.py's
+    bar; then a draft from ``distill_draft`` at its defaults, its
+    acceptance beside the fitted one's. Returns D1's launches."""
+    dec = mt.serving.decode
+    d1 = mt.ops.decode_attention.decode_attention
+    t0 = time.perf_counter()
+    plain = dec.DecodePredictor(spec, params, slots=LM_SLOTS,
+                                seq_buckets=LM_BUCKETS, name="lm-plain",
+                                device=LM_DEVICE)
+    plain.warmup()
+    eng = dec.SpecDecodePredictor(spec, params, dspec, dparams,
+                                  slots=LM_SLOTS, seq_buckets=LM_BUCKETS,
+                                  name="lm-spec", device=LM_DEVICE)
+    eng.warmup()
+    setup_s = time.perf_counter() - t0
+    plain_streams = lm_batched_streams(mt, plain, prompts)
+    tot0 = registry_totals(mt)
+    mt.ops.fused_bn_conv.reset_launch_counts()
+    eng.report(reset=True)
+    v0 = eng.report()["verify_steps"]
+    d0 = eng.report()["decode_steps"]
+    dd0 = eng.draft.report()["decode_steps"]
+    spec_streams = lm_batched_streams(mt, eng, prompts)
+    spec_loops = lm_closed_loops(mt, eng, prompts)
+    torch.cuda.synchronize()
+    n_d1 = d1.launches
+    rep = eng.report()
+    verify_steps = rep["verify_steps"] - v0
+    decode_steps = rep["decode_steps"] - d0
+    draft_steps = eng.draft.report()["decode_steps"] - dd0
+    serving = registry_delta(tot0, registry_totals(mt))
+    plain_loops = lm_closed_loops(mt, plain, prompts)
+
+    t1 = time.perf_counter()
+    dspec2 = dec.make_draft_spec(spec, num_layers=2, shrink=4,
+                                 name=f"{spec.name}-distilled")
+    dparams2 = dec.distill_draft(plain, dspec2)
+    distill_s = time.perf_counter() - t1
+    eng2 = dec.SpecDecodePredictor(spec, params, dspec2, dparams2,
+                                   slots=LM_SLOTS, seq_buckets=LM_BUCKETS,
+                                   name="lm-spec-distilled",
+                                   device=LM_DEVICE)
+    eng2.warmup()
+    distilled_streams = lm_batched_streams(mt, eng2, prompts)
+    rep2 = eng2.report()
+    row = {"phase": "lm_spec", "k": eng.spec_k, "slots": LM_SLOTS,
+           "buckets": list(LM_BUCKETS), "prompts": len(prompts),
+           "new_tokens": LM_NEW_TOKENS, "setup_s": setup_s,
+           "streams_equal_plain": spec_streams == plain_streams,
+           "accepted_per_verify_round": rep["spec"]["accepted_per_step"],
+           "acceptance_rate": rep["spec"]["acceptance_rate"],
+           "bar": LM_ACCEPT_BAR,
+           "degrade_events": rep["spec"]["degrade_events"],
+           "spec": spec_loops, "plain": plain_loops,
+           "verify_steps": verify_steps, "target_decode_steps":
+           decode_steps, "draft_decode_steps": draft_steps,
+           "d1_launches": n_d1,
+           "d1_launches_w5": spec.num_layers * verify_steps,
+           "serving_registry_delta": serving,
+           "distilled": {
+               "seconds": distill_s,
+               "streams_equal_plain": distilled_streams == plain_streams,
+               "accepted_per_verify_round":
+                   rep2["spec"]["accepted_per_step"],
+               "acceptance_rate": rep2["spec"]["acceptance_rate"]},
+           "card": smi}
+    emit(row)
+    check(row["streams_equal_plain"], "speculative streams of the fitted "
+                                      "pair differ from plain decode")
+    check(row["distilled"]["streams_equal_plain"],
+          "speculative streams with the distilled draft differ from plain "
+          "decode")
+    check(verify_steps > 0, "no verify round ran")
+    check(n_d1 == spec.num_layers * (verify_steps + decode_steps)
+          + dspec.num_layers * draft_steps,
+          f"D1 launches {n_d1} against {verify_steps} verify, "
+          f"{decode_steps} decode and {draft_steps} draft steps")
+    check(serving["fresh_compiles"] == 0 and serving["retraces"] == 0,
+          f"speculative serving captured or retraced: {serving}")
+    check(row["accepted_per_verify_round"] > LM_ACCEPT_BAR,
+          f"accepted tokens per verify round "
+          f"{row['accepted_per_verify_round']} not above {LM_ACCEPT_BAR}")
+    del plain, eng, eng2
+    return {"launches": n_d1, "launches_w5": row["d1_launches_w5"],
+            "verify_steps": verify_steps, "path": "lm_spec (the fitted "
+            "pair's batched streams and closed loops at 1 and 8 clients),"
+            " counts set to 0 just before"}
+
+
+def lm_small_phases(mt, torch, np, smi, seconds, lap):
+    """lm_fit, lm_serve and lm_spec. Returns D1's lm_spec launches."""
+    dec = mt.serving.decode
+    chars, ids, data, label = lm_windows(np)
+    np.random.seed(LM_NP_SEED)
+    spec = dec.TransformerLMSpec(vocab_size=len(chars), name="specbench",
+                                 **LM_TARGET)
+    target, trow = lm_fit_run(mt, torch, np, spec, data, label,
+                              LM_EPOCHS["target"], "target")
+    dspec = dec.make_draft_spec(spec, num_layers=2, shrink=4)
+    draft, drow = lm_fit_run(mt, torch, np, dspec, data, label,
+                             LM_EPOCHS["draft"], "draft")
+    params = {k: v.detach().clone()
+              for k, v in target.get_params()[0].items()}
+    dparams = {k: v.detach().clone()
+               for k, v in draft.get_params()[0].items()}
+    lap("lm_fit")
+    rng = np.random.RandomState(0)
+
+    def prompt(length):
+        off = int(rng.randint(0, len(ids) - length - 1))
+        return ids[off:off + length].copy()
+
+    prompts = [prompt(4 + (i * 5) % 16) for i in range(LM_PROMPTS)]
+    lm_serve_phase(mt, torch, np, smi, target, spec, params, prompts,
+                   data, label)
+    lap("lm_serve")
+    # the captured steps against eager ones (lm_fit's check, run after
+    # lm_serve: it moves the modules on from their fitted weights)
+    feeds = [{"data": torch.from_numpy(data[i * LM_BATCH:(i + 1) *
+                                            LM_BATCH].astype(np.float32)),
+              "softmax_label": torch.from_numpy(
+                  label[i * LM_BATCH:(i + 1) * LM_BATCH])}
+             for i in range(len(LM_CHECK_LRS))]
+    emit({"phase": "lm_fit", "models": [trow, drow],
+          "replays_vs_eager": {
+              "target": lm_replays_vs_eager(torch, target, feeds,
+                                            LM_CHECK_LRS),
+              "draft": lm_replays_vs_eager(torch, draft, feeds,
+                                           LM_CHECK_LRS)},
+          "card": smi})
+    del target, draft
+    lap("lm_fit_replays")
+    d1 = lm_spec_phase(mt, torch, np, smi, spec, params, dspec, dparams,
+                       prompts)
+    lap("lm_spec")
+    return d1
+
+
+def lm_full_batches(mt, torch, np, spec, batch, n, seed=0):
+    """``n`` batches of random token ids (float32, exact) and their
+    next-token labels, on the card."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, spec.vocab_size, (batch, spec.max_seq + 1))
+        out.append(mt.io.DataBatch(
+            [torch.from_numpy(ids[:, :-1].astype(np.float32)).to(LM_DEVICE)],
+            [torch.from_numpy(ids[:, 1:].astype(np.float32)).to(LM_DEVICE)]))
+    return out
+
+
+def lm_plain_grads(mt, torch, sym, params, feed, dtype):
+    """The graph's loss and gradients by the plain walk in ``dtype``."""
+    from mxnet_tpu_torch.executor import build_graph_fns
+    _, fwd_loss, _ = build_graph_fns(sym)
+    leaves = {n: v.detach().to(dtype).requires_grad_(True)
+              for n, v in params.items()}
+    args = [leaves[n] if n in leaves else feed[n].to(dtype)
+            for n in sym.list_arguments()]
+    loss, _ = fwd_loss(args, [])
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def lm_grad_errors(torch, got, ref):
+    """Relative L2 of ``got`` against ``ref`` over all gradients and in
+    each parameter (worst named)."""
+    num = sum(float(torch.sum((got[n].double() - ref[n]) ** 2))
+              for n in ref)
+    den = sum(float(torch.sum(ref[n] ** 2)) for n in ref)
+    per = {n: rel_l2(got[n].double(), ref[n]) for n in ref}
+    worst = max(per, key=per.get)
+    return {"all": (num / den) ** 0.5, "worst": per[worst],
+            "worst_param": worst, "per_param": per}
+
+
+def lm_full_grad_check(mt, torch, m, sym, feed, attention=None):
+    """One step's loss and gradients at batch 2 from the fused step
+    (eager: ``FusedSymbolStep.gradients``) and the fp32 plain walk, each
+    against the float64 plain walk on the card. ``attention`` replaces
+    ``CausalSelfAttention`` in the fused step alone (the probe)."""
+    f = m._fused
+    params = dict(f.params()[0])
+    loss64, g64 = lm_plain_grads(mt, torch, sym, params, feed,
+                                 torch.float64)
+    loss32, g32 = lm_plain_grads(mt, torch, sym, params, feed,
+                                 torch.float32)
+    opdef = mt.ops.registry.get_op("CausalSelfAttention")
+    real = opdef.fn
+    opdef.fn = attention or real
+    try:
+        loss_f, g_f, _, _ = f.gradients(feed)
+    finally:
+        opdef.fn = real
+    plain = lm_grad_errors(torch, g32, g64)
+    fused = lm_grad_errors(torch, g_f, g64)
+    del g32, g_f
+    limit_all = LM_FULL_GRAD_FACTOR * plain["all"] + LM_FULL_GRAD_FLOOR
+    over = [n for n in g64 if fused["per_param"][n] >
+            LM_FULL_GRAD_FACTOR * plain["per_param"][n]
+            + LM_FULL_GRAD_FLOOR]
+    ok = fused["all"] <= limit_all and not over
+    for d in (plain, fused):
+        d.pop("per_param")
+    return {"loss_f64": loss64, "loss_rel_err": abs(float(loss_f) - loss64)
+            / abs(loss64), "plain_fp32_loss_rel_err":
+            abs(loss32 - loss64) / abs(loss64),
+            "fused_vs_f64": fused, "plain_fp32_vs_f64": plain,
+            "limit_all": limit_all, "params_over_limit": len(over),
+            "first_over_limit": over[:4], "ok": ok}
+
+
+def lm_mask_probe_attention(data, num_heads=1, scale=None, **kw):
+    """CausalSelfAttention whose mask lets each position see its
+    successor (the fault the gradient check must catch)."""
+    import torch
+    from mxnet_tpu_torch.ops.nn import _NEG, local_attention_block
+    b, s, three_hd = data.shape
+    h = int(num_heads)
+    d = three_hd // (3 * h)
+    q, k, v = data.reshape(b, s, 3, h, d).unbind(2)
+    pos = torch.arange(s, device=data.device)
+    bias = torch.where(pos[:, None] + 1 >= pos[None, :],
+                       torch.zeros((), dtype=data.dtype,
+                                   device=data.device),
+                       torch.full((), _NEG, dtype=data.dtype,
+                                  device=data.device))
+    o, _, l = local_attention_block(q, k, v, bias=bias[None, None],
+                                    scale=scale)
+    out = o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
+    return out.reshape(b, s, h * d).to(data.dtype)
+
+
+def lm_embedding_determinism(mt, torch):
+    """Embedding's weight gradient twice over heavily repeated ids, on
+    the card: a 40-row table at 16 x 32 ids and the 50257-row table at
+    8 x 1024; equal bit for bit (the captured step's replays are held
+    to eager steps bit for bit)."""
+    out = {}
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(SEED)
+    for rows, shape in ((40, (16, 32)), (GPT2_SMALL["vocab_size"],
+                                         (8, 1024))):
+        w = torch.randn(rows, 64, device=LM_DEVICE, generator=gen)
+        ids = torch.randint(0, rows, shape, device=LM_DEVICE,
+                            generator=gen).float()
+        ct = torch.randn(shape + (64,), device=LM_DEVICE, generator=gen)
+        grads = []
+        for _ in range(2):
+            wl = w.clone().requires_grad_(True)
+            mt.ops.shape_ops.embedding(ids, wl).backward(ct)
+            grads.append(wl.grad)
+        out[f"{rows}x{shape[0]}x{shape[1]}"] = torch.equal(*grads)
+    return out
+
+
+def lm_attention_timing(mt, torch, F):
+    """CausalSelfAttention forward + backward at (8, 1024, 2304) fp32,
+    beside ``F.scaled_dot_product_attention``'s (causal, fp32; a
+    yardstick the port never calls) on the same q, k, v."""
+    b, s, h, d = LM_ATTN_SHAPE
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(SEED)
+    x = torch.randn(b, s, 3 * h * d, device=LM_DEVICE, generator=gen) \
+        .requires_grad_(True)
+    ct = torch.randn(b, s, h * d, device=LM_DEVICE, generator=gen)
+    op = mt.ops.nn.causal_self_attention
+
+    def ours():
+        x.grad = None
+        op(x, num_heads=h).backward(ct)
+
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in
+               x.detach().reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4))
+    ct4 = ct.reshape(b, s, h, d).transpose(1, 2).contiguous()
+
+    def sdpa():
+        for t in (q, k, v):
+            t.grad = None
+        F.scaled_dot_product_attention(q, k, v, is_causal=True) \
+            .backward(ct4)
+
+    ms = time_ms(ours, reps=3, inner=3, warmup=1)
+    sdpa_ms = time_ms(sdpa, reps=3, inner=3, warmup=1)
+    # the work: two (B, H, S, S) products forward, four backward, in
+    # fp32 (the whole score matrix, as the op computes it); bytes: x and
+    # ct read, the output and dx written
+    flops = 6 * 2 * b * h * s * s * d
+    nbytes = 4 * 2 * (x.numel() + ct.numel())
+    bms, by = bound_ms(nbytes, flops, "float32")
+    return {"shape": [b, s, 3 * h * d], "heads": h, "fwd_bwd_ms": ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms, "bound_ms": bms, "bound_by": by,
+            "note": "SDPA is a yardstick only; the op stays the JAX "
+                    "package's einsum math"}
+
+
+def lm_full_phase(mt, torch, np, F, smi):
+    """``lm_full``: ``build_symbol(TransformerLMSpec(**GPT2_SMALL), 1024)``
+    through ``Module.fit`` at batch 8, fp32 without TF32, Adam lr 3e-4,
+    ``Accuracy(axis=2)`` in the step, random token ids from seed 0 over
+    4 staged batches: the gradient check against float64 at batch 2 and
+    its mask probe, captured replays against eager steps, ``from_module``
+    at full width, then timed replays and a device trace."""
+    from mxnet_tpu_torch import profile_training as pt
+    dec = mt.serving.decode
+    spec = gpt2_spec(mt, "gpt2s-train")
+    sym = dec.build_symbol(spec, spec.max_seq)
+    batches = lm_full_batches(mt, torch, np, spec, LM_FULL_BATCH,
+                              LM_FULL_STAGED)
+    m = mt.mod.Module(sym, data_names=("data",),
+                      label_names=("softmax_label",), context=LM_DEVICE)
+    m.bind(data_shapes=[("data", (LM_FULL_BATCH, spec.max_seq))],
+           label_shapes=[("softmax_label", (LM_FULL_BATCH, spec.max_seq))])
+    m.init_params(mt.init.Xavier(),
+                  generator=torch.Generator().manual_seed(SEED))
+    m.init_optimizer(optimizer="adam",
+                     optimizer_params={"learning_rate": LM_FULL_LR})
+    n_params = sum(v.numel() for v in m.get_params()[0].values())
+
+    # the gradient check at batch 2, and its probe
+    small = lm_full_batches(mt, torch, np, spec, LM_FULL_CHECK_BATCH, 1,
+                            seed=1)[0]
+    feed = {"data": small.data[0], "softmax_label": small.label[0]}
+    grad = lm_full_grad_check(mt, torch, m, sym, feed)
+    probe = lm_full_grad_check(mt, torch, m, sym, feed,
+                               attention=lm_mask_probe_attention)
+    del feed, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Module.fit: the warm-up steps (eager, the capture, a replay)
+    metric = mt.metric.Accuracy(axis=2)
+    mt.compile_report(reset=True)
+    totals0 = registry_totals(mt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.fit(mt.io.ResizeIter(four_batches(mt, batches), LM_FULL_WARMUP),
+          eval_metric=metric, optimizer="adam",
+          optimizer_params={"learning_rate": LM_FULL_LR}, num_epoch=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_peak = torch.cuda.max_memory_allocated() / 1e9
+    delta = registry_delta(totals0, registry_totals(mt))
+
+    # captured replays against eager steps
+    feeds = [{"data": b.data[0], "softmax_label": b.label[0]}
+             for b in batches[:3]]
+    replays = lm_replays_vs_eager(torch, m, feeds,
+                                  (LM_FULL_LR, LM_FULL_LR / 2,
+                                   LM_FULL_LR / 4))
+    del feeds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # timed replays, then a device trace
+    r = timed_runs(torch, lambda i: pt.run_step(m, batches[i % 4]),
+                   LM_FULL_TIMED)
+    events = []
+    for i in range(LM_FULL_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        pt.run_step(m, batches[i % 4])
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    trace = pt.device_trace(lambda i: pt.run_step(m, batches[i % 4]),
+                            LM_FULL_TRACE)
+    busy = pt.busy_summary(trace, LM_FULL_TRACE)
+    per_kernel = trace["per_kernel"]
+    foreach = sum(v for k, v in per_kernel.items()
+                  if "multi_tensor_apply" in k or "foreach" in k) \
+        / LM_FULL_TRACE
+    dev_ms = sum(per_kernel.values()) / LM_FULL_TRACE if per_kernel \
+        else None
+    med = statistics.median(step_ms)
+
+    # from_module at full width: a 512-token prompt's prefill token
+    # against the Module's eval forward at position 511
+    prompt = batches[0].data[0][0, :LM_FULL_PROMPT].to(torch.int32) \
+        .cpu().numpy()
+    pred = dec.DecodePredictor.from_module(
+        m, spec, slots=1, seq_buckets=(LM_FULL_PROMPT,),
+        name="gpt2s-from-module")
+    tok = list(pred.generate(prompt, max_new_tokens=1))[0]
+    m.forward(batches[0], is_train=False)
+    logp = torch.log(m.get_outputs()[0][0, LM_FULL_PROMPT - 1].double())
+    top = torch.topk(logp, 2)
+    gap = float(top.values[0] - top.values[1])
+    del pred
+    attn = lm_attention_timing(mt, torch, F)
+    emb_det = lm_embedding_determinism(mt, torch)
+    tokens = LM_FULL_BATCH * spec.max_seq
+    row = {"phase": "lm_full", "spec": GPT2_SMALL, "params": n_params,
+           "batch": LM_FULL_BATCH, "tokens_per_step": tokens,
+           "dtype": "float32", "tf32": False, "optimizer": "adam",
+           "lr": LM_FULL_LR,
+           "grad_check_batch_2": grad, "mask_probe": probe,
+           "fit_warmup": {"steps": LM_FULL_WARMUP, "seconds": warm_s,
+                          "max_memory_allocated_gb": warm_peak,
+                          "compile_report_delta": delta,
+                          "accuracy": float(metric.get()[1])},
+           "replays_vs_eager": replays,
+           "ms_per_step_events": {"median": med, "min": min(step_ms),
+                                  "max": max(step_ms),
+                                  "spread": (max(step_ms) - min(step_ms))
+                                  / med, "runs": step_ms},
+           "tokens_per_s": tokens / (med / 1e3),
+           "host_ms_per_step": r["host_ms"],
+           "steady_max_memory_allocated_gb":
+               r["max_memory_allocated_gb"],
+           "steady_max_memory_reserved_gb": r["max_memory_reserved_gb"],
+           "trace": busy,
+           "foreach_kernels_ms_per_step": foreach,
+           "adam_update_share": foreach / dev_ms if dev_ms else
+           "not measured",
+           "from_module_prefill": {"prompt": LM_FULL_PROMPT,
+                                   "token": tok,
+                                   "eval_argmax": int(top.indices[0]),
+                                   "top2_logit_gap": gap,
+                                   "checked": gap > F64_MARGIN},
+           "attention": attn,
+           "embedding_backward_bit_identical_twice": emb_det,
+           "card": smi}
+    emit(row)
+    check(grad["ok"], f"lm_full: the fused step's gradients against "
+                      f"float64: {grad}")
+    check(not probe["ok"], f"lm_full: the mask probe passed the "
+                           f"gradient check: {probe}")
+    check(all(emb_det.values()), f"lm_full: Embedding's weight gradient "
+                                 f"differs between two runs: {emb_det}")
+    check(delta["fresh_compiles"] == 1 and delta["retraces"] <= 1,
+          f"lm_full fit: one capture expected: {delta}")
+    check(gap <= F64_MARGIN or tok == int(top.indices[0]),
+          f"lm_full: from_module's prefill token {tok} against the eval "
+          f"forward's argmax {int(top.indices[0])} (gap {gap})")
+    del m, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice11_phases(mt, torch, np, F, smi):
+    """lm_fit, lm_serve, lm_spec and lm_full (slice 11). Returns D1's
+    launches in lm_spec for the kernels line."""
+    seconds, t0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0[0]
+        t0[0] = time.perf_counter()
+
+    d1 = lm_small_phases(mt, torch, np, smi, seconds, lap)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_full_phase(mt, torch, np, F, smi)
+    lap("lm_full")
+    emit({"phase": "slice11_seconds", "seconds": seconds})
+    return d1
+
+
 def k4_entry(rows, name, route, launches, what):
     """A K4 user kernel's entry of the kernels line: its times at
     ``what``; launches on its path (the softmax CE's on the Gluon
@@ -4500,6 +5281,10 @@ def main():
 
     # 14.-17. decode serving at GPT-2 small's widths ----------------------
     d1_entry = decode_phases(mt, torch, np, F, smi, gen)
+
+    # 17c.-17f. the decode LM trained on the port, served, and its
+    # training step at GPT-2 small's widths (slice 11) ---------------------
+    d1_entry["lm_spec"] = slice11_phases(mt, torch, np, F, smi)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):

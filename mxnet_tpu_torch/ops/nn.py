@@ -245,6 +245,72 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out.to(data.dtype), mean, var
 
 
+@register_op("LayerNorm")
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
+               **kw):
+    """Normalise over ``axis`` with the population variance (``jnp.var``,
+    not ``torch.var``'s unbiased default); with ``output_mean_var`` also
+    the mean and variance, ``axis`` squeezed."""
+    ax = axis % data.dim()
+    var, mean = torch.var_mean(data, dim=ax, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + eps)
+    bshape = tuple(data.shape[ax] if i == ax else 1
+                   for i in range(data.dim()))
+    out = (data - mean) * inv * gamma.reshape(bshape) + beta.reshape(bshape)
+    if output_mean_var:
+        return out, mean.squeeze(ax), var.squeeze(ax)
+    return out
+
+
+# the additive mask of the JAX package's ring attention
+# (``mxnet_tpu/parallel/ring.py``): a masked logit's exp underflows to an
+# exact 0.0
+_NEG = -1e30
+
+
+def local_attention_block(q, k, v, bias=None, scale=None):
+    """Dense softmax attention of one (q-block, kv-block) pair, the JAX
+    package's ``parallel/ring.py`` ``local_attention_block``: q (B, Tq, H,
+    D), k / v (B, Tk, H, D); returns (out, row_max, row_sum). The row max
+    only stabilises the exponent (the result does not depend on it), so
+    it is taken detached and the backward keeps the probabilities
+    alone."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if bias is not None:
+        s = s + bias
+    m = torch.amax(s, dim=-1).detach()
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return o, m, l
+
+
+@register_op("CausalSelfAttention")
+def causal_self_attention(data, num_heads=1, scale=None, **kw):
+    """Causal multi-head self-attention over packed QKV (the JAX
+    package's math: einsum, the ``-1e30`` additive mask, a max-stable
+    softmax; the whole (B, H, S, S) score matrix is materialised).
+
+    data: (B, S, 3 * num_heads * head_dim), the fused QKV projection.
+    Returns (B, S, num_heads * head_dim); position i attends to
+    positions <= i."""
+    b, s, three_hd = data.shape
+    h = int(num_heads)
+    d = three_hd // (3 * h)
+    q, k, v = data.reshape(b, s, 3, h, d).unbind(2)
+    pos = torch.arange(s, device=data.device)
+    bias = torch.where(pos[:, None] >= pos[None, :],
+                       torch.zeros((), dtype=data.dtype, device=data.device),
+                       torch.full((), _NEG, dtype=data.dtype,
+                                  device=data.device))
+    o, _, l = local_attention_block(q, k, v, bias=bias[None, None],
+                                    scale=scale)
+    out = o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
+    return out.reshape(b, s, h * d).to(data.dtype)
+
+
 @register_op("softmax")
 def softmax(data, axis=-1, temperature=None, length=None, **kw):
     x = data / temperature if temperature else data

@@ -4,6 +4,7 @@ methods and the Gluon layers and losses call."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..dtype import resolve_dtype
 from .registry import register_op
@@ -131,3 +132,27 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
     a = lhs.permute(*reversed(range(lhs.dim()))) if transpose_a else lhs
     b = rhs.permute(*reversed(range(rhs.dim()))) if transpose_b else rhs
     return torch.tensordot(a, b, dims=1)
+
+
+@register_op("Embedding")
+def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
+              sparse_grad=False, **kw):
+    """Rows of ``weight`` at the ids ``data`` (float ids truncate toward
+    zero), with the JAX package's ``jnp.take`` semantics: ids in
+    ``[-n, -1]`` wrap, and an id ``>= n`` or ``< -n`` gives a row of NaN
+    (``take``'s ``fill`` mode). An out-of-range gather would be a
+    device-side assert on the card, which ends the CUDA context, so the
+    ids are wrapped, the rest clamped into range for the gather, and the
+    invalid rows replaced by NaN: their gradient is zero. The gather's
+    backward is ``F.embedding``'s, which sums repeated ids in a fixed
+    order (the step's replays stay bit-identical); ``sparse_grad`` is
+    advisory, as in the JAX package."""
+    n = weight.shape[0]
+    idx = data.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    rows = F.embedding(torch.where(valid, idx, torch.zeros_like(idx)),
+                       weight)
+    return torch.where(valid.unsqueeze(-1), rows,
+                       torch.full((), float("nan"), dtype=rows.dtype,
+                                  device=rows.device))

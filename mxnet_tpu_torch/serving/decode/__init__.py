@@ -18,18 +18,21 @@ batching (counterpart of ``mxnet_tpu/serving/decode``).
 - ``spec.SpecDecodePredictor``: a draft proposes, one batched verify
   checks, the accepted prefix commits; ``make_draft_spec``.
 
-``build_symbol`` and ``distill_draft`` come with the port's training of
-this model. Config: ``MXTPU_DECODE_SLOTS``, ``MXTPU_DECODE_SEQ_BUCKETS``,
+- ``model.build_symbol``: the training symbol of the same parameters,
+  which ``Module.fit`` trains; ``DecodePredictor.from_module`` serves
+  the result and ``spec.distill_draft`` trains a draft on its rollouts.
+
+Config: ``MXTPU_DECODE_SLOTS``, ``MXTPU_DECODE_SEQ_BUCKETS``,
 ``MXTPU_DECODE_KV_DTYPE``, ``MXTPU_DECODE_MAX_WAIT_US``,
 ``MXTPU_DECODE_MAX_QUEUE``, ``MXTPU_SPEC_K``, ``MXTPU_SPEC_DISABLE_BELOW``,
 ``MXTPU_SPEC_PROBE_STEPS``, ``MXTPU_SPEC_WINDOW``.
 """
 from . import model
-from .model import TransformerLMSpec, init_params
+from .model import TransformerLMSpec, build_symbol, init_params
 from .engine import DecodePredictor
 from .batcher import DecodeBatcher, StreamFuture
-from .spec import SpecDecodePredictor, make_draft_spec
+from .spec import SpecDecodePredictor, distill_draft, make_draft_spec
 
-__all__ = ["model", "TransformerLMSpec", "init_params", "DecodePredictor",
-           "DecodeBatcher", "StreamFuture", "SpecDecodePredictor",
-           "make_draft_spec"]
+__all__ = ["model", "TransformerLMSpec", "build_symbol", "init_params",
+           "DecodePredictor", "DecodeBatcher", "StreamFuture",
+           "SpecDecodePredictor", "distill_draft", "make_draft_spec"]

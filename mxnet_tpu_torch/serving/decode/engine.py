@@ -41,9 +41,13 @@ eagerly, keys its programs all the same, and reads the same report.
 Not ported: the persistent program cache and the degrade-to-plain-jit
 fallback, the telemetry registry (``report()`` keeps plain counters) and
 ``memory_report()``'s ``decode_state`` row (``kv_cache_bytes()`` is the
-live buffers' bytes), ``from_module`` (waits for the port's training of
-this model). ``program_cost`` is a count from shapes, not a compiler's
-cost analysis.
+live buffers' bytes). ``program_cost`` is a count from shapes, not a
+compiler's cost analysis.
+
+The engine stages its own copy of every parameter, so the weights it
+serves are frozen when it is built: a Module that trains on afterwards
+(``from_module``) or a caller who writes into the dict changes nothing
+it serves.
 """
 from __future__ import annotations
 
@@ -139,15 +143,18 @@ class DecodePredictor:
             raise MXNetError(f"DecodePredictor missing params {missing}")
         self._p = {}
         for n, want in shapes.items():
-            v = params[n]
+            v = getattr(params[n], "_data", params[n])
             t = v.detach() if isinstance(v, torch.Tensor) \
-                else torch.from_numpy(np.asarray(
-                    getattr(v, "_data", v), dtype=np.float32))
+                else torch.from_numpy(np.asarray(v, dtype=np.float32))
             if tuple(t.shape) != tuple(want):
                 raise MXNetError(
                     f"param '{n}' has shape {tuple(t.shape)}, spec wants "
                     f"{tuple(want)}")
-            self._p[n] = t.to(self.device, torch.float32).contiguous()
+            # a copy the engine owns: the caller's tensors (a Module's
+            # live arrays) may change after this, and the programs must
+            # not see it
+            self._p[n] = t.to(self.device, torch.float32,
+                              copy=True).contiguous()
         self._caches = _model.init_caches(spec, self.slots, self.kv_dtype,
                                           self.device)
         # multi-token verify widths warmup acquires; empty on a plain
@@ -166,6 +173,17 @@ class DecodePredictor:
         self._prefills = 0
         self._tokens = 0
         _register_decoder(self)
+
+    @classmethod
+    def from_module(cls, module, spec, **kwargs):
+        """Freeze a trained (bound and initialised) Module of the
+        ``build_symbol(spec, ...)`` graph: its parameter names are the
+        spec's, so ``get_params()[0]`` is the weight set, copied at this
+        call. The engine runs on the Module's device unless ``device`` is
+        given."""
+        arg_params, _aux = module.get_params()
+        kwargs.setdefault("device", next(iter(arg_params.values())).device)
+        return cls(spec, arg_params, **kwargs)
 
     # -- bucketing / capacity -------------------------------------------------
     @property

@@ -31,7 +31,13 @@ What differs from the JAX package:
   version is the JAX package's einsum math.
 - Token and position ids are clamped into range before the embedding
   gathers, as XLA clamps an out-of-range gather (PyTorch would fault).
-- ``build_symbol`` waits for the port's training of this model.
+  The training symbol's ``Embedding`` op keeps ``jnp.take``'s own
+  semantics instead (wrap, then NaN rows), as the JAX package's does.
+
+``build_symbol`` gives the training symbol of the same parameters
+(Embedding, learned positions, pre-LN ``CausalSelfAttention`` blocks,
+the head and ``SoftmaxOutput``), which ``Module.fit`` trains and
+``DecodePredictor.from_module`` serves.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 from ...base import MXNetError
 from ...ops import decode_attention as _da
 
-__all__ = ["TransformerLMSpec", "init_params", "init_caches",
+__all__ = ["TransformerLMSpec", "build_symbol", "init_params", "init_caches",
            "check_kv_dtype", "KV_DTYPES", "prefill_step", "decode_step",
            "verify_step", "reprefill_step"]
 
@@ -122,6 +128,51 @@ class TransformerLMSpec:
         if check_kv_dtype(kv_dtype) == "int8":
             return rows * (self.head_dim + 4)
         return rows * self.head_dim * 4
+
+
+def build_symbol(spec, seq_len, name="softmax"):
+    """Training / scoring symbol at a fixed ``seq_len``, node for node the
+    JAX package's: ``data`` is a ``(batch, seq_len)`` token matrix, the
+    output the per-position next-token distribution; ``softmax_label``
+    binds as ``(batch, seq_len)`` shifted targets. Its parameters are
+    ``spec.param_shapes()``."""
+    from ... import symbol as sym
+
+    if seq_len > spec.max_seq:
+        raise MXNetError(
+            f"seq_len={seq_len} exceeds spec.max_seq={spec.max_seq}")
+    data = sym.Variable("data")
+    x = sym.Embedding(data=data, weight=sym.Variable("tok_emb_weight"),
+                      input_dim=spec.vocab_size,
+                      output_dim=spec.num_embed, name="tok_emb")
+    pos = sym.Variable("pos_emb_weight",
+                       shape=(spec.max_seq, spec.num_embed))
+    x = sym.broadcast_add(x, pos.slice_axis(0, 0, seq_len),
+                          name="pos_add")
+
+    def ln(h, prefix):
+        return sym.LayerNorm(h, gamma=sym.Variable(f"{prefix}_gamma"),
+                             beta=sym.Variable(f"{prefix}_beta"),
+                             axis=-1, eps=_LN_EPS, name=prefix)
+
+    def fc(h, wname, hidden):
+        return sym.FullyConnected(
+            h, weight=sym.Variable(f"{wname}_weight"), num_hidden=hidden,
+            no_bias=True, flatten=False, name=wname)
+
+    for i in range(spec.num_layers):
+        qkv = fc(ln(x, f"l{i}_ln1"), f"l{i}_qkv", 3 * spec.num_embed)
+        attn = sym.CausalSelfAttention(qkv, num_heads=spec.num_heads,
+                                       name=f"l{i}_attn")
+        x = sym.elemwise_add(x, fc(attn, f"l{i}_proj", spec.num_embed),
+                             name=f"l{i}_res1")
+        f1 = sym.Activation(fc(ln(x, f"l{i}_ln2"), f"l{i}_ffn1",
+                               spec.ffn_hidden),
+                            act_type="relu", name=f"l{i}_relu")
+        x = sym.elemwise_add(x, fc(f1, f"l{i}_ffn2", spec.num_embed),
+                             name=f"l{i}_res2")
+    logits = fc(ln(x, "lnf"), "head", spec.vocab_size)
+    return sym.SoftmaxOutput(logits, name=name)
 
 
 def init_params(spec, seed=0, scale=0.02):

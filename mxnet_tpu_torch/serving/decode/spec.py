@@ -22,21 +22,24 @@ divergence storm (windowed acceptance below ``MXTPU_SPEC_DISABLE_BELOW``,
 or the ``spec_verify`` fault site) drops to plain decode for
 ``MXTPU_SPEC_PROBE_STEPS`` rounds, then probes again.
 
-Not ported: ``distill_draft`` (it trains the draft through ``Module.fit``
-on the LM's training symbol, which waits for the port's training of this
-model) and the telemetry gauges (``report()["spec"]`` has the figures).
+:func:`distill_draft` trains a draft on the target's own greedy
+rollouts through ``Module.fit``, on the target's device.
+
+Not ported: the telemetry gauges (``report()["spec"]`` has the figures).
 """
 from __future__ import annotations
 
 import collections
 import threading
 
+import numpy as np
+
 from ... import config
 from ...base import MXNetError
 from .engine import DecodePredictor
-from .model import TransformerLMSpec
+from .model import TransformerLMSpec, build_symbol
 
-__all__ = ["SpecDecodePredictor", "make_draft_spec"]
+__all__ = ["SpecDecodePredictor", "make_draft_spec", "distill_draft"]
 
 # a degrade decision needs this many speculative rounds of evidence in
 # the window before the rate is trusted (one unlucky round is not a
@@ -63,6 +66,58 @@ def make_draft_spec(spec, num_layers=1, shrink=2, name=None):
         num_layers=int(num_layers),
         max_seq=spec.max_seq,
         name=name or f"{spec.name}-draft")
+
+
+def distill_draft(target, draft_spec, prompts=None, rollout=40,
+                  seq_len=16, num_epoch=8, batch_size=16, lr=3e-3,
+                  seed=0):
+    """Train ``draft_spec`` weights to imitate ``target``'s greedy
+    rollouts: distillation on the distribution speculation pays for (the
+    target's own argmax stream, not held-out text).
+
+    ``target`` is a :class:`DecodePredictor`; its solo ``generate``
+    produces the training stream, cut into the JAX package's windows
+    (``seq_len`` tokens and their successors, every offset). The draft
+    trains with Adam and Xavier through ``Module.fit`` on
+    ``target.device`` (the JAX package trains on its CPU context; the
+    port's entry points run on the card). Returns the trained parameter
+    dict (fp32 tensors on that device), ready for
+    :class:`SpecDecodePredictor`.
+    """
+    from ... import initializer, io, metric, module
+    rs = np.random.RandomState(seed)
+    if prompts is None:
+        prompts = [rs.randint(target.spec.vocab_size,
+                              size=n).astype(np.int32)
+                   for n in (4, 6, 8, 5, 7, 3)]
+    seqs = []
+    for p in prompts:
+        p = np.asarray(p, np.int32)
+        lim = target.gen_limit(p.shape[0], rollout)
+        toks = list(p) + list(target.generate(p, max_new_tokens=lim))
+        seqs.append(np.asarray(toks, np.int32))
+    ids = np.concatenate(seqs)
+    n = len(ids) - seq_len - 1
+    if n < batch_size:
+        raise MXNetError(
+            f"distill_draft: only {n} training windows from the "
+            f"rollouts; lower seq_len/batch_size or raise rollout")
+    data = np.stack([ids[i:i + seq_len] for i in range(n)])
+    label = np.stack([ids[i + 1:i + seq_len + 1]
+                      for i in range(n)]).astype(np.float32)
+    train_iter = io.NDArrayIter(data.astype(np.float32), label,
+                                batch_size, shuffle=True,
+                                last_batch_handle="discard")
+    mod = module.Module(symbol=build_symbol(draft_spec, seq_len),
+                        data_names=("data",),
+                        label_names=("softmax_label",),
+                        context=target.device)
+    mod.fit(train_iter, num_epoch=num_epoch, optimizer="adam",
+            optimizer_params={"learning_rate": lr},
+            initializer=initializer.Xavier(),
+            eval_metric=metric.Accuracy(axis=2, name="distill_acc"))
+    arg_params, _aux = mod.get_params()
+    return {k: v.detach().clone() for k, v in arg_params.items()}
 
 
 class SpecDecodePredictor(DecodePredictor):

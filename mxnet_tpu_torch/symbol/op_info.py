@@ -8,12 +8,15 @@ OP_INPUTS = {
     "Convolution": (["data", "weight", "bias"], []),
     "conv_s2d_stem": (["data", "weight"], []),
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
+    "LayerNorm": (["data", "gamma", "beta"], []),
+    "Embedding": (["data", "weight"], []),
     "SoftmaxOutput": (["data", "label"], []),
     "Softmax": (["data", "label"], []),
     "LinearRegressionOutput": (["data", "label"], []),
     "LogisticRegressionOutput": (["data", "label"], []),
     "MAERegressionOutput": (["data", "label"], []),
     "SVMOutput": (["data", "label"], []),
+    "CausalSelfAttention": (["data"], []),
     "Activation": (["data"], []),
     "Pooling": (["data"], []),
     "Flatten": (["data"], []),

@@ -15,7 +15,8 @@ from ... import config
 from ..symbol import Symbol, Group, _Node
 
 __all__ = ["GraphPass", "PassContext", "resolve_flag", "flag_active",
-           "rebuild_graph", "match_bn_relu_conv", "fused_bn_conv_graph"]
+           "rebuild_graph", "match_bn_relu_conv", "fused_bn_conv_graph",
+           "embedding_skip_reason"]
 
 
 def resolve_flag(value):
@@ -40,19 +41,22 @@ def flag_active(resolved, device):
 class PassContext:
     """What the caller knows about the program being rewritten: the
     entry point (``tag``), its kind (``mode`` = ``train`` / ``infer`` /
-    ``serving``), its device, its compute dtype and its bound shapes."""
+    ``serving``), its device, its compute dtype, its bound shapes and
+    the graph as it stands before the pass (``symbol``, set by the
+    manager pass by pass for the prechecks)."""
 
     __slots__ = ("tag", "mode", "device", "compute_dtype", "shapes",
-                 "data_names")
+                 "data_names", "symbol")
 
     def __init__(self, tag, mode="serving", device=None, compute_dtype=None,
-                 shapes=None, data_names=None):
+                 shapes=None, data_names=None, symbol=None):
         self.tag = tag
         self.mode = mode
         self.device = device
         self.compute_dtype = compute_dtype
         self.shapes = shapes or {}
         self.data_names = set(data_names) if data_names else None
+        self.symbol = symbol
 
 
 class GraphPass:
@@ -72,8 +76,37 @@ class GraphPass:
             return "on"
         return resolve_flag(config.get(self.flag, self.default))
 
+    def precheck(self, ctx):
+        """Applicability from the context and the current graph: a
+        string is the reason the pass is ``skipped``."""
+        return None
+
     def apply(self, sym, shapes, ctx):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+_EMBEDDING_OPS = frozenset({"Embedding", "_contrib_SparseEmbedding"})
+# the convolution anchors the conv-era rewrites match around; the fused
+# ops count, so a later pass still sees the tower an earlier one rewrote
+_CONV_ANCHOR_OPS = frozenset({"Convolution", "_FusedBNReLUConv",
+                              "_FusedBNReLUConvK"})
+
+
+def embedding_skip_reason(ctx):
+    """``embedding_graph`` for a graph with an embedding lookup and no
+    convolution (the LM): the conv-era rewrites have nothing to fuse
+    there, and say so as a skip rather than a ``no_match``. A mixed graph
+    (a conv tower beside a lookup) keeps every rewrite."""
+    sym = ctx.symbol
+    if sym is None:
+        return None
+    has_emb = has_conv = False
+    for node in sym._topo_nodes():
+        if node.op in _EMBEDDING_OPS:
+            has_emb = True
+        elif node.op in _CONV_ANCHOR_OPS:
+            has_conv = True
+    return "embedding_graph" if has_emb and not has_conv else None
 
 
 def rebuild_graph(sym: Symbol, anchors: Dict[int, dict],

@@ -4,7 +4,9 @@
 It runs the ported passes in the JAX package's order and returns the
 same report shape: one entry per pass with ``flag``, ``status``
 (``applied`` / ``no_match`` / ``disabled`` / ``inapplicable`` /
-``rejected`` / ``error``), ``reason``, ``sites`` and ``bailouts``.
+``skipped`` / ``rejected`` / ``error``), ``reason``, ``sites`` and
+``bailouts``. A pass's ``precheck`` skips it on a graph it has nothing
+to do in (the LM's embedding graph: ``embedding_graph``).
 
 Ungated in this slice: the JAX manager rejects a pass that does not
 strictly reduce XLA cost-analysis bytes (``MXTPU_PASS_GATE_BYTES``).
@@ -63,6 +65,12 @@ class PassManager:
             if mode not in p.modes:
                 entry["status"] = "inapplicable"
                 entry["reason"] = f"mode:{mode}"
+                continue
+            ctx.symbol = cur
+            reason = p.precheck(ctx)
+            if reason:
+                entry["status"] = "skipped"
+                entry["reason"] = reason
                 continue
             try:
                 new_sym, prep = p.apply(cur, shapes, ctx)

@@ -5,7 +5,7 @@ stays ``pallas_fusion`` so both packages' pass reports line up; here
 the fused op runs the hand-written CUDA kernel."""
 from __future__ import annotations
 
-from .base import GraphPass
+from .base import GraphPass, embedding_skip_reason
 
 __all__ = ["PallasFusionPass"]
 
@@ -14,6 +14,9 @@ class PallasFusionPass(GraphPass):
     name = "pallas_fusion"
     flag = "MXTPU_PALLAS_FUSION"
     modes = ("train", "infer", "serving")
+
+    def precheck(self, ctx):
+        return embedding_skip_reason(ctx)
 
     def apply(self, sym, shapes, ctx):
         from ..fusion import fuse_symbol

@@ -10,7 +10,8 @@ after pallas_fusion so the fused 1×1 kernel keeps its sites.
 """
 from __future__ import annotations
 
-from .base import GraphPass, fused_bn_conv_graph, match_bn_relu_conv
+from .base import (GraphPass, embedding_skip_reason, fused_bn_conv_graph,
+                   match_bn_relu_conv)
 
 __all__ = ["ResidualFusionPass"]
 
@@ -34,6 +35,9 @@ class ResidualFusionPass(GraphPass):
     name = "residual_fusion"
     flag = "MXTPU_PASS_RESIDUAL_FUSION"
     modes = ("train", "infer", "serving")
+
+    def precheck(self, ctx):
+        return embedding_skip_reason(ctx)
 
     def apply(self, sym, shapes, ctx):
         def site_fields(node, cattrs, dshape, node_shapes):

@@ -546,10 +546,14 @@ def _hint_param_shapes(node, in_shapes, attrs):
         num_group = int(attrs.get("num_group", 1))
         want = {"weight": (num_filter, data_shape[1] // num_group) + kernel,
                 "bias": (num_filter,)}
-    elif node.op == "BatchNorm":
-        c = data_shape[int(attrs.get("axis", 1))]
+    elif node.op in ("BatchNorm", "LayerNorm"):
+        c = data_shape[int(attrs.get("axis",
+                                     1 if node.op == "BatchNorm" else -1))]
         want = {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
                 "moving_var": (c,)}
+    elif node.op == "Embedding":
+        want = {"weight": (int(attrs.get("input_dim")),
+                           int(attrs.get("output_dim")))}
     elif node.op in ("SoftmaxOutput", "Softmax", "SVMOutput"):
         if attrs.get("multi_output"):
             want = {"label": (data_shape[0],) + tuple(data_shape[2:])}
