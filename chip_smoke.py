@@ -252,9 +252,47 @@ script exits non-zero and prints no result. Phases:
    eval forward's argmax, ``CausalSelfAttention`` forward + backward
    beside SDPA's (a yardstick), Embedding's gradient bit for bit twice.
    ``slice11_seconds`` gives each phase's seconds.
-18. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``
-   and ``fused_adam`` launches, D1 with its decode_serving launches and
-   its ``lm_spec`` launches), then the result line.
+17g. sparse_rows: ``sparse.dedup_rows``, ``segment_rows`` and the lazy
+   ``row_update_`` (sgd with momentum, adam) on the card against their
+   CPU results (duplicates, the sentinel tail, ids at 0 and vocab - 1, a
+   capacity override), two card calls bit for bit, untouched and trash
+   rows frozen; a captured dedup replayed under the sync check; a probe
+   whose sentinel aliases row 0 must fail the checks.
+17h. sparse_fit (``bench.py`` phase H: vocab 100,000, dim 16, batch 256
+   x 8 ids, SGD lr 0.1 momentum 0.9, fp32): the routed sparse step and
+   the same model on dense ``Embedding``, each captured, timed in turns
+   (ms a step by events, rows/s, host ms, the steps' peak allocation,
+   update bytes counted from shapes, ``sparse_report()``); replays
+   against eager steps bit for bit; a NaN row skipped by the guard
+   (table, moments and the other masters bit-identical, ``t`` + 1, as
+   the reference advances it); every row touched twice a step, the
+   sparse step equal to the dense one bit for bit for sgd and adam.
+   Then the vocabulary alone raised to 40,000,000 (a 2.56 GB table):
+   the same timings, and the sparse step allocating no table-sized
+   gradient where the dense one does.
+17i. two_tower: the example at its default sizes (``fit`` over a
+   ``DataPipeline`` with a ``CheckpointManager``); a ``sparse_update``
+   raise in epoch 2, then ``fit(auto_resume=True)``: tables, moments
+   and ``t`` bit for bit an uninterrupted run's; ``Predictor`` on int32
+   ids against the module's own forward.
+17j. data_pipeline: phase 7's ResNet-50 (s2d, bf16, batch 128, SGD)
+   through ``Module.fit`` over an ``NDArrayIter`` of host numpy batches
+   with ``MXTPU_DATA_PIPELINE`` 1 and 0 in turns (ms a step, img/s, the
+   replay's device ms and busy share, data waits); the parameters
+   bit-identical; K1/K2/B1/B2 launches with counts set to 0 just before
+   the first fit; the ``data_worker`` fault at ``next()`` and
+   ``close()`` within its join limit.
+17k. stager_capture: the fused step captured while a ``DataPipeline``
+   streams host batches to the card (its stager thread pinning and
+   copying on a stream of its own, as under ``fit``): the capture must
+   hold, with batches handed over during it. The same in a child
+   process with the capture in the global error mode is the fault
+   probe: it must fail (the stager's calls invalidate that capture).
+   ``slice12_seconds`` gives each phase's seconds.
+18. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
+   ``fused_adam`` and ``data_pipeline`` launches, D1 with its
+   decode_serving launches and its ``lm_spec`` launches), then the
+   result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
@@ -4943,6 +4981,765 @@ def slice11_phases(mt, torch, np, F, smi):
     return d1
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: row-sparse embedding training (bench.py phase H, the
+# two-tower example) and fit's data pipeline (phase 7's ResNet-50 over
+# host batches). No kernel of the repo lies on the sparse path: the
+# gather, the dedup and the lazy rows are the reference's jnp, plain
+# PyTorch here; the data_pipeline phase runs K1, K2, B1 and B2.
+# ---------------------------------------------------------------------------
+SP_VOCAB, SP_DIM, SP_BATCH, SP_LEN = 100_000, 16, 256, 8   # phase H
+SP_VOCAB_LARGE = 40_000_000     # MLPerf DLRM's cap on a Criteo table
+SP_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+SP_ADAM = {"learning_rate": 0.01}
+SP_STAGED = 4
+SP_AB_RUNS = ("sparse", "dense", "dense", "sparse")
+SP_AB_STEPS = 20
+SP_CHECK_STEPS = 4
+SP_TRACE = 5                    # replays in the device trace
+# dedup rows on the card against the CPU's: sums of a slot's float32
+# occurrences (up to ~2,048 in the duplicates case, values N(0, 1)) in
+# another order
+SP_ROW_TOL = 1e-3
+# row_update_ on the card against the CPU: the same float32 operations
+# (the card may contract a multiply-add)
+SP_RULE_TOL = 1e-6
+SP_DEVICE = "cuda:0"
+TT_FAULT_STEP = 40              # the two-tower default: 32 steps an epoch
+TT_PROB_TOL = 1e-5
+DP_BATCH = 128
+DP_HOST_BATCHES = 6
+DP_EPOCHS = 2
+DP_RUNS = ("1", "0", "0", "1")  # MXTPU_DATA_PIPELINE, in turns
+DP_JOIN_S = 5.0
+SC_VOCAB = 1000                 # stager_capture's table
+SC_BATCHES = 2048               # host batches of 8 x 256 fp32, cycled
+SC_LEAD = 50                    # batches taken before the capture
+SC_PROBE_S = 180                # the child process's time limit
+
+
+def sp_module(mt, torch, op, vocab, opt="sgd", params=None):
+    """bench.py phase H's model on the port: ids (batch, 8) -> ``op``
+    (vocab, 16) -> sum over the ids -> FullyConnected(2) ->
+    SoftmaxOutput, fused, Xavier from ``SEED``."""
+    d = mt.sym.Variable("data")
+    e = getattr(mt.sym, op)(data=d, input_dim=vocab, output_dim=SP_DIM,
+                            name="emb")
+    f = mt.sym.FullyConnected(mt.sym.sum(e, axis=1), num_hidden=2,
+                              name="fc")
+    m = mt.mod.Module(mt.sym.SoftmaxOutput(f, name="softmax"),
+                      context=SP_DEVICE, fused=True)
+    m.bind([("data", (SP_BATCH, SP_LEN))], [("softmax_label", (SP_BATCH,))])
+    m.init_params(mt.init.Xavier(),
+                  generator=torch.Generator().manual_seed(SEED))
+    m.init_optimizer(optimizer=opt,
+                     optimizer_params=dict(params or SP_SGD))
+    return m
+
+
+def sp_batches(mt, torch, np, vocab, n, seed, ids=None):
+    """``n`` batches of random ids in [0, vocab) (or ``ids(i)``) and
+    labels, on the card, each carrying its host copy as ``host`` (what
+    the sparse id statistics read)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        x = (ids(i) if ids is not None else
+             rng.randint(0, vocab, (SP_BATCH, SP_LEN))).astype(np.int32)
+        y = rng.randint(0, 2, (SP_BATCH,)).astype(np.float32)
+        host = mt.io.DataBatch([torch.from_numpy(x)],
+                               [torch.from_numpy(y)])
+        b = mt.io.DataBatch([host.data[0].to(SP_DEVICE)],
+                            [host.label[0].to(SP_DEVICE)])
+        b.host = host
+        out.append(b)
+    return out
+
+
+def fused_state(torch, f):
+    """A fused step's masters, optimizer state leaves and aux (their
+    views: the flat buffers' alignment padding holds nothing) and ``t``,
+    cloned where they lie; a routed table's trash rows too."""
+    out = {"t": f._t.clone()}
+    out.update({n: p.clone() for n, p in f._p.items()})
+    out.update({f"aux:{n}": a.clone() for n, a in f._aux.items()})
+    for n, leaves in f._state.items():
+        for i, x in enumerate(leaves):
+            out[f"{n}/state{i}"] = x.clone()
+    for n, t in f._tables.items():
+        out[f"{n}/trash"] = torch.stack(
+            [t[-1]] + [x[-1] for x in f._table_state[n]])
+    return out
+
+
+def sp_rules(fo):
+    return (("sgd_momentum", fo.create("sgd", momentum=0.9)),
+            ("adam", fo.create("adam")))
+
+
+def sp_rows_case(mt, torch, np, name, ids, capacity, vocab, rng):
+    """dedup / segment-sum / row_update_ of one id batch on the card
+    against the CPU; two card calls bit for bit; untouched rows and the
+    trash row frozen."""
+    from mxnet_tpu_torch.parallel import functional_opt as fo
+    rs = mt.sparse.rowsparse
+    vals = rng.standard_normal(ids.shape + (SP_DIM,)).astype(np.float32)
+    ti, tv = torch.from_numpy(ids), torch.from_numpy(vals)
+    cpu = rs.dedup_rows(ti, tv, vocab, capacity=capacity)
+    g1 = rs.dedup_rows(ti.cuda(), tv.cuda(), vocab, capacity=capacity)
+    g2 = rs.dedup_rows(ti.cuda(), tv.cuda(), vocab, capacity=capacity)
+    seg_cpu = rs.segment_rows(tv.reshape(-1, SP_DIM), ti.reshape(-1) % 97,
+                              97)
+    seg_gpu = rs.segment_rows(tv.reshape(-1, SP_DIM).cuda(),
+                              ti.reshape(-1).cuda() % 97, 97)
+    row = {"case": name, "ids": int(ids.size),
+           "unique": int(np.unique(ids).size),
+           "capacity": int(cpu.ids.shape[0]),
+           "ids_equal": bool(torch.equal(g1.ids.cpu(), cpu.ids)),
+           "rows_max_abs_err": float((g1.rows.cpu() - cpu.rows).abs().max()),
+           "segment_max_abs_err": float((seg_gpu.cpu() - seg_cpu)
+                                        .abs().max()),
+           "two_calls_bitwise": bool(torch.equal(g1.ids, g2.ids)
+                                     and torch.equal(g1.rows, g2.rows)),
+           "limit": SP_ROW_TOL, "rules": {}}
+    touched = torch.zeros(vocab + 1, dtype=torch.bool)
+    touched[torch.from_numpy(np.unique(ids)).long()] = True
+    for rname, rule in sp_rules(fo):
+        table = torch.from_numpy(rng.standard_normal(
+            (vocab + 1, SP_DIM)).astype(np.float32))
+        table[vocab] = 0
+        leaves = tuple(torch.from_numpy(np.abs(rng.standard_normal(
+            (vocab + 1, SP_DIM))).astype(np.float32) * 0.1)
+            for _ in rule.init(table))
+        for x in leaves:
+            x[vocab] = 0
+        before = [table.clone()] + [x.clone() for x in leaves]
+        lr = torch.tensor(0.1)
+        rule.row_update_(table, cpu.ids, cpu.rows, leaves, lr, 1e-4, t=3)
+        gt = before[0].cuda()
+        gl = tuple(x.cuda() for x in before[1:])
+        rule.row_update_(gt, g1.ids, g1.rows, gl, lr.cuda(), 1e-4,
+                         t=torch.tensor(3).cuda())
+        got = [gt.cpu()] + [x.cpu() for x in gl]
+        want = [table] + list(leaves)
+        frozen = all(torch.equal(g[~touched], b[~touched])
+                     for g, b in zip(got, before))
+        row["rules"][rname] = {
+            "max_abs_err": max(float((g - w).abs().max())
+                               for g, w in zip(got, want)),
+            "untouched_and_trash_frozen": frozen, "limit": SP_RULE_TOL}
+    return row, g1
+
+
+def sp_rows_failures(row):
+    fails = []
+    if not row["ids_equal"]:
+        fails.append("ids")
+    if row["rows_max_abs_err"] > SP_ROW_TOL:
+        fails.append("rows")
+    if row["segment_max_abs_err"] > SP_ROW_TOL:
+        fails.append("segment_sum")
+    if not row["two_calls_bitwise"]:
+        fails.append("determinism")
+    for rname, r in row["rules"].items():
+        if r["max_abs_err"] > SP_RULE_TOL:
+            fails.append(f"{rname} rows")
+        if not r["untouched_and_trash_frozen"]:
+            fails.append(f"{rname} untouched rows")
+    return fails
+
+
+def sparse_rows_phase(mt, torch, np):
+    """dedup, segment-sum and row_update_ on the card against their CPU
+    results (duplicates, the sentinel tail, ids at 0 and vocab - 1, a
+    capacity override), a captured dedup replayed under the sync check,
+    and the fault probe: a sentinel planted at row 0."""
+    from mxnet_tpu_torch.parallel import functional_opt as fo
+    rs = mt.sparse.rowsparse
+    rng = np.random.default_rng(SEED)
+    shape = (SP_BATCH, SP_LEN)
+    edges = rng.integers(0, SP_VOCAB, shape)
+    edges[0, 0], edges[-1, -1], edges[3, 4] = 0, SP_VOCAB - 1, 0
+    cases = (("duplicates", rng.integers(1, 50, shape), None),
+             ("sentinel_tail", rng.integers(0, SP_VOCAB, shape), None),
+             ("edges_0_and_vocab_minus_1", edges, None),
+             ("capacity_override", rng.integers(0, 300, shape), 300))
+    rows = []
+    for name, ids, cap in cases:
+        row, _ = sp_rows_case(mt, torch, np, name, ids.astype(np.int32),
+                              cap, SP_VOCAB, rng)
+        row["failures"] = sp_rows_failures(row)
+        rows.append(row)
+        emit(dict({"phase": "sparse_rows"}, **row))
+        check(not row["failures"], f"sparse_rows {name}: {row}")
+    # a captured dedup replays with no host sync, bit for bit the eager
+    ids = torch.from_numpy(cases[0][1].astype(np.int32)).cuda()
+    vals = torch.randn(shape + (SP_DIM,), device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rs.dedup_rows(ids, vals, SP_VOCAB)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = rs.dedup_rows(ids, vals, SP_VOCAB)
+    new_ids = torch.from_numpy(cases[1][1].astype(np.int32)).cuda()
+    ids.copy_(new_ids)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = rs.dedup_rows(new_ids, vals, SP_VOCAB)
+    captured_ok = bool(torch.equal(cap.ids, eager.ids)
+                       and torch.equal(cap.rows, eager.rows))
+    emit({"phase": "sparse_rows_captured", "bitwise_vs_eager": captured_ok,
+          "replayed_under": "torch.cuda.set_sync_debug_mode('error')"})
+    check(captured_ok, "a captured dedup differs from the eager one")
+    del graph, cap
+    # the probe: the sentinel of a dedup planted at row 0 (the classic
+    # padding bug), which then takes momentum and weight decay
+    real = rs.dedup_rows
+
+    def alias0(i, v, num_rows, capacity=None):
+        r = real(i, v, num_rows, capacity)
+        return rs.RowSparseRows(torch.where(r.ids == num_rows, 0, r.ids),
+                                r.rows, r.num_rows)
+
+    rs.dedup_rows = alias0
+    try:
+        probe, _ = sp_rows_case(mt, torch, np, "probe_sentinel_at_row_0",
+                                cases[0][1].astype(np.int32), None,
+                                SP_VOCAB, rng)
+    finally:
+        rs.dedup_rows = real
+    probe["failures"] = sp_rows_failures(probe)
+    emit(dict({"phase": "sparse_rows_fault_probe"}, **probe))
+    check(probe["failures"], "the sparse_rows checks pass a sentinel "
+                             "aliasing row 0")
+    return rows
+
+
+def sp_timed(torch, m, batches, n):
+    """``n`` steps of Module ``m`` over ``batches``: (ms a step on the
+    card's clock, host ms a step, peak bytes the steps allocated)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for i in range(n):
+        m.forward(batches[i % len(batches)], is_train=True)
+        m.update()
+    b.record()
+    b.synchronize()
+    host = (time.perf_counter() - t0) / n * 1e3
+    return (a.elapsed_time(b) / n, host,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def sp_update_bytes(rows):
+    """Bytes the update of ``rows`` table rows moves, counted from
+    shapes: the rows of the param, gradient and momentum read, of the
+    param and momentum written (float32)."""
+    return 5 * rows * SP_DIM * 4
+
+
+def sp_economics(mt, torch, np, smi, vocab, check_steps):
+    """The sparse and dense modules at ``vocab``, each captured, timed
+    in turns; with ``check_steps`` also replays against eager steps and
+    the guard."""
+    batches = sp_batches(mt, torch, np, vocab, SP_STAGED, SEED + 1)
+    out = {"vocab": vocab, "dim": SP_DIM, "batch": SP_BATCH,
+           "ids_per_step": SP_BATCH * SP_LEN, "card": smi,
+           "table_gb": vocab * SP_DIM * 4 / 1e9}
+    mods, first = {}, {}
+    for op, key in (("SparseEmbedding", "sparse"), ("Embedding", "dense")):
+        t0 = time.perf_counter()
+        m = sp_module(mt, torch, op, vocab)
+        # the warm (eager) step and the capture: what they allocate
+        # beyond the module (a replay allocates nothing: the graph's
+        # pool keeps what the capture took)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[:2]:
+            m.forward(b, is_train=True)
+            m.update()
+        torch.cuda.synchronize()
+        first[key] = {"peak_bytes": torch.cuda.max_memory_allocated()
+                      - base,
+                      "kept_bytes": torch.cuda.memory_allocated() - base}
+        mods[key] = m
+        out[f"{key}_setup_s"] = time.perf_counter() - t0
+    check(len(mods["sparse"]._fused._sparse_sites) == 1
+          and not mods["dense"]._fused._sparse_sites,
+          "phase H: the sparse model must route its table, the dense not")
+    runs = {"sparse": [], "dense": []}
+    mt.sparse.sparse_report(reset=True)
+    for key in SP_AB_RUNS:
+        runs[key].append(sp_timed(torch, mods[key], batches, SP_AB_STEPS))
+    rep = mt.sparse.sparse_report()
+    for key, rr in runs.items():
+        ms = [r[0] for r in rr]
+        out[key] = {"ms_per_step_events": statistics.median(ms),
+                    "ms_per_step_runs": ms,
+                    "host_ms_per_step": statistics.median(r[1] for r in rr),
+                    "rows_per_s": SP_BATCH * 1e3 / statistics.median(ms),
+                    "replay_peak_bytes": max(r[2] for r in rr),
+                    "warm_and_capture": first[key],
+                    "update_bytes_from_shapes": sp_update_bytes(
+                        SP_BATCH * SP_LEN if key == "sparse" else vocab),
+                    "captures": sum(p.captured for p in
+                                    mods[key]._fused._programs.values())}
+    # the captured programs alone: device ms a replay back to back, and
+    # the kernels of 5 replays by name (torch.profiler)
+    from mxnet_tpu_torch import profile_training as pt
+    for key, m in mods.items():
+        prog = next(p for p in m._fused._programs.values() if p.captured)
+        ms = time_ms(prog.replay, reps=3, inner=10, warmup=2)
+        tr = pt.busy_summary(pt.device_trace(lambda i: prog.replay(),
+                                             SP_TRACE), SP_TRACE)
+        out[key].update({
+            "replay_device_ms": ms,
+            "busy_share": ms / out[key]["ms_per_step_events"],
+            "kernels_per_replay_ms": tr["device_kernel_ms_per_step"],
+            "top_kernels_ms_per_replay": tr["top_kernels_ms_per_step"][:8]})
+    out["dense_gradient_bytes_from_shapes"] = vocab * SP_DIM * 4
+    out["sparse_report"] = {k: rep.get(k) for k in (
+        "dedup_ratio", "touched_rows", "steps", "ids_total", "sites",
+        "gather_bytes", "scatter_bytes")}
+    out["touched_rows_per_step"] = rep["touched_rows"] / max(rep["steps"],
+                                                             1)
+    out["sparse_over_dense_time"] = (out["sparse"]["ms_per_step_events"]
+                                     / out["dense"]["ms_per_step_events"])
+    check(rep["steps"] == 2 * SP_AB_STEPS and rep["sites"] == 1,
+          f"sparse_report counted {rep}")
+    if vocab >= SP_VOCAB_LARGE:
+        # no (vocab, dim) gradient for the routed table: what the
+        # sparse step's warm step and capture allocate (the graph pool,
+        # workspaces: ~135 MB at 100k rows too) stays far below one
+        # table, the dense step's exceeds it
+        table = vocab * SP_DIM * 4
+        sp_peak = first["sparse"]["peak_bytes"]
+        dn_peak = first["dense"]["peak_bytes"]
+        check(sp_peak < table / 10 and dn_peak > table,
+              f"warm and capture peaks at {vocab}: sparse {sp_peak}, "
+              f"dense {dn_peak}, table {table}")
+    if check_steps:
+        out["checks"] = sp_checks(mt, torch, np, mods["sparse"], vocab)
+    del mods
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_checks(mt, torch, np, m, vocab):
+    """Replays against eager steps bit for bit (fresh modules from one
+    init) and the guard skipping a NaN row on the captured module."""
+    batches = sp_batches(mt, torch, np, vocab, SP_CHECK_STEPS, SEED + 2)
+    rep, eag = (sp_module(mt, torch, "SparseEmbedding", vocab)
+                for _ in range(2))
+    for b in batches:
+        rep.forward(b, is_train=True)
+        rep.update()                 # warm, capture, replays
+        eag.forward(b, is_train=True)
+        eag._update(eager=True)
+    a, e = fused_state(torch, rep._fused), fused_state(torch, eag._fused)
+    diff = [k for k in a if not torch.equal(a[k], e[k])]
+    captures = sum(p.captured for p in rep._fused._programs.values())
+    # the guard: an out-of-range id gives a NaN row; the step is skipped
+    bad = sp_batches(mt, torch, np, vocab, 1, SEED + 3)[0]
+    bad.data[0][5, 3] = vocab + 7
+    before = fused_state(torch, m._fused)
+    skips0 = int(m._fused.fault_state[0])
+    m.forward(bad, is_train=True)
+    m.update()
+    after = fused_state(torch, m._fused)
+    changed = [k for k in before if k != "t"
+               and not torch.equal(before[k], after[k])]
+    res = {"replays_vs_eager_differ": diff, "captures": captures,
+           "guard_skip_changed": changed,
+           "guard_t_advanced": int(after["t"]) - int(before["t"]),
+           "guard_skips": int(m._fused.fault_state[0]) - skips0}
+    check(not diff and captures == 1,
+          f"sparse replays against eager steps: {res}")
+    check(not changed and res["guard_skips"] == 1
+          and res["guard_t_advanced"] == 1,
+          f"a skipped sparse step changed the state: {res}")
+    return res
+
+
+def sp_full_coverage(mt, torch, np):
+    """Every row touched twice a step (vocab = 1,024 from 2,048 ids):
+    the captured sparse step equals the captured dense step bit for bit,
+    for sgd and adam."""
+    vocab = SP_BATCH * SP_LEN // 2
+    perm = np.random.RandomState(SEED + 4)
+
+    def ids(i):
+        return perm.permutation(np.tile(np.arange(vocab), 2)) \
+            .reshape(SP_BATCH, SP_LEN)
+
+    batches = sp_batches(mt, torch, np, vocab, SP_CHECK_STEPS, SEED + 5,
+                         ids=ids)
+    out = {}
+    for opt, params in (("sgd", SP_SGD), ("adam", SP_ADAM)):
+        res = {}
+        for op in ("SparseEmbedding", "Embedding"):
+            m = sp_module(mt, torch, op, vocab, opt, params)
+            for b in batches:
+                m.forward(b, is_train=True)
+                m.update()
+            args, _ = m.get_params()
+            st = m._fused.states_snapshot()["state"]
+            res[op] = (args, st, len(m._fused._sparse_sites))
+        sp_, dn_ = res["SparseEmbedding"], res["Embedding"]
+        diff = [n for n in sp_[0] if not torch.equal(sp_[0][n].cpu(),
+                                                      dn_[0][n].cpu())]
+        diff += [f"{n}/state{i}" for n in sp_[1]
+                 for i, (x, y) in enumerate(zip(sp_[1][n], dn_[1][n]))
+                 if not np.array_equal(x, y)]
+        out[opt] = {"differ": diff, "routed": (sp_[2], dn_[2])}
+        check(not diff and sp_[2] == 1 and dn_[2] == 0,
+              f"full coverage {opt}: sparse against dense {out[opt]}")
+    return out
+
+
+def sparse_fit_phase(mt, torch, np, smi):
+    """bench.py phase H at its own sizes (vocab 100,000, dim 16, batch
+    256 x 8 ids, SGD lr 0.1 momentum 0.9, fp32), then only the vocab
+    raised to 40,000,000."""
+    res = sp_economics(mt, torch, np, smi, SP_VOCAB, True)
+    res["full_coverage"] = sp_full_coverage(mt, torch, np)
+    emit(dict({"phase": "sparse_fit"}, **res))
+    big = sp_economics(mt, torch, np, smi, SP_VOCAB_LARGE, False)
+    emit(dict({"phase": "sparse_fit_40m"}, **big))
+    return res, big
+
+
+def tt_state(np, m):
+    f = m._fused
+    args, _ = m.get_params()
+    out = {n: v.cpu().numpy() for n, v in args.items()}
+    for n, leaves in f.states_snapshot()["state"].items():
+        for i, x in enumerate(leaves):
+            out[f"{n}/state{i}"] = np.array(x)
+    out["t"] = int(f._t)
+    return out
+
+
+def two_tower_phase(mt, torch, np, smi):
+    """The two-tower example at its default sizes on the card: fit over
+    a DataPipeline with a CheckpointManager; a sparse_update raise in
+    epoch 2, then fit(auto_resume=True), bit for bit an uninterrupted
+    run; Predictor on int32 ids against the module's own forward."""
+    from mxnet_tpu_torch.examples.sparse import two_tower as tt
+    work = tempfile.mkdtemp(prefix="two_tower_")
+    kw = dict(device=SP_DEVICE, quiet=True)
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    mt.sparse.sparse_report(reset=True)
+    ref, acc = tt.train(os.path.join(work, "ref"), **kw)
+    fit_s = time.perf_counter() - t0
+    report = mt.sparse.sparse_report()
+    want = tt_state(np, ref)
+    torch.manual_seed(SEED)
+    raised = None
+    with mt.faultinject.inject(f"sparse_update:step={TT_FAULT_STEP}"):
+        try:
+            tt.train(os.path.join(work, "run"), **kw)
+        except mt.faultinject.FaultInjected as e:
+            raised = str(e)
+    torch.manual_seed(SEED + 1)
+    resumed, acc2 = tt.train(os.path.join(work, "run"), **kw)
+    got = tt_state(np, resumed)
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    # Predictor on int32 ids against the module's eval forward
+    args, aux = resumed.get_params()
+    pred = mt.serving.Predictor(
+        resumed.symbol, args, aux, data_names=("user", "item"),
+        data_shapes={"user": (1,), "item": (1,)}, buckets=(8, 32),
+        device=SP_DEVICE)
+    rng = np.random.RandomState(SEED)
+    req = {"user": rng.randint(0, 200, (32, 1)).astype(np.int32),
+           "item": rng.randint(0, 100, (32, 1)).astype(np.int32)}
+    served = pred.predict(req)
+    resumed.forward(mt.io.DataBatch(
+        [torch.from_numpy(req["user"]).to(SP_DEVICE),
+         torch.from_numpy(req["item"]).to(SP_DEVICE)]), is_train=False)
+    own = resumed.get_outputs()[0].float().cpu().numpy()
+    scores = tt.serve(resumed, n_requests=64, device=SP_DEVICE)
+    row = {"phase": "two_tower", "fit_s": fit_s, "train_acc": acc,
+           "resumed_acc": acc2, "fault": raised,
+           "fault_step": TT_FAULT_STEP, "resume_differs": differ,
+           "t": got["t"], "predictor_vs_forward_max_abs_err":
+           float(np.abs(served - own).max()), "limit": TT_PROB_TOL,
+           "batcher_rows": int(scores.shape[0]),
+           "routed": sorted(resumed._fused._routed),
+           "sparse_report": report, "card": smi}
+    emit(row)
+    check(raised is not None, "the sparse_update fault did not fire")
+    check(not differ, f"two_tower resume differs from the uninterrupted "
+                      f"run: {differ}")
+    check(row["predictor_vs_forward_max_abs_err"] <= TT_PROB_TOL
+          and served.shape == (32, 2),
+          f"two_tower Predictor against the module: {row}")
+    shutil.rmtree(work, ignore_errors=True)
+    return row
+
+
+def dp_fit(mt, torch, np, flag, it):
+    """One phase-7 ResNet-50 fit (s2d, bf16, batch 128, SGD) over ``it``
+    with ``MXTPU_DATA_PIPELINE=flag``; (row, the fused step's masters,
+    momenta and aux, launches)."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import profile_training as pt
+    fb = mt.ops.fused_bn_conv
+    m = pt.build_module(DP_BATCH, SEED)
+    events = []
+
+    def on_batch(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    it.reset()
+    mt.data_report(reset=True)
+    torch.cuda.synchronize()
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    with config.override("MXTPU_DATA_PIPELINE", flag):
+        m.fit(it, kvstore=None, optimizer="sgd",
+              optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 1e-4},
+              batch_end_callback=on_batch, num_epoch=DP_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fb.launch_counts()
+    rep = mt.data_report()
+    f = m._fused
+    steps = DP_EPOCHS * DP_HOST_BATCHES
+    gaps = [a.elapsed_time(b) for a, b in
+            zip(events[DP_HOST_BATCHES:], events[DP_HOST_BATCHES + 1:])]
+    state = fused_state(torch, f)
+    progs = [p for p in f._programs.values() if p.captured]
+    check(len(progs) == 1, f"data_pipeline fit captured {len(progs)} "
+                           "programs, 1 expected")
+    replay_ms = time_ms(progs[0].replay, reps=3, inner=5, warmup=1) \
+        if progs else float("nan")
+    ms = statistics.median(gaps)
+    row = {"pipeline": flag, "steps": steps, "fit_s": wall,
+           "ms_per_step_events": ms, "img_per_s": DP_BATCH * 1e3 / ms,
+           "replay_device_ms": replay_ms, "busy_share": replay_ms / ms,
+           "data_wait_s": rep["wait_s"], "data_waits": rep["waits"],
+           "next_calls": rep["next_calls"],
+           "starvation_fraction": rep["starvation_fraction"],
+           "launches": launches}
+    return row, state, launches, m
+
+
+def data_pipeline_phase(mt, torch, np, smi):
+    """Phase 7's ResNet-50 through Module.fit over an NDArrayIter of host
+    numpy batches, MXTPU_DATA_PIPELINE 1 and 0 in turns: ms a step,
+    img/s, busy share, data waits; the parameters bit-identical between
+    the two; the data_worker fault and close()."""
+    rng = np.random.RandomState(SEED)
+    n = DP_BATCH * DP_HOST_BATCHES
+    data = rng.rand(n, 3, 224, 224).astype(np.float32)
+    # int32 labels, as phase 7 stages them: a float32 label would be
+    # cast to bf16 with the other inputs (C-ref-3), and 999 rounds to
+    # 1000, an index past the classes
+    label = rng.randint(0, 1000, n).astype(np.int32)
+    it = mt.io.NDArrayIter(data, label, DP_BATCH)
+    rows, states, launches = [], {}, None
+    for flag in DP_RUNS:
+        row, st, la, m = dp_fit(mt, torch, np, flag, it)
+        rows.append(row)
+        states.setdefault(flag, st)
+        if launches is None:
+            launches = la
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = sorted(states["1"]) == sorted(states["0"]) and all(
+        torch.equal(states["1"][k], states["0"][k]) for k in states["1"])
+    summary = {}
+    for flag in ("1", "0"):
+        rr = [r for r in rows if r["pipeline"] == flag]
+        summary[flag] = {k: statistics.median(r[k] for r in rr) for k in (
+            "ms_per_step_events", "img_per_s", "busy_share",
+            "replay_device_ms", "data_wait_s", "starvation_fraction")}
+    # the data_worker fault surfaces at next(); close() within its limit
+    pipe = mt.data.DataPipeline(it, num_workers=2, sharding="cuda:0",
+                                name="dp_fault")
+    raised = None
+    with mt.faultinject.inject("data_worker:batch=2"):
+        try:
+            for _ in range(DP_HOST_BATCHES):
+                pipe.next()
+        except mt.faultinject.FaultInjected as e:
+            raised = str(e)
+    t0 = time.perf_counter()
+    pipe.close()
+    close_s = time.perf_counter() - t0
+    steps = DP_EPOCHS * DP_HOST_BATCHES
+    out = {"phase": "data_pipeline", "batch": DP_BATCH,
+           "host_batches": DP_HOST_BATCHES, "epochs": DP_EPOCHS,
+           "runs": rows, "median": summary, "params_bitwise_equal": same,
+           "worker_fault": raised, "close_s": close_s,
+           "close_limit_s": DP_JOIN_S, "card": smi}
+    emit(out)
+    check(same, "fit's parameters differ with and without the pipeline")
+    check(raised is not None and "data_worker" in raised,
+          "the data_worker fault did not surface at next()")
+    check(close_s < DP_JOIN_S, f"close() took {close_s} s")
+    for k, w in KERNEL_WRAPPERS.items():
+        want = {"K1": 28, "K2": 60, "B1": 44, "B2": 44}[k] * steps
+        check(launches[w] == want,
+              f"data_pipeline fit launched {k} {launches[w]} times, "
+              f"{want} expected")
+    del data, it
+    gc.collect()
+    return {k: {"launches": launches[w], "launches_per_step":
+                launches[w] / steps, "steps": steps,
+                "path": "Module.fit over an NDArrayIter of host batches "
+                        "through the DataPipeline (data_pipeline phase), "
+                        "counts set to 0 just before it"}
+            for k, w in KERNEL_WRAPPERS.items()}
+
+
+def stager_capture(mt, torch, np, mode):
+    """The sparse phase-H step at a small vocabulary captured while a
+    ``DataPipeline`` streams host batches to the card: a consumer thread
+    takes them as fast as the stager pins and copies them, so the
+    stager's calls run during the capture. ``mode``: the fused step's
+    capture error mode. A row: whether the capture held, its error, and
+    the batches handed over around it."""
+    from mxnet_tpu_torch.module.fused import FusedSymbolStep
+    rng = np.random.RandomState(SEED)
+    it = mt.io.NDArrayIter(rng.rand(SC_BATCHES * 8, 256).astype(np.float32),
+                           np.zeros(SC_BATCHES * 8, np.float32), 8)
+    pipe = mt.data.DataPipeline(it, sharding=SP_DEVICE, name="stager_capture")
+    got, errors, stop = [0], [], threading.Event()
+
+    def consume():
+        try:
+            torch.cuda.set_stream(torch.cuda.Stream(SP_DEVICE))
+            while not stop.is_set():
+                try:
+                    pipe.next()
+                except StopIteration:
+                    pipe.reset()
+                    continue
+                got[0] += 1
+        except Exception as e:      # noqa: BLE001 - reported in the row
+            errors.append(f"{type(e).__name__}: {e}"[:300])
+
+    old = FusedSymbolStep.capture_error_mode
+    FusedSymbolStep.capture_error_mode = mode
+    try:
+        m = sp_module(mt, torch, "SparseEmbedding", SC_VOCAB)
+        b = sp_batches(mt, torch, np, SC_VOCAB, 1, SEED)[0]
+        m.forward(b, is_train=True)
+        m.update()                  # the warm (eager) step
+        torch.cuda.synchronize()
+        t = threading.Thread(target=consume, daemon=True)
+        t.start()
+        deadline = time.perf_counter() + 30
+        while got[0] < SC_LEAD and not errors and \
+                time.perf_counter() < deadline:
+            time.sleep(0.001)
+        before, err = got[0], None
+        try:
+            m.forward(b, is_train=True)
+            m.update()              # captures, then replays
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 - reported in the row
+            err = f"{type(e).__name__}: {e}"[:300]
+        during = got[0] - before
+        stop.set()
+        t.join(10)
+        pipe.close()
+    finally:
+        FusedSymbolStep.capture_error_mode = old
+    progs = [p for p in m._fused._programs.values() if p.captured]
+    return {"mode": mode, "captured": err is None and len(progs) == 1,
+            "error": err, "batches_before": before,
+            "batches_during_capture": during, "consumer_errors": errors,
+            "consumer_joined": not t.is_alive()}
+
+
+def stager_capture_phase(mt, torch, np):
+    """stager_capture in this process (thread-local mode, as the port
+    captures), then the global-mode probe in a child process, which must
+    fail."""
+    row = stager_capture(mt, torch, np, "thread_local")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--stager-capture",
+         "global"], capture_output=True, text=True, timeout=SC_PROBE_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    try:
+        probe = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        probe = {"rc": proc.returncode, "stderr": proc.stderr[-600:]}
+    out = {"phase": "stager_capture", "port": row, "probe_global": probe,
+           "probe_rc": proc.returncode}
+    emit(out)
+    check(row["captured"] and not row["consumer_errors"]
+          and row["consumer_joined"],
+          f"stager_capture: the fused step's capture did not hold beside "
+          f"the pipeline's stager: {row}")
+    check(row["batches_during_capture"] > 0,
+          f"stager_capture: no batch was staged during the capture: {row}")
+    check(proc.returncode == 0 and probe.get("captured") is False,
+          f"stager_capture probe: the global-mode capture beside the "
+          f"stager did not fail: {probe}")
+
+
+def stager_capture_main(mode):
+    """``chip_smoke.py --stager-capture MODE``: one stager_capture row as
+    the last line (the child process of the stager_capture phase)."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    import mxnet_tpu_torch as mt
+    emit(stager_capture(mt, torch, np, mode))
+    sys.stdout.flush()
+    os._exit(0)     # the failed capture may leave the stager blocked
+
+
+def slice12_phases(mt, torch, np, smi):
+    """sparse_rows, sparse_fit (100k and 40M), two_tower and
+    data_pipeline (slice 12). Returns the data_pipeline phase's K1, K2,
+    B1 and B2 launches for the kernels line."""
+    seconds, t0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0[0]
+        t0[0] = time.perf_counter()
+
+    sparse_rows_phase(mt, torch, np)
+    lap("sparse_rows")
+    sparse_fit_phase(mt, torch, np, smi)
+    lap("sparse_fit")
+    two_tower_phase(mt, torch, np, smi)
+    lap("two_tower")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = data_pipeline_phase(mt, torch, np, smi)
+    lap("data_pipeline")
+    stager_capture_phase(mt, torch, np)
+    lap("stager_capture")
+    emit({"phase": "slice12_seconds", "seconds": seconds,
+          "total": sum(seconds.values())})
+    return launches
+
+
 def k4_entry(rows, name, route, launches, what):
     """A K4 user kernel's entry of the kernels line: its times at
     ``what``; launches on its path (the softmax CE's on the Gluon
@@ -5285,6 +6082,12 @@ def main():
     # 17c.-17f. the decode LM trained on the port, served, and its
     # training step at GPT-2 small's widths (slice 11) ---------------------
     d1_entry["lm_spec"] = slice11_phases(mt, torch, np, F, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17g.-17j. row-sparse embedding training and fit's data pipeline
+    # (slice 12) ------------------------------------------------------------
+    dp_launches = slice12_phases(mt, torch, np, smi)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
@@ -5316,6 +6119,7 @@ def main():
             "bound_ms": sum(row[0] * row[3] for row in rows),
             "bound_by": "bytes",
             "library_ms": sum(lib) if lib is not None else None,
+            "data_pipeline": dp_launches[key],
             "dtype": "bfloat16", "batch": TRAIN_BATCH,
             "per": "one ResNet-50 training step at batch 128 (sum over "
                    "the step's calls)", "status": "ok",
@@ -5390,4 +6194,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--stager-capture":
+        sys.exit(stager_capture_main(sys.argv[2]))
     sys.exit(main())

@@ -29,7 +29,11 @@ covers the bound ``executor.Executor`` (``Symbol.simple_bind`` /
 ``bind``, captured forward and grad programs), ``Module(fused=False)``
 with the ``optimizer.Updater``, every optimizer rule (the eager classes
 and ``parallel.functional_opt``, also inside the captured fused step)
-and ``monitor.Monitor``.
+and ``monitor.Monitor``. Slice 12 covers row-sparse embedding training:
+``sparse`` (``SparseEmbedding``, the fused step's routing and the lazy
+sgd / adam rows), ``data`` (``DataPipeline`` under ``fit``, RecordIO
+sources), ``recordio`` and the ``telemetry`` registry
+(``sparse_report()``, ``data_report()``).
 """
 from . import base, config, context
 from .base import MXNetError
@@ -59,6 +63,9 @@ from . import fault, faultinject
 from .fault import fault_report
 from . import callback, checkpoint, metric_device, model
 from . import executor, monitor
+from .checkpoint import CheckpointManager
+from . import telemetry, sparse, recordio, data
+from .data import data_report
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
@@ -67,4 +74,5 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon",
            "compile", "compile_report", "fault", "faultinject",
            "fault_report", "callback", "checkpoint", "metric_device",
-           "model", "executor", "monitor"]
+           "model", "executor", "monitor", "CheckpointManager",
+           "telemetry", "sparse", "recordio", "data", "data_report"]

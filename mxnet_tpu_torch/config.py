@@ -114,3 +114,23 @@ register("MXTPU_SPEC_PROBE_STEPS", 64, int,
 register("MXTPU_SPEC_WINDOW", 32, int,
          "Sliding window (rounds) of the speculative engine's acceptance "
          "rate, accepted-per-step figures and degrade decision")
+register("MXTPU_SPARSE_STATS", "auto", str,
+         "Per-step sparse id statistics (sparse_report): 1 = on (ids "
+         "that live only on the card are read back, a sync), 0 = off, "
+         "auto = on where the feed has a host copy of the ids, never "
+         "reading a device tensor")
+register("MXTPU_DATA_PIPELINE", "auto", str,
+         "Async host data pipeline (data/pipeline.py) wrapped around "
+         "fit()'s train iterator: worker threads, read-ahead and staging "
+         "into the step's device (pinned host memory, a copy stream), a "
+         "checkpointable cursor. 1/auto = on (on every device), 0 = off; "
+         "the batch stream is byte-identical either way")
+register("MXTPU_DATA_WORKERS", 2, int,
+         "Decode/transform worker threads per DataPipeline")
+register("MXTPU_DATA_QUEUE_DEPTH", 4, int,
+         "Bounded depth (batches) of the pipeline's work/done queues: how "
+         "far the source thread reads ahead of the workers")
+register("MXTPU_DATA_STAGE_AHEAD", 2, int,
+         "Staged batches already on the device ahead of the consumer "
+         "(2 = double buffering: the next batch is on the card before "
+         "the current step retires)")

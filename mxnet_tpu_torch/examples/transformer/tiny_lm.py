@@ -10,10 +10,11 @@ the last epoch). Serving freezes the fitted params into a
 ``DecodePredictor`` (``from_module``) and streams generations through
 the continuous batcher (``DecodeBatcher``).
 
-What differs from the JAX package's example: the port has no
-``DataPipeline`` yet (``data/pipeline.py``), so ``fit`` reads the
-``NDArrayIter`` directly; and everything runs on ``--device``
-(``cuda:0`` by default, ``cpu`` for a run without a card).
+What differs from the JAX package's example: ``fit`` wraps the
+``NDArrayIter`` in a ``DataPipeline`` itself (``MXTPU_DATA_PIPELINE``,
+on by default) where the JAX package's example builds the pipeline by
+hand; and everything runs on ``--device`` (``cuda:0`` by default,
+``cpu`` for a run without a card).
 
 The corpus is a planted-structure toy (a few sentences repeated): big
 enough that next-char accuracy well above chance shows the causal blocks

@@ -31,7 +31,10 @@ under the bind's program key, so executors with equal keys share them;
 a program owns its static inputs, and the executor copies its arrays
 in before a replay and the results out after it, into the same storage
 (``arg_dict[n][:] = x``, ``copy_params_from`` and the Updater's writes
-never rebind an array). A capture that fails raises. ``captured =
+never rebind an array). A capture that fails raises. Captures run in
+``capture_error_mode="thread_local"``, so that a ``DataPipeline``'s
+stager thread may pin and copy the next batch meanwhile (the global
+mode would let its calls invalidate the capture). ``captured =
 False`` runs the same programs eagerly (an A/B on one tree); the CPU
 always does.
 
@@ -125,11 +128,13 @@ def build_graph_fns(sym):
     ``(fwd, fwd_loss, loss_specs)``.
 
         fwd(arg_vals, aux_vals, training) -> (outs, aux_updates)
-        fwd_loss(arg_vals, aux_vals, head_grads=None)
+        fwd_loss(arg_vals, aux_vals, head_grads=None, preset=None)
             -> (scalar, (outs, aux_updates))
 
     ``arg_vals``/``aux_vals`` follow ``sym.list_arguments()`` /
-    ``list_auxiliary_states()``; ``fwd_loss`` walks in training mode."""
+    ``list_auxiliary_states()``; ``fwd_loss`` walks in training mode;
+    ``preset`` seeds node outputs (``Symbol.eval_arrays_ex``: the fused
+    step's row-sparse sites)."""
     arg_names = sym.list_arguments()
     aux_names = sym.list_auxiliary_states()
     loss_specs = collect_loss_specs(sym)
@@ -147,9 +152,10 @@ def build_graph_fns(sym):
             _amap(arg_vals, aux_vals), training=training)
         return tuple(outs), aux_updates
 
-    def fwd_loss(arg_vals, aux_vals, head_grads=None):
+    def fwd_loss(arg_vals, aux_vals, head_grads=None, preset=None):
         outs, aux_updates, captured = sym.eval_arrays_ex(
-            _amap(arg_vals, aux_vals), training=True, capture=flat_heads)
+            _amap(arg_vals, aux_vals), training=True, preset=preset,
+            capture=flat_heads)
         head_inputs, k = [], 0
         for hs in heads:
             head_inputs.append(captured[k:k + len(hs)])
@@ -361,7 +367,8 @@ class Executor:
             for n, v in vals.items():
                 prog.static[n].copy_(v)
             try:
-                prog.capture(lambda: self._body(kind, prog.static))
+                prog.capture(lambda: self._body(kind, prog.static),
+                             capture_error_mode="thread_local")
             except Exception as e:
                 raise MXNetError(f"capturing the executor program "
                                  f"{key.name} as a CUDA graph failed: "

@@ -35,6 +35,17 @@ index, batch index, call ordinal). The sites the port consults:
 - ``kv_handoff`` (``serving/decode/batcher.py``): consulted at every
   prefill-to-decode lane transfer. A fire loses the exported lane: the
   decode side re-prefills from the prompt, zero tokens dropped.
+- ``sparse_update`` (``module/fused.py``): consulted before every step
+  of a fused step with routed row-sparse tables (``step=N``, the step's
+  ``num_update``), where the rows' update would commit. A fire raises
+  before the step runs (nothing of it lands), so a checkpoint resume
+  must restore the tables and their lazy optimizer state bit for bit;
+  ``action=kill`` is the SIGKILL drill.
+- ``data_worker`` (``data/pipeline.py``): consulted in a data-pipeline
+  worker for every batch it takes (``batch=B``, the 1-based ordinal of
+  the epoch's batch; ``worker=W``). A fire raises in the worker, and the
+  error surfaces at the consumer's ``next()``; ``action=kill`` is the
+  dying-input-worker drill.
 
 The JAX package's other sites come with the subsystems that consult
 them (ROADMAP.md). The same spec always produces the same failure.

@@ -269,6 +269,11 @@ class NDArrayIter(DataIter):
                              pad=self.getpad(), index=None)
         raise StopIteration
 
+    def skip_batches(self, n):
+        """Seek ``n`` batches ahead without reading them (the data
+        pipeline's resume seeks instead of replaying)."""
+        self.cursor += int(n) * self.batch_size
+
     def _getdata(self, data_source):
         assert self.cursor < self.num_data, "DataIter needs reset."
         end = self.cursor + self.batch_size

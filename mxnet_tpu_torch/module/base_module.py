@@ -6,11 +6,16 @@ fit :376).
 ``fit`` is the reference loop: bind, init_params, init_optimizer, then
 per batch forward_backward + update + update_metric, an epoch log, the
 epoch-end callbacks, the checkpoint manager's epoch-end save and an
-optional evaluation. With ``auto_resume`` it first restores the newest
-valid checkpoint (params, optimizer state, RNG stream and the data
-cursor) and skips the epochs it completed. The JAX package's data
-pipeline wrapper (``maybe_wrap_for_fit``) and step timeline
-(``StepTimeline``) are not ported (ROADMAP queue A items 5 and 8).
+optional evaluation. Its train iterator goes through the asynchronous
+data pipeline (``data.maybe_wrap_for_fit``, ``MXTPU_DATA_PIPELINE``:
+read-ahead and staging into the step's device, the stream unchanged),
+which ``fit`` closes when it ends, also on an error. With
+``auto_resume`` it first restores the newest valid checkpoint (params,
+optimizer state, RNG stream and the data cursor) and skips the epochs
+it completed; a cursor saved under the other ``MXTPU_DATA_PIPELINE``
+setting is refused with a warning, and the data restart at a fresh
+epoch. The JAX package's step timeline (``StepTimeline``) is not
+ported (ROADMAP queue A, item 7).
 """
 from __future__ import annotations
 
@@ -201,14 +206,36 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
-        if checkpoint_manager is not None and auto_resume:
-            begin_epoch = self._resume(checkpoint_manager, train_data,
-                                       begin_epoch)
-        if validation_metric is None:
-            validation_metric = eval_metric
-        if not isinstance(eval_metric, metric_mod.EvalMetric):
-            eval_metric = metric_mod.create(eval_metric)
+        from ..data import maybe_wrap_for_fit
+        train_data, owned_pipe = maybe_wrap_for_fit(train_data, self)
+        try:
+            if checkpoint_manager is not None and auto_resume:
+                begin_epoch = self._resume(checkpoint_manager, train_data,
+                                           begin_epoch)
+            if validation_metric is None:
+                validation_metric = eval_metric
+            if not isinstance(eval_metric, metric_mod.EvalMetric):
+                eval_metric = metric_mod.create(eval_metric)
+            self._fit_loop(train_data, eval_data, eval_metric,
+                           validation_metric, epoch_end_callback,
+                           batch_end_callback, eval_end_callback,
+                           eval_batch_end_callback, begin_epoch, num_epoch,
+                           checkpoint_manager)
+        finally:
+            if owned_pipe is not None:
+                # fit made the pipeline: join its threads even when
+                # training dies mid-epoch
+                owned_pipe.close()
+        if checkpoint_manager is not None:
+            # an async save still writing is joined (and its failure
+            # raised) before fit returns
+            checkpoint_manager.wait()
 
+    def _fit_loop(self, train_data, eval_data, eval_metric,
+                  validation_metric, epoch_end_callback, batch_end_callback,
+                  eval_end_callback, eval_batch_end_callback, begin_epoch,
+                  num_epoch, checkpoint_manager):
+        """The epochs of :meth:`fit`."""
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -266,10 +293,6 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
-        if checkpoint_manager is not None:
-            # an async save still writing is joined (and its failure
-            # raised) before fit returns
-            checkpoint_manager.wait()
 
     def _resume(self, checkpoint_manager, train_data, begin_epoch):
         """Restore the newest valid checkpoint into this module and the
@@ -285,6 +308,14 @@ class BaseModule:
                                                None)):
             # the saved cursor is the end-of-epoch state from before the
             # stop: replay the epoch-end reset() that run never reached
-            train_data.set_state(ds)
-            train_data.reset()
+            try:
+                train_data.set_state(ds)
+                train_data.reset()
+            except (ValueError, NotImplementedError) as e:
+                # a cursor of another iterator regime (the data pipeline
+                # toggled between save and resume): the params resume,
+                # the data restart at a fresh epoch
+                self.logger.warning(
+                    "Auto-resume could not restore the data cursor (%s); "
+                    "the input stream restarts from a fresh epoch", e)
         return begin_epoch

@@ -26,7 +26,12 @@ capture.
 A replay's outputs live in the graph's memory and the next replay
 overwrites them: ``step`` returns copies, and ``last_loss`` is one. A
 capture that fails raises; there is no fallback to the eager step. The
-CPU runs ``step_eager``, the same arithmetic without a graph.
+capture runs in ``capture_error_mode="thread_local"``: under ``fit`` a
+``DataPipeline``'s stager thread goes on pinning and copying the next
+batches on a stream of its own while the step is captured, and in the
+global mode any such call (a pinned allocation, an event query)
+invalidates the capture. The CPU runs ``step_eager``, the same
+arithmetic without a graph.
 
 The optimizer is any rule of ``parallel/functional_opt.py``. Each
 state leaf is parameter-shaped (one flat buffer laid out as the masters)
@@ -67,10 +72,28 @@ JAX package's fused step does (the same pickled object, leaf for leaf,
 for every rule; ``set_states`` sets ``t`` from ``num_update``), so
 either package resumes from the other's file.
 
+Row-sparse embedding routing (the JAX package's): ``start`` scans the
+rewritten graph for ``SparseEmbedding`` sites (``sparse.find_sites``).
+With a lazy rule (sgd, adam: ``lazy_update``) each routed table leaves
+the differentiated set: the step gathers the rows its ids name and makes
+them the leaf the backward differentiates, deduplicates that gradient to
+sorted unique rows (``sparse.dedup_rows``) and applies it with
+``row_update_``; no ``(vocab, dim)`` gradient exists in the program. A
+routed table and each of its state leaves live in a buffer of their own
+with one trash row past the end: the sentinel slots of the dedup and any
+out-of-range id name it, and it never changes (a sentinel slot writes
+back what it read); the table's views, ``params()``, ``get_states`` and
+checkpoints expose only the real rows. The guard selects a routed
+table's new rows against its old rows before the write, so it copies no
+table. Without a lazy rule, or for a tied weight, a site takes the dense
+path, counted in ``sparse::dense_fallback``. The sites are program-key
+material; the ``sparse_update`` fault site and the host id statistics
+(``sparse.note_step_ids``) run before each step.
+
 Not ported (ROADMAP queue A): the device mesh and data-parallel batch
-sharding, the ZeRO-1 sharded update, partition rules, row-sparse
-embedding routing and lazy row updates, the persistent program cache (a
-CUDA graph cannot be serialized) and small-parameter packing (the
+sharding, the ZeRO-1 sharded update, partition rules, the mesh-sharded
+tables, the persistent program cache (a CUDA graph cannot be
+serialized) and small-parameter packing (the
 parameters of each (lr_mult, wd) group lie side by side in the flat
 buffers instead, and an elementwise rule with parameter-shaped leaves
 updates each group as one slice, its gradients gathered into one padded
@@ -138,6 +161,10 @@ class FusedSymbolStep:
     into them. The masters take no gradient themselves; each training forward
     differentiates leaves that alias them."""
 
+    # other threads (a DataPipeline's stager) stay free to call the
+    # runtime while a step is captured: see the module docstring
+    capture_error_mode = "thread_local"
+
     def __init__(self, symbol, data_names, label_names, param_names,
                  aux_names, trainable, optimizer, compute_dtype=None,
                  device=None):
@@ -157,15 +184,9 @@ class FusedSymbolStep:
                           for n in self.param_names}
         self._wd_eff = {n: optimizer.wd * optimizer.wd_mult.get(n, 1.0)
                         for n in self.param_names}
-        # params sharing (lr_mult, wd) update together, laid out side by
-        # side in the flat buffers: one slice per group for an
-        # elementwise rule, one foreach launch per operation otherwise
-        groups = {}
-        for n in self.param_names:
-            if self.trainable[n]:
-                groups.setdefault((self._lr_mults[n], self._wd_eff[n]),
-                                  []).append(n)
-        self._groups = sorted(groups.items())
+        self._sparse_sites = []  # routed SparseEmbedding sites (start)
+        self._routed = {}        # routed table name -> vocab
+        self._set_groups()
         self.pass_report = None
         self._fwd_loss = None
         self._run_arg_names = symbol.list_arguments()
@@ -195,6 +216,18 @@ class FusedSymbolStep:
         self.metric_detach_epoch = 0
         self._slots_version = 0    # bumped when slots are added or dropped
 
+    def _set_groups(self):
+        """Params sharing (lr_mult, wd) update together, laid out side by
+        side in the flat buffers: one slice per group for an elementwise
+        rule, one foreach launch per operation otherwise. Routed tables
+        are in no group."""
+        groups = {}
+        for n in self.param_names:
+            if self.trainable[n] and n not in self._routed:
+                groups.setdefault((self._lr_mults[n], self._wd_eff[n]),
+                                  []).append(n)
+        self._groups = sorted(groups.items())
+
     @property
     def started(self):
         return self._p is not None
@@ -220,6 +253,7 @@ class FusedSymbolStep:
         _, self._fwd_loss, _ = build_graph_fns(run_sym)
         self._run_arg_names = run_sym.list_arguments()
         self._run_aux_names = run_sym.list_auxiliary_states()
+        self._find_sparse_sites(run_sym, shapes)
         self.load_params(arg_dict, aux_dict)
         self._init_state()
         self._lr = torch.full((), float(self.optimizer.lr),
@@ -233,6 +267,28 @@ class FusedSymbolStep:
                                        device=self.device)
         self._skip_lag.clear()
         fault.register_guard(self)
+
+    def _find_sparse_sites(self, run_sym, shapes):
+        """The row-sparse sites of the rewritten graph (the JAX package's
+        detection at ``start``): routed when the rule has a lazy form
+        and the table is trainable; tied tables and sites without a lazy
+        rule are counted in ``sparse::dense_fallback``."""
+        from ..sparse.embedding import find_sites
+        from ..telemetry import registry as treg
+        tied = []
+        sites = find_sites(run_sym, self.param_names, self.input_names,
+                           shapes, fallbacks=tied)
+        if tied:
+            treg.counter("sparse::dense_fallback").inc(len(tied))
+        self._sparse_sites = []
+        if sites and self._fopt.row_update is None:
+            treg.counter("sparse::dense_fallback").inc(len(sites))
+        elif sites:
+            self._sparse_sites = [s for s in sites
+                                  if self.trainable.get(s.weight_name)]
+            treg.gauge("sparse::sites").set(len(self._sparse_sites))
+        self._routed = {s.weight_name: s.vocab for s in self._sparse_sites}
+        self._set_groups()
 
     def _init_state(self):
         """One flat fp32 buffer per state leaf: a parameter-shaped leaf
@@ -252,6 +308,13 @@ class FusedSymbolStep:
         leaves = [_views(b, lay) for b, lay in
                   zip(self._flat_state, self._leaf_layouts)]
         self._state = {n: tuple(v[n] for v in leaves) for n in names}
+        # a routed table's leaves: buffers shaped as the table (trash row
+        # included), the real rows exposed
+        self._table_state = {
+            n: tuple(torch.zeros_like(t) for _ in proto)
+            for n, t in self._tables.items()}
+        for n, leaves in self._table_state.items():
+            self._state[n] = tuple(x[:self._routed[n]] for x in leaves)
         self._fill_state()
 
     def _fill_state(self):
@@ -277,14 +340,23 @@ class FusedSymbolStep:
             self._p_layout, size = _layout(
                 {n: arg_dict[n].shape for _, ns in self._groups
                  for n in ns}, _ALIGN)
+            # a routed table: its own buffer with one trash row past the
+            # end (zeros, never written)
+            self._tables = {
+                n: torch.zeros((v + 1,) + tuple(arg_dict[n].shape[1:]),
+                               dtype=torch.float32, device=self.device)
+                for n, v in self._routed.items()}
             self._zpad = torch.zeros(_ALIGN, dtype=torch.float32,
                                      device=self.device)
             self._flat_p = torch.zeros(size, dtype=torch.float32,
                                        device=self.device)
             flat = _views(self._flat_p, self._p_layout)
-            self._p = {n: flat[n] if n in flat else torch.empty(
-                arg_dict[n].shape, dtype=torch.float32, device=self.device)
-                for n in self.param_names}
+            self._p = {n: flat[n] if n in flat
+                       else self._tables[n][:self._routed[n]]
+                       if n in self._tables else torch.empty(
+                           arg_dict[n].shape, dtype=torch.float32,
+                           device=self.device)
+                       for n in self.param_names}
             self._aux_layout, size = _layout(
                 {n: aux_dict[n].shape for n in self.aux_names}, 1)
             self._flat_aux = torch.zeros(size, dtype=torch.float32,
@@ -327,9 +399,11 @@ class FusedSymbolStep:
 
     def _values(self, vals, params=None):
         """Graph argument and aux values from device inputs ``vals`` and
-        ``params`` (default: the masters)."""
+        ``params`` (default: the masters). A routed table goes in as it
+        is: only its sites read it, and their outputs are preset."""
         params = self._p if params is None else params
-        arg_vals = [self._cast(params[n]) if n in params
+        arg_vals = [params[n] if n in self._routed
+                    else self._cast(params[n]) if n in params
                     else self._cast(vals[n]) for n in self._run_arg_names]
         aux_vals = [self._cast(self._aux[n]) for n in self._run_aux_names]
         return arg_vals, aux_vals
@@ -340,12 +414,41 @@ class FusedSymbolStep:
         ties a leaf's gradient accumulator to the stream it was made on,
         and a capture must not reach back to one made by an earlier
         step on another stream."""
-        self._leaves = {n: p.detach().requires_grad_(self.trainable[n])
-                        for n, p in self._p.items()}
+        self._leaves = {n: p.detach().requires_grad_(
+            self.trainable[n] and n not in self._routed)
+            for n, p in self._p.items()}
+        preset = self._site_rows(vals)
         with torch.enable_grad():
             arg_vals, aux_vals = self._values(vals, self._leaves)
-            loss, (outs, aux_up) = self._fwd_loss(arg_vals, aux_vals)
+            loss, (outs, aux_up) = self._fwd_loss(arg_vals, aux_vals,
+                                                  preset=preset)
         return loss, outs, aux_up
+
+    def _site_rows(self, vals):
+        """Each routed site's gathered rows, a fresh leaf the backward
+        differentiates, preset as the site's output (None without
+        sites). Ids are taken as the JAX package's gather takes them:
+        ``[-V, -1]`` wraps, any other out-of-range id reads the trash
+        row and gives a NaN row. ``self._site_ids`` keeps each site's
+        normalized flat ids for the dedup."""
+        self._site_leaves, self._site_ids = [], []
+        if not self._sparse_sites:
+            return None
+        from ..sparse.rowsparse import _table_index
+        preset = {}
+        for s in self._sparse_sites:
+            ids = vals[s.ids_name]
+            idx = _table_index(ids, s.vocab)
+            rows = self._tables[s.weight_name].index_select(
+                0, idx.reshape(-1)).reshape(tuple(idx.shape) + (s.dim,))
+            rows = torch.where((idx < s.vocab).unsqueeze(-1), rows,
+                               float("nan"))
+            leaf = rows.requires_grad_(True)
+            self._site_leaves.append(leaf)
+            self._site_ids.append(idx.reshape(-1))
+            with torch.enable_grad():
+                preset[(id(s.node), 0)] = self._cast(leaf)
+        return preset
 
     def forward_loss(self, feed):
         """The training forward on ``feed``, recorded for the backward:
@@ -357,12 +460,24 @@ class FusedSymbolStep:
     def backward(self, loss):
         """{param: fp32 gradient} of ``loss`` (params the graph does not
         read, such as fix_gamma's gamma, get zeros, as ``jax.grad``
-        gives)."""
+        gives); a routed table's is a ``sparse.RowSparseRows``: its
+        sites' row gradients merged and deduplicated."""
+        from ..sparse.rowsparse import dedup_rows
         names = [n for _, ns in self._groups for n in ns]
-        grads = torch.autograd.grad(loss, [self._leaves[n] for n in names],
-                                    allow_unused=True,
-                                    materialize_grads=True)
-        return dict(zip(names, grads))
+        grads = torch.autograd.grad(
+            loss, [self._leaves[n] for n in names] + self._site_leaves,
+            allow_unused=True, materialize_grads=True)
+        out = dict(zip(names, grads[:len(names)]))
+        merged = {}
+        for s, ids, g in zip(self._sparse_sites, self._site_ids,
+                             grads[len(names):]):
+            merged.setdefault(s.weight_name, []).append(
+                (ids, g.reshape(-1, s.dim).float()))
+        for n, parts in merged.items():
+            ids = torch.cat([p[0] for p in parts])
+            g = torch.cat([p[1] for p in parts])
+            out[n] = dedup_rows(ids, g, num_rows=self._routed[n])
+        return out
 
     def _update(self, grad, aux_up, finite=None):
         """The optimizer update of the fp32 masters at the device lr
@@ -379,6 +494,12 @@ class FusedSymbolStep:
                 (aux_up[n] if n in aux_up else self._aux[n]).reshape(-1)
                 for n in self.aux_names]).to(torch.float32) \
                 if self.aux_names else None
+            for n in self._routed:
+                self._fopt.row_update_(
+                    self._tables[n], grad[n].ids, grad[n].rows,
+                    self._table_state[n],
+                    self._group_lr(self._lr_mults[n]), self._wd_eff[n],
+                    t=t1, finite=finite)
             if finite is None:
                 for (lr_mult, wd), ns in self._groups:
                     self._fopt.update_(*self._operands(grad, ns),
@@ -461,7 +582,9 @@ class FusedSymbolStep:
         gradient (one fp32 scalar; a NaN or Inf anywhere propagates, and
         an overflow of the sum itself is a gradient explosion) is
         finite."""
-        norms = torch._foreach_norm(list(grads.values()), 1)
+        norms = torch._foreach_norm(
+            [g.rows if n in self._routed else g for n, g in grads.items()],
+            1)
         return torch.isfinite(torch.stack(norms).sum())
 
     def _advance_metrics(self, vals, outs, finite):
@@ -515,6 +638,20 @@ class FusedSymbolStep:
             self._advance_fault_state(finite)
         return loss.detach(), [o.detach() for o in outs]
 
+    def _sparse_hooks(self, feed, host):
+        """Before a step with routed sites: the ``sparse_update`` fault
+        site (``step=N``; a raise fails the step before it runs,
+        ``action=kill`` is the SIGKILL drill) and the host id
+        statistics."""
+        if not self._sparse_sites:
+            return
+        if faultinject.fire("sparse_update", step=self.num_update):
+            raise faultinject.FaultInjected("sparse_update",
+                                            step=self.num_update)
+        from .. import sparse as _sparse
+        if _sparse.stats_enabled():
+            _sparse.note_step_ids(self._sparse_sites, feed, host)
+
     def _poisoned(self, vals):
         """The ``nan_grad:step=N`` fault site: the float data inputs of
         step N times NaN, before they reach the step (the same program
@@ -536,24 +673,28 @@ class FusedSymbolStep:
         self._check_abort()
         return outs
 
-    def step_eager(self, feed, lr=None):
+    def step_eager(self, feed, lr=None, host=None):
         """One step without a graph: every kernel launched from Python.
         Returns the graph's outputs; the loss stays on the device in
-        ``last_loss``."""
+        ``last_loss``. ``host``: a host copy of the feed, read only by
+        the sparse id statistics."""
         if not self.started:
             raise MXNetError("FusedSymbolStep used before start()")
+        self._sparse_hooks(feed, host)
         return self._run_eager(self._poisoned(self._inputs(feed)), lr)
 
-    def step(self, feed, lr=None):
+    def step(self, feed, lr=None, host=None):
         """One training step on ``feed`` ({input name: tensor or array});
         ``lr``, when given, is written into the lr scalar first (the
         caller applies the schedule). On a CUDA device the captured
         program of the feed's signature and the attached metric slots
         (see the module docstring); on the CPU the eager step. Returns
         the graph's outputs (copies); the loss stays on the device in
-        ``last_loss``."""
+        ``last_loss``. ``host``: a host copy of the feed, read only by
+        the sparse id statistics."""
         if not self.started:
             raise MXNetError("FusedSymbolStep used before start()")
+        self._sparse_hooks(feed, host)
         vals = self._poisoned(self._inputs(feed))
         sig = compile_mod.arg_signature(list(vals.values()))
         pkey = (sig, self._slots_version)
@@ -600,6 +741,7 @@ class FusedSymbolStep:
                        for n, v in vals.items()}
         try:
             prog.capture(lambda: self._body(prog.static),
+                         capture_error_mode=self.capture_error_mode,
                          generators=(self._gen,) if self._gen is not None
                          else ())
         except Exception as e:
@@ -778,11 +920,17 @@ class FusedSymbolStep:
         self.num_update = int(obj["num_update"])
         self._t.fill_(self.num_update)
 
+    def staging_sharding(self):
+        """Where ``fit``'s data pipeline stages batches: the step's
+        device."""
+        return self.device
+
     def _program_key(self, sig):
         """The step program's key at one feed signature (the JAX
         package's materials, ``mxnet_tpu/module/fused.py``
-        ``_program_key``: the guard flag and the metric slots' signatures
-        among them, less the mesh and sparse ones this port lacks)."""
+        ``_program_key``: the guard flag, the metric slots' signatures
+        and the routed sparse sites among them, less the mesh ones this
+        port lacks)."""
         from ..symbol import passes as _passes
         if self._symbol_sha is None:
             self._symbol_sha = compile_mod.symbol_digest(self.symbol)
@@ -795,7 +943,8 @@ class FusedSymbolStep:
                      "torch.", ""),
                  "trainable": sorted((n, bool(v))
                                      for n, v in self.trainable.items()),
-                 "metrics": repr(tuple(self._metric_sigs))}
+                 "metrics": repr(tuple(self._metric_sigs)),
+                 "sparse": [s.describe() for s in self._sparse_sites]}
         return compile_mod.program_key(
             "fused_step", f"fused_step:{self.symbol.name}",
             symbol_sha=self._symbol_sha, input_sigs=sig,

@@ -137,6 +137,7 @@ class Module(BaseModule):
         self._updater = None
         self._fused = None
         self._feed = None
+        self._host_feed = None
         self._outputs = []
         self._outputs_from_step = False
         self._params_dirty = False
@@ -485,6 +486,11 @@ class Module(BaseModule):
         self._feed = None
         if is_train and self._fused is not None:
             self._feed = feed
+            # the host batch a DataPipeline staged from, for the sparse
+            # id statistics (read no device tensor)
+            host = getattr(data_batch, "host", None)
+            self._host_feed = self._batch_feed(host) \
+                if host is not None else None
             mon = self._monitor
             if mon is not None and mon.activated:
                 # a monitored batch: the tapped forward and backward at
@@ -542,7 +548,7 @@ class Module(BaseModule):
         self._fused.set_lr(o.lr_scheduler(nu) if o.lr_scheduler is not None
                            else o.lr)
         step = self._fused.step_eager if eager else self._fused.step
-        self._outputs = step(self._feed)
+        self._outputs = step(self._feed, host=self._host_feed)
         self._outputs_from_step = True
         self._feed = None
         self._params_dirty = True

@@ -156,3 +156,24 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
     return torch.where(valid.unsqueeze(-1), rows,
                        torch.full((), float("nan"), dtype=rows.dtype,
                                   device=rows.device))
+
+
+@register_op("_contrib_SparseEmbedding", aliases=["SparseEmbedding"])
+def sparse_embedding(data, weight, input_dim=None, output_dim=None,
+                     dtype="float32", sparse_grad=True, **kw):
+    """``Embedding``'s forward whose weight gradient is built from
+    deduplicated rows (``sparse/embedding.py``); the fused Module step
+    routes these nodes row-sparse and never builds the dense table
+    gradient."""
+    from ..sparse.embedding import sparse_embedding as _fn
+    return _fn(data, weight)
+
+
+@register_op("_contrib_sparse_segment_sum")
+def sparse_segment_sum(data, segment_ids, num_segments=None, **kw):
+    """Sums ``data`` rows into ``num_segments`` buckets (the dedup's
+    building block, ``sparse/rowsparse.segment_rows``)."""
+    from ..sparse.rowsparse import segment_rows
+    n = int(num_segments) if num_segments is not None \
+        else int(data.shape[0])
+    return segment_rows(data, segment_ids, n)

@@ -40,8 +40,24 @@ is sgld's noise source, a ``torch.Generator`` on the parameters' device
 step registers its generator with the graph. Momentum, betas, wd and the
 other hyperparameters stay constants of the rule.
 
-Not ported: ``row_update`` (the lazy row-sparse rule) comes with sparse
-gradients.
+sgd and adam also have a lazy row-sparse rule (``lazy_update``, True by
+default; ``row_supported()``), the JAX package's ``row_update``: only the
+rows a batch touched advance (weight decay on touch, the momentum and
+moments of untouched rows frozen, Adam's bias correction from the global
+count ``t``). It runs the dense rule's own body on the gathered rows, so
+at full coverage it is the dense update bit for bit:
+
+    row_update(p, uids, rows, state, lr, t, wd)  -> (new_p, new_state)
+    row_update_(table, ids, rows, state, lr, wd, t=1, finite=None)
+
+``row_update_`` updates in place a table that carries one trash row past
+its ``V`` real rows, and its state leaves laid out the same; ``ids`` lie
+in ``[0, V]``, the sentinel ``V`` naming the trash row. The touched rows
+are gathered, the body runs on them, and a sentinel slot (or every slot,
+when the 0-dim bool ``finite`` is False: the fused step's guard) writes
+back what it read, so the trash row and a skipped step's rows never
+change. ``row_update`` is the pure form over a ``(V, dim)`` table: it
+appends the trash row to copies and runs ``row_update_`` on them.
 """
 from __future__ import annotations
 
@@ -49,7 +65,8 @@ import math
 
 import torch
 
-__all__ = ["FunctionalOptimizer", "create", "from_optimizer", "supported"]
+__all__ = ["FunctionalOptimizer", "create", "from_optimizer", "supported",
+           "row_supported"]
 
 # test hook: sgld's noise is multiplied by this (0 leaves the rule's
 # deterministic part, which tests hold against the JAX rule exactly)
@@ -138,12 +155,14 @@ class FunctionalOptimizer:
     ``elementwise``: the update is per element given (lr, wd), so a flat
     concatenation of parameters updates exactly (the per-tensor-norm
     rules, lbsgd/lars with ``warmup_strategy='lars'``, are not);
-    ``needs_key``: the rule draws noise (sgld)."""
+    ``needs_key``: the rule draws noise (sgld); ``lazy``: the rule has a
+    lazy row-sparse form (``row_update`` is None otherwise)."""
 
     def __init__(self, name, init_fn, body=None, needs_key=False,
-                 elementwise=True, inplace=None):
+                 elementwise=True, inplace=None, lazy=False):
         self.name = name
         self.init = init_fn
+        self.row_update = self._row_update if lazy else None
         self._body = body      # (P, G, [leaf _V], lr, t, wd, key) -> ...
         # or, for a rule written in place (sgd): (params, grads,
         # [leaf lists], lr, wd, donate) -> None, grads written only when
@@ -196,6 +215,46 @@ class FunctionalOptimizer:
             torch._foreach_copy_([s[j] for s in dst_s], v.ts)
 
 
+    def row_update_(self, table, ids, rows, state, lr, wd=0.0, t=1,
+                    finite=None):
+        """The lazy row rule in place (see the module docstring): the
+        rows of ``table`` (fp32, ``(V + 1, dim)``, row ``V`` the trash
+        row) and of its ``state`` leaves named by ``ids`` (int64
+        ``(capacity,)`` in ``[0, V]``) take one update from their summed
+        gradient ``rows``; sentinel slots, and all slots when ``finite``
+        is False, write back the rows they read."""
+        if self.row_update is None:
+            raise ValueError(f"optimizer '{self.name}' has no lazy row "
+                             "rule")
+        trash = table.shape[0] - 1
+        old_p = table.index_select(0, ids)
+        old_s = tuple(x.index_select(0, ids) for x in state)
+        new_p = torch.empty_like(old_p)
+        new_s = tuple(torch.empty_like(x) for x in old_s)
+        self.update_([old_p], [rows], [old_s], lr, wd,
+                     out=([new_p], [new_s]), t=t)
+        keep = (ids == trash).unsqueeze(-1)
+        if finite is not None:
+            keep = keep | torch.logical_not(finite)
+        table.index_copy_(0, ids, torch.where(keep, old_p, new_p))
+        for x, o, n in zip(state, old_s, new_s):
+            x.index_copy_(0, ids, torch.where(keep, o, n))
+
+    def _row_update(self, p, uids, rows, s, lr, t, wd=0.0):
+        """The pure lazy row rule over a ``(V, dim)`` table ``p``:
+        ``(new_p, new_state)``; ``uids`` as ``dedup_rows`` gives them
+        (sorted, the sentinel ``V`` at the tail)."""
+        from ..sparse.rowsparse import _table_index
+        v = p.shape[0]
+        ids = _table_index(uids, v)
+        pad = p.new_zeros((1,) + tuple(p.shape[1:]))
+        table = torch.cat([p, pad])
+        state = tuple(torch.cat([x, torch.zeros_like(pad, dtype=x.dtype)])
+                      for x in s)
+        self.row_update_(table, ids, _f32(rows), state, _f32(lr), wd, t=t)
+        return table[:v], tuple(x[:v] for x in state)
+
+
 _FACTORIES = {}
 
 
@@ -209,6 +268,12 @@ def _factory(*names):
 
 def supported():
     return sorted(_FACTORIES)
+
+
+def row_supported():
+    """Optimizer names with a lazy row-sparse rule."""
+    return sorted(n for n in _FACTORIES
+                  if create(n).row_update is not None)
 
 
 _COMMON_KEYS = {"rescale_grad", "clip_gradient"}
@@ -316,7 +381,8 @@ def _make_sgd(kw):
         else:
             torch._foreach_sub_(params, step)
 
-    return FunctionalOptimizer("sgd", init, inplace=inplace)
+    return FunctionalOptimizer("sgd", init, inplace=inplace,
+                               lazy=kw.get("lazy_update", True))
 
 
 @_factory("nag")
@@ -409,7 +475,8 @@ def _make_adam(kw):
         lr_t = lr * torch.sqrt(1 - _pow(beta2, tf)) / (1 - _pow(beta1, tf))
         return p - lr_t * mean / (var.sqrt() + epsilon), (mean, var)
 
-    return FunctionalOptimizer("adam", init, body)
+    return FunctionalOptimizer("adam", init, body,
+                               lazy=kw.get("lazy_update", True))
 
 
 @_factory("adamax")

@@ -10,6 +10,7 @@ OP_INPUTS = {
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
     "LayerNorm": (["data", "gamma", "beta"], []),
     "Embedding": (["data", "weight"], []),
+    "_contrib_SparseEmbedding": (["data", "weight"], []),
     "SoftmaxOutput": (["data", "label"], []),
     "Softmax": (["data", "label"], []),
     "LinearRegressionOutput": (["data", "label"], []),

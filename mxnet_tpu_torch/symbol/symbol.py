@@ -551,7 +551,7 @@ def _hint_param_shapes(node, in_shapes, attrs):
                                      1 if node.op == "BatchNorm" else -1))]
         want = {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
                 "moving_var": (c,)}
-    elif node.op == "Embedding":
+    elif node.op in ("Embedding", "_contrib_SparseEmbedding"):
         want = {"weight": (int(attrs.get("input_dim")),
                            int(attrs.get("output_dim")))}
     elif node.op in ("SoftmaxOutput", "Softmax", "SVMOutput"):
