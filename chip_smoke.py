@@ -289,9 +289,39 @@ script exits non-zero and prints no result. Phases:
    process with the capture in the global error mode is the fault
    probe: it must fail (the stager's calls invalidate that capture).
    ``slice12_seconds`` gives each phase's seconds.
-18. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
+18a. lstm_cell (slice 13): L1, the LSTM cell's pointwise pass in Triton
+   (``kernels/lstm_cell_triton.py``), forward and backward at
+   bench_lstm.py's (N, H) = (512, 650), bf16 and fp32, against its plain
+   versions (fp32 within ``L1_FP32_TOL``, bf16 within one rounding,
+   ``L1_BF16_REL``), ms beside the plain versions' and the bytes bound.
+18b. rnn_op: the ``RNN`` op (lstm, T 35, N 512, C = H 650, 2 layers)
+   forward + backward, bf16 and fp32, against the same op with the cell
+   in plain PyTorch and against cuDNN (``torch.nn.LSTM`` with the same
+   weights, timed and compared only: the port never calls it), rel L2
+   within ``RNN_TOL``; L1 launches twice a step and layer, the plain
+   path none. The port and the plain path are timed eagerly and as a
+   captured CUDA graph (their device time alone), cuDNN eagerly.
+18c. lstm_trainstep: bench_lstm.py's configuration, nothing cut (vocab
+   33,278, embed 650, 2 x 650 LSTM, batch 512, bptt 35, SGD momentum 0.9
+   lr 0.1, bf16 over fp32 masters) through ``parallel.TrainStep``: the
+   warm step, the capture, a replay bit for bit against an eager step
+   from the same state, captured and eager runs in turns (host and event
+   ms, tokens/s), L1's launches a step (140, counted from the replays
+   and the eager steps), memory, busy share and the top kernels
+   (torch.profiler).
+18d. word_lm: the port's ``train.py`` (the eager Gluon loop) at its
+   defaults for one epoch: its validation perplexity within
+   ``WLM_PPL_MARGIN`` of the JAX package's CPU figure
+   (``WLM_JAX_VAL_PPL``), tokens/s, L1 launches.
+18e. lstm_bucketing: the example's defaults for 2 epochs through
+   ``BucketingModule.fit``: the final Train-perplexity below 170 and at
+   most the first; every executor program captured once and replayed
+   (``compile_report()``); ms a step per bucket in epoch 2.
+   ``slice13_seconds`` gives each phase's seconds.
+19. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
    ``fused_adam`` and ``data_pipeline`` launches, D1 with its
-   decode_serving launches and its ``lm_spec`` launches), then the
+   decode_serving launches and its ``lm_spec`` launches, ``lstm_cell``
+   with TrainStep's launches and cuDNN's whole-RNN time), then the
    result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
@@ -5740,6 +5770,504 @@ def slice12_phases(mt, torch, np, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 18. the LSTM language models (slice 13)
+# ---------------------------------------------------------------------------
+L1_SHAPE = (512, 650)            # bench_lstm.py's batch and hidden width
+L1_FP32_TOL = 1e-5               # absolute: the same fp32 arithmetic
+L1_BF16_REL = 2 ** -7            # one bf16 rounding, relative to max(1, |x|)
+L1_FLOPS = (36, 60)              # operations a cell, forward / backward
+RNN_SHAPE = (35, 512, 650, 2)    # T, N, C = H, layers: bench_lstm.py's
+# relative L2 error of outputs and gradients: fp32 against the plain
+# path and cuDNN (TF32 off; the sums are ordered otherwise), bf16 where
+# the plain path rounds every intermediate to bf16 and L1 does not
+RNN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSTM_STEP_RUNS = ("captured", "eager", "eager", "captured")
+LSTM_STEP_N = 5                  # steps a timed run
+LSTM_TRACE_STEPS = 3
+# train.py's one epoch at its defaults on the JAX package (CPU):
+# PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_lstm_examples.py
+WLM_JAX_VAL_PPL = 496.17
+WLM_PPL_MARGIN = 0.03            # relative: init and dropout draws differ
+BUCKET_PPL_BAR = 170.0           # tests/test_bucketing_lm.py's bar
+S13_DEVICE = "cuda:0"             # the slice's phases run here
+
+
+def l1_case(mt, torch, gen, dtype):
+    """L1 forward and backward at ``L1_SHAPE`` against the plain
+    versions: errors, ms (events), plain ms and the bytes bound."""
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    n, h = L1_SHAPE
+    dt = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.randn(shape, device=S13_DEVICE, generator=gen).to(dt)
+
+    xg, hg, b, cp, dh, dc = (r(n, 4 * h), r(n, 4 * h), r(4 * h), r(n, h),
+                             r(n, h), r(n, h))
+    got = lc.lstm_cell_fwd(xg, hg, b, cp) + lc.lstm_cell_bwd(
+        xg, hg, b, cp, dh, dc)
+    want = lc.lstm_cell_fwd_plain(xg, hg, b, cp) + lc.lstm_cell_bwd_plain(
+        xg, hg, b, cp, dh, dc)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("h", "c", "dz", "dc_prev"), got, want):
+        d = (g.float() - w.float()).abs()
+        errs[name] = {"max_abs_err": float(d.max()),
+                      "max_rel_err": float((d / w.float().abs()
+                                            .clamp_min(1.0)).max())}
+    key, tol = (("max_abs_err", L1_FP32_TOL) if dtype == "float32"
+                else ("max_rel_err", L1_BF16_REL))
+    esize = 4 if dtype == "float32" else 2
+    cells = n * h
+    fwd_bytes = (2 * 4 * cells + 4 * h + cells + 2 * cells) * esize
+    bwd_bytes = (2 * 4 * cells + 4 * h + 3 * cells + 4 * cells + cells) \
+        * esize
+    fb_ms, fb_by = bound_ms(fwd_bytes, L1_FLOPS[0] * cells, dtype)
+    bb_ms, bb_by = bound_ms(bwd_bytes, L1_FLOPS[1] * cells, dtype)
+    row = {"phase": "lstm_cell", "dtype": dtype, "shape": [n, h],
+           "errors": errs, "tolerance": {key: tol},
+           "fwd_ms": time_ms(lambda: lc.lstm_cell_fwd(xg, hg, b, cp)),
+           "bwd_ms": time_ms(lambda: lc.lstm_cell_bwd(xg, hg, b, cp, dh,
+                                                      dc)),
+           "fwd_plain_ms": time_ms(
+               lambda: lc.lstm_cell_fwd_plain(xg, hg, b, cp)),
+           "bwd_plain_ms": time_ms(
+               lambda: lc.lstm_cell_bwd_plain(xg, hg, b, cp, dh, dc)),
+           "fwd_bound_ms": fb_ms, "bwd_bound_ms": bb_ms,
+           "bound_by": fb_by if fb_by == bb_by else [fb_by, bb_by],
+           "bytes": {"fwd": fwd_bytes, "bwd": bwd_bytes},
+           "library_ms": None,
+           "library": "none for the cell alone (cuDNN's whole RNN in "
+                      "rnn_op)"}
+    row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+    row["plain_ms"] = row["fwd_plain_ms"] + row["bwd_plain_ms"]
+    row["bound_ms"] = fb_ms + bb_ms
+    row["max_abs_err"] = max(e["max_abs_err"] for e in errs.values())
+    emit(row)
+    for name, e in errs.items():
+        check(e[key] <= tol, f"L1 {dtype} {name}: {key} {e[key]} > {tol}")
+    return row
+
+
+def plain_lstm_cell(xg, hg, b, c):
+    """The LSTM cell in plain differentiable PyTorch (the reference's
+    jnp, ``_lstm_cell_step``), in the tensors' dtype."""
+    import torch
+    i, f, g, o = (xg + hg + b).chunk(4, dim=-1)
+    i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), \
+        torch.tanh(g)
+    c = f * c + i * g
+    return o * torch.tanh(c), c
+
+
+def rnn_inputs(mt, torch, gen, dtype):
+    t, n, c, layers = RNN_SHAPE
+    size = mt.ops.nn.rnn_param_size("lstm", layers, c, c)
+    dt = getattr(torch, dtype)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, device=S13_DEVICE, generator=gen)
+                * scale).to(dt)
+
+    k = c ** -0.5
+    params = ((torch.rand(size, device=S13_DEVICE, generator=gen) * 2 - 1)
+              * k).to(dt)
+    return (r(t, n, c), params, r(layers, n, c, scale=0.1),
+            r(layers, n, c, scale=0.1)), r(t, n, c)
+
+
+def rnn_fwd_bwd(torch, fn, ins, gy):
+    """Output and input gradients of ``fn(*ins)`` for the output
+    cotangent ``gy``."""
+    leaves = [x.detach().requires_grad_() for x in ins]
+    out = fn(*leaves)
+    out.backward(gy)
+    return out.detach(), [x.grad for x in leaves]
+
+
+def cudnn_lstm(mt, torch, dtype, params):
+    """``torch.nn.LSTM`` (cuDNN) holding the flat vector's weights."""
+    t, n, c, layers = RNN_SHAPE
+    m = torch.nn.LSTM(c, c, layers, device=S13_DEVICE,
+                      dtype=getattr(torch, dtype))
+    with torch.no_grad():
+        for li, (wx, wh, bx, bh) in enumerate(mt.ops.nn.rnn_unpack_params(
+                params, "lstm", layers, c, c)):
+            for nm, v in (("weight_ih", wx), ("weight_hh", wh),
+                          ("bias_ih", bx), ("bias_hh", bh)):
+                getattr(m, f"{nm}_l{li}").copy_(v)
+    m.flatten_parameters()
+    return m
+
+
+def cudnn_flat_grad(torch, m, layers):
+    """cuDNN's weight gradients in the flat vector's layout."""
+    w = [getattr(m, f"{nm}_l{li}").grad.reshape(-1) for li in range(layers)
+         for nm in ("weight_ih", "weight_hh")]
+    b = [getattr(m, f"{nm}_l{li}").grad for li in range(layers)
+         for nm in ("bias_ih", "bias_hh")]
+    return torch.cat(w + b)
+
+
+def graph_ms(torch, fn):
+    """Device ms of ``fn()`` captured as one CUDA graph (warmed on a
+    side stream first): its replays timed by ``time_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    ms = time_ms(g.replay, reps=3, inner=5, warmup=1)
+    del g
+    return ms
+
+
+def rnn_op_case(mt, torch, gen, dtype):
+    """The RNN op (lstm, L1 on each step) forward + backward at
+    ``RNN_SHAPE`` against the plain path (the same op with the cell in
+    plain PyTorch) and cuDNN; times by events."""
+    from mxnet_tpu_torch import profile_training as pt
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    fb = mt.ops.fused_bn_conv
+    t, n, c, layers = RNN_SHAPE
+    ins, gy = rnn_inputs(mt, torch, gen, dtype)
+
+    def port(d, p, h0, c0):
+        return mt.ops.nn.rnn(d, p, h0, c0, state_size=c, num_layers=layers,
+                             mode="lstm")
+
+    real = lc.lstm_cell
+
+    def plain(*a):
+        lc.lstm_cell = plain_lstm_cell
+        try:
+            return port(*a)
+        finally:
+            lc.lstm_cell = real
+
+    fb.reset_launch_counts()
+    got = rnn_fwd_bwd(torch, port, ins, gy)
+    torch.cuda.synchronize()
+    l1 = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    fb.reset_launch_counts()
+    ref = rnn_fwd_bwd(torch, plain, ins, gy)
+    torch.cuda.synchronize()
+    plain_l1 = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    m = cudnn_lstm(mt, torch, dtype, ins[1])
+    d_leaf = ins[0].detach().requires_grad_()
+    lib_out, _ = m(d_leaf, (ins[2], ins[3]))
+    lib_out.backward(gy)
+    lib = (lib_out.detach(), [d_leaf.grad,
+                              cudnn_flat_grad(torch, m, layers)])
+    names = ("data", "parameters", "state", "state_cell")
+    err = {"vs_plain": {"out": rel_l2(got[0], ref[0]), **{
+        f"d_{nm}": rel_l2(g, w) for nm, g, w in zip(names, got[1], ref[1])}},
+        "vs_cudnn": {"out": rel_l2(got[0], lib[0]),
+                     "d_data": rel_l2(got[1][0], lib[1][0]),
+                     "d_parameters": rel_l2(got[1][1], lib[1][1])}}
+
+    def cudnn_call():
+        # timed eagerly only: cuDNN's RNN backward does not capture (it
+        # makes the legacy stream wait on the capturing one)
+        x = ins[0].detach().requires_grad_()
+        out, _ = m(x, (ins[2], ins[3]))
+        return torch.autograd.grad(out, [x] + list(m.parameters()), gy)
+
+    t0 = time.perf_counter()
+    rnn_fwd_bwd(torch, port, ins, gy)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    row = {"phase": "rnn_op", "dtype": dtype, "T": t, "N": n, "C": c,
+           "H": c, "layers": layers, "mode": "lstm",
+           "rel_l2_err": err, "tolerance": RNN_TOL[dtype],
+           "l1_launches": l1, "plain_l1_launches": plain_l1,
+           "ms": time_ms(lambda: rnn_fwd_bwd(torch, port, ins, gy),
+                         reps=3, inner=2, warmup=1),
+           "plain_ms": time_ms(lambda: rnn_fwd_bwd(torch, plain, ins, gy),
+                               reps=3, inner=2, warmup=1),
+           "cudnn_ms": time_ms(cudnn_call, reps=3, inner=2, warmup=1),
+           "captured_ms": graph_ms(
+               torch, lambda: rnn_fwd_bwd(torch, port, ins, gy)),
+           "captured_plain_ms": graph_ms(
+               torch, lambda: rnn_fwd_bwd(torch, plain, ins, gy)),
+           "library_kernels": [k for k, _ in pt.busy_summary(
+               pt.device_trace(lambda i: cudnn_call(), 1), 1)[
+                   "top_kernels_ms_per_step"][:8]],
+           "host_ms_one_call": host_ms,
+           "timing": "forward + backward, CUDA events (median of 3 runs "
+                     "of 2 calls); the port's and the plain path's "
+                     "thousands of launches a call can outrun the spin, "
+                     "so their ms may include host gaps"}
+    emit(row)
+    check(l1 == 2 * t * layers, f"rnn_op {dtype}: {l1} L1 launches, "
+          f"expected {2 * t * layers} (forward and backward a step)")
+    check(plain_l1 == 0, "the plain path launched L1")
+    for what, es in err.items():
+        for nm, e in es.items():
+            check(e <= RNN_TOL[dtype], f"rnn_op {dtype} {what} {nm}: "
+                  f"rel L2 {e} > {RNN_TOL[dtype]}")
+    return row
+
+
+def lstm_step_state(torch, step):
+    return [p.clone() for p in step._p] + \
+        [x.clone() for s in step._s for x in s] + [step._t.clone()]
+
+
+def lstm_trainstep_phase(mt, torch, np, smi):
+    """bench_lstm.py's configuration through the port's TrainStep:
+    eager against captured, a replay bit for bit against an eager step
+    from the same state, L1 launches a step, ms, tokens/s, memory, busy
+    share and top kernels."""
+    from mxnet_tpu_torch import profile_training as pt
+    from mxnet_tpu_torch.examples.word_language_model import bench_lstm
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    fb = mt.ops.fused_bn_conv
+    t, n = RNN_SHAPE[0], RNN_SHAPE[1]
+    _, step = bench_lstm.build(S13_DEVICE, seed=SEED)
+    xs, ys = bench_lstm.batches(n, t, seed=SEED)
+    ctx = mt.context.as_context(S13_DEVICE)
+    xs = [x.as_in_context(ctx) for x in xs]
+    ys = [y.as_in_context(ctx) for y in ys]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(xs[0], ys[0]).asnumpy())]       # eager (warm)
+    warm_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    losses.append(float(step(xs[1], ys[1]).asnumpy()))   # the capture
+    pool_gb = (torch.cuda.memory_reserved() - reserved0) / 1e9
+    prog = next(iter(step._programs.values()), None)
+    check(prog is not None and prog.captured
+          and prog.record.captures == 1,
+          "TrainStep did not capture its step once")
+    # a replay against an eager step from the same state, bit for bit
+    snap = step.snapshot()
+    replay_loss = step(xs[2], ys[2]).data.clone()
+    after_replay = lstm_step_state(torch, step)
+    step.restore(snap)
+    eager_loss = step.step_eager(xs[2], ys[2]).data.clone()
+    after_eager = lstm_step_state(torch, step)
+    torch.cuda.synchronize()
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(after_replay, after_eager)]
+    bit_equal = all(torch.equal(a, b) for a, b in
+                    zip(after_replay + [replay_loss],
+                        after_eager + [eager_loss]))
+    fb.reset_launch_counts()
+    runs, n_steps = [], 0
+    for i, mode in enumerate(LSTM_STEP_RUNS):
+        fn = step.step_eager if mode == "eager" else step
+        r = timed_runs(torch, lambda j: fn(xs[j % 4], ys[j % 4]),
+                       LSTM_STEP_N)
+        runs.append(dict(r, mode=mode))
+        n_steps += LSTM_STEP_N
+    torch.cuda.synchronize()
+    launches = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    trace = pt.busy_summary(pt.device_trace(
+        lambda j: step(xs[j % 4], ys[j % 4]), LSTM_TRACE_STEPS),
+        LSTM_TRACE_STEPS)
+    losses.append(float(step(xs[3], ys[3]).asnumpy()))
+    host = ab_summary(runs, "host_ms")
+    row = {"phase": "lstm_trainstep", "config": {
+        "vocab": bench_lstm.VOCAB, "emsize": bench_lstm.EMSIZE,
+        "nhid": bench_lstm.NHID, "nlayers": bench_lstm.NLAYERS,
+        "batch": n, "bptt": t, "optimizer": "sgd momentum 0.9, lr 0.1",
+        "compute_dtype": "bfloat16 over fp32 masters"},
+        "host_ms_per_step": host,
+        "event_ms_per_step": ab_summary(runs, "event_ms"),
+        "tokens_per_s": {m: n * t / (host[m]["median"] / 1e3)
+                         for m in ("eager", "captured")},
+        "replay_vs_eager": {"bit_equal": bit_equal,
+                            "max_abs_diff": max(diffs)},
+        "l1_launches": launches, "steps": n_steps,
+        "l1_launches_per_step": launches / n_steps,
+        "memory": {"warm_step_peak_gb": warm_peak,
+                   "max_memory_allocated_gb": max(
+                       r["max_memory_allocated_gb"] for r in runs),
+                   "captured_graph_pool_reserved_gb": pool_gb},
+        "busy": {k: trace[k] for k in ("device_busy_share",
+                                       "device_kernel_ms_per_step",
+                                       "traced_wall_ms")},
+        "l1_ms_per_step": trace["port_kernels_ms_per_step"]["L1"],
+        "top_kernels": trace["top_kernels_ms_per_step"][:10],
+        "program": prog.record.as_dict() if prog is not None else None,
+        "losses": losses, "card": smi}
+    emit(row)
+    check(bit_equal, f"a TrainStep replay differs from the eager step "
+                     f"from the same state: max diff {max(diffs)}")
+    check(launches == 2 * t * RNN_SHAPE[3] * n_steps,
+          f"L1 launched {launches} times in {n_steps} steps, expected "
+          f"{2 * t * RNN_SHAPE[3]} a step")
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    del step, xs, ys
+    return row
+
+
+def word_lm_phase(mt, torch, smi):
+    """train.py's eager Gluon loop at its defaults for one epoch: the
+    validation perplexity against the JAX package's CPU figure, tokens/s,
+    L1 launches."""
+    from mxnet_tpu_torch.examples.word_language_model import train
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    mt.random.seed(SEED)
+    mt.ops.fused_bn_conv.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = train.main(["--epochs", "1", "--device", S13_DEVICE])
+    secs = time.perf_counter() - t0
+    launches = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    val = stats["val_ppl"][0]
+    rel = abs(val - WLM_JAX_VAL_PPL) / WLM_JAX_VAL_PPL
+    row = {"phase": "word_lm", "config": "train.py defaults: synthetic "
+           "vocab 500, emsize 200, 2 x 200 LSTM, batch 32, bptt 35, "
+           "dropout 0.2, SGD lr 1.0, clip 0.2, one epoch",
+           "val_ppl": val, "jax_cpu_val_ppl": WLM_JAX_VAL_PPL,
+           "rel_diff": rel, "margin": WLM_PPL_MARGIN,
+           "tokens_per_s": stats["tokens_per_s"][0],
+           "train_s": stats["train_s"][0], "batches": stats["batches"][0],
+           "l1_launches": launches, "seconds": secs, "card": smi}
+    emit(row)
+    check(rel <= WLM_PPL_MARGIN, f"word_lm val ppl {val} against the JAX "
+          f"package's {WLM_JAX_VAL_PPL}: {rel} > {WLM_PPL_MARGIN}")
+    return row
+
+
+def bucketing_phase(mt, torch, np, smi):
+    """The lstm_bucketing example's defaults for 2 epochs through
+    BucketingModule.fit: Train-perplexity, one capture per bucket
+    program, ms a step per bucket."""
+    import logging
+    import random
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing as lb
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+
+    class Capture(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.ppl = []
+
+        def emit(self, record):
+            msg = record.getMessage()
+            if "Train-perplexity" in msg:
+                self.ppl.append(float(msg.split("=")[-1]))
+
+    times, last = {}, [None]
+
+    def on_batch(p):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        key = p.locals["data_batch"].bucket_key
+        if last[0] is not None and p.epoch == 1:
+            times.setdefault(key, []).append((now - last[0]) * 1e3)
+        last[0] = now
+
+    cap = Capture()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(cap)
+    root.setLevel(logging.INFO)
+    mt.random.seed(SEED)
+    np.random.seed(SEED)
+    random.seed(SEED)
+    mt.compile_report(reset=True)
+    mt.ops.fused_bn_conv.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        mod = lb.main(["--num-epochs", "2", "--device", S13_DEVICE],
+                      batch_end_callback=on_batch)
+    finally:
+        root.removeHandler(cap)
+        root.setLevel(level)
+    secs = time.perf_counter() - t0
+    launches = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    report = mt.compile_report()
+    progs = [p for p in report["programs"]
+             if p["kind"].startswith("executor")]
+    row = {"phase": "lstm_bucketing", "config": "lstm_bucketing.py "
+           "defaults: buckets 10, 20, 30, 40, batch 32, embed 128, 2 x 128 "
+           "LSTM (FusedRNNCell), Adam 0.01, 2 epochs",
+           "train_perplexity": cap.ppl, "bar": BUCKET_PPL_BAR,
+           "buckets": sorted(mod._buckets),
+           "ms_per_step_epoch2": {str(k): {"median": statistics.median(v),
+                                           "steps": len(v)}
+                                  for k, v in sorted(times.items())},
+           "programs": [{k: p[k] for k in ("name", "captures", "replays")}
+                        for p in progs],
+           "l1_launches": launches, "seconds": secs, "card": smi}
+    emit(row)
+    check(cap.ppl and cap.ppl[-1] < BUCKET_PPL_BAR
+          and cap.ppl[-1] <= cap.ppl[0],
+          f"lstm_bucketing Train-perplexity {cap.ppl}")
+    check(progs and all(p["captures"] == 1 and p["replays"] >= 1
+                        for p in progs),
+          f"every bucket program must be captured once and replayed: "
+          f"{row['programs']}")
+    check(len(progs) >= len(mod._buckets),
+          f"{len(progs)} programs for {len(mod._buckets)} buckets")
+    check(launches > 0, "the bucketing fit launched no L1")
+    return row
+
+
+def slice13_phases(mt, torch, np, smi, gen):
+    """lstm_cell, rnn_op, lstm_trainstep, word_lm, lstm_bucketing (slice
+    13). Returns the kernels line's lstm_cell entry."""
+    seconds, t0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0[0]
+        t0[0] = time.perf_counter()
+
+    l1 = {dt: l1_case(mt, torch, gen, dt) for dt in ("bfloat16", "float32")}
+    lap("lstm_cell")
+    ops = {dt: rnn_op_case(mt, torch, gen, dt)
+           for dt in ("bfloat16", "float32")}
+    lap("rnn_op")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ts = lstm_trainstep_phase(mt, torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("lstm_trainstep")
+    wlm = word_lm_phase(mt, torch, smi)
+    lap("word_lm")
+    bk = bucketing_phase(mt, torch, np, smi)
+    lap("lstm_bucketing")
+    emit({"phase": "slice13_seconds", "seconds": seconds,
+          "total": sum(seconds.values())})
+    bf = l1["bfloat16"]
+    return {
+        "name": "lstm_cell", "route": "triton",
+        "source": "mxnet_tpu_torch/kernels/lstm_cell_triton.py",
+        "replaces": "mxnet_tpu/ops/nn.py:486-496 (_lstm_cell_step, jnp "
+                    "in lax.scan)",
+        "launches": ts["l1_launches"],
+        "launches_per_step": ts["l1_launches_per_step"],
+        "max_abs_err": max(r["max_abs_err"] for r in l1.values()),
+        "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+        "bound_ms": bf["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none for the cell alone",
+        "cudnn_rnn_ms": {dt: r["cudnn_ms"] for dt, r in ops.items()},
+        "rnn_op_ms": {dt: r["ms"] for dt, r in ops.items()},
+        "rnn_op_plain_ms": {dt: r["plain_ms"] for dt, r in ops.items()},
+        "rnn_op_captured_ms": {dt: {"port": r["captured_ms"],
+                                    "plain": r["captured_plain_ms"]}
+                               for dt, r in ops.items()},
+        "fp32": {k: l1["float32"][k] for k in ("ms", "plain_ms",
+                                                "bound_ms")},
+        "dtype": "bfloat16", "shape": list(L1_SHAPE),
+        "per": "one forward and one backward at (512, 650)",
+        "path": "TrainStep at bench_lstm.py's configuration (counts set "
+                "to 0 just before its timed runs)",
+        "word_lm": {"launches": wlm["l1_launches"]},
+        "bucketing": {"launches": bk["l1_launches"]},
+        "status": "ok"}
+
+
 def k4_entry(rows, name, route, launches, what):
     """A K4 user kernel's entry of the kernels line: its times at
     ``what``; launches on its path (the softmax CE's on the Gluon
@@ -6088,6 +6616,12 @@ def main():
     # 17g.-17j. row-sparse embedding training and fit's data pipeline
     # (slice 12) ------------------------------------------------------------
     dp_launches = slice12_phases(mt, torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18a.-18e. the LSTM language models: L1, the RNN op, TrainStep at
+    # bench_lstm.py's widths, train.py's loop, lstm_bucketing (slice 13)
+    l1_entry = slice13_phases(mt, torch, np, smi, gen)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
@@ -6187,7 +6721,8 @@ def main():
              "large elementwise"),
             ("user_scale3_triton", "triton",
              k4_path_launches["user_scale3_triton"], "large elementwise"))
-    ] + [d1_entry], "card": smi, "seconds": time.perf_counter() - t_start})
+    ] + [d1_entry, l1_entry], "card": smi,
+        "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -33,7 +33,11 @@ and ``monitor.Monitor``. Slice 12 covers row-sparse embedding training:
 ``sparse`` (``SparseEmbedding``, the fused step's routing and the lazy
 sgd / adam rows), ``data`` (``DataPipeline`` under ``fit``, RecordIO
 sources), ``recordio`` and the ``telemetry`` registry
-(``sparse_report()``, ``data_report()``).
+(``sparse_report()``, ``data_report()``). Slice 13 covers the LSTM
+language models: the ``RNN`` op (lstm on the L1 kernel) and ``Dropout``,
+``gluon.rnn``, ``parallel.TrainStep`` (a Gluon block's captured training
+step), the symbolic cells of ``rnn`` with ``BucketSentenceIter``, and
+``mod.BucketingModule``.
 """
 from . import base, config, context
 from .base import MXNetError
@@ -66,6 +70,7 @@ from . import executor, monitor
 from .checkpoint import CheckpointManager
 from . import telemetry, sparse, recordio, data
 from .data import data_report
+from . import parallel, rnn
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
@@ -75,4 +80,5 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "compile", "compile_report", "fault", "faultinject",
            "fault_report", "callback", "checkpoint", "metric_device",
            "model", "executor", "monitor", "CheckpointManager",
-           "telemetry", "sparse", "recordio", "data", "data_report"]
+           "telemetry", "sparse", "recordio", "data", "data_report",
+           "parallel", "rnn"]

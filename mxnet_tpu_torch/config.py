@@ -134,3 +134,6 @@ register("MXTPU_DATA_STAGE_AHEAD", 2, int,
          "Staged batches already on the device ahead of the consumer "
          "(2 = double buffering: the next batch is on the card before "
          "the current step retires)")
+register("MXNET_BACKWARD_DO_MIRROR", False, bool,
+         "Recompute activations in backward (parallel.TrainStep's remat: "
+         "torch.utils.checkpoint) to trade FLOPs for memory")

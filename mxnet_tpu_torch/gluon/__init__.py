@@ -5,6 +5,7 @@ from .parameter import Parameter, Constant, ParameterDict
 from . import block
 from .block import Block, HybridBlock
 from . import nn
+from . import rnn
 from . import loss
 from . import trainer
 from .trainer import Trainer

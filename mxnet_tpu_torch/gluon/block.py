@@ -4,11 +4,16 @@ reference: python/mxnet/gluon/block.py).
 Blocks, name scopes and parameter collection are the JAX package's, so
 the same model code gives the same parameter names. ``hybridize()``
 keeps its flags but runs the same eager forward: the JAX package stages
-the whole forward into one ``jax.jit`` (block.py:453-541), which has no
-counterpart yet (a captured CUDA graph is future work). Deferred
-initialization runs on the first eager forward, as the JAX package's
-does. ``export``, ``SymbolBlock`` and parameter files are not ported
-yet.
+the whole forward into one ``jax.jit`` (block.py:453-541), whose
+captured counterpart is future work. What that staging gives the
+training step is here: ``HybridBlock.staged_forward(training)`` is the
+forward as a function of (parameter tensors, input tensors, generator)
+that returns the outputs and the BatchNorm running-statistics writes
+(``stateful_write``) instead of applying them, and leaves the
+Parameters as they were (``parallel.TrainStep`` differentiates and
+captures it). Deferred initialization runs on the first eager forward,
+as the JAX package's does. ``export``, ``SymbolBlock`` and parameter
+files are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,10 +21,15 @@ import re
 import threading
 from collections import OrderedDict
 
+import torch
+
+from .. import autograd
 from .. import ndarray as nd_module
+from .. import random as _random
+from ..ndarray.ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "stateful_write"]
 
 
 class _BlockScope:
@@ -185,6 +195,32 @@ def _indent(s, num_spaces):
     return first + "\n" + "\n".join(" " * num_spaces + line for line in lines)
 
 
+class _TraceState:
+    """The parameter writes of one staged forward (thread-local)."""
+
+    _current = threading.local()
+
+    def __init__(self):
+        self.writes = OrderedDict()   # Parameter -> tensor
+
+    @staticmethod
+    def active():
+        return getattr(_TraceState._current, "value", None)
+
+
+def stateful_write(param, value):
+    """Write ``value`` (a tensor) into Parameter ``param``: in place,
+    outside the graph, in an eager forward; inside a staged forward the
+    write is recorded and returned by it instead (the JAX package's
+    ``stateful_write``, block.py:233-248)."""
+    tr = _TraceState.active()
+    if tr is not None:
+        tr.writes[param] = value
+        return
+    with torch.no_grad():
+        param._check_and_get()._data.copy_(value)
+
+
 class HybridBlock(Block):
     """A Block whose ``hybrid_forward`` is written against an op
     namespace ``F`` (reference: block.py:376); here ``F`` is always
@@ -215,6 +251,53 @@ class HybridBlock(Block):
 
     def _gather_params(self):
         return {name: p.data() for name, p in self._reg_params.items()}
+
+    def _get_param_list(self):
+        """Every parameter of the block and its children, sorted by name
+        (the JAX package's ``_get_param_list``)."""
+        return [p for _, p in sorted(self.collect_params().items())]
+
+    def staged_forward(self, training=True):
+        """The forward as a function ``staged(pvals, args, generator=None)
+        -> (outputs, writes)`` (the counterpart of ``_build_jit``,
+        block.py:447-550): ``pvals`` are tensors standing in for
+        ``_get_param_list()``'s parameters (all initialized), ``args``
+        the input tensors; the forward runs in training or predict mode
+        as ``training`` says, recording for autograd when torch's grad
+        mode is on at the call, its random ops drawing from
+        ``generator`` (None: the device's). ``outputs`` is a tuple of
+        tensors, ``writes`` the BatchNorm running-statistics writes as
+        ``[(Parameter, tensor)]``; the Parameters keep their tensors. A
+        list among the outputs (a layer's states) is flattened into
+        them."""
+        block = self
+        param_list = self._get_param_list()
+
+        def staged(pvals, args, generator=None):
+            saved = [p._check_and_get()._data for p in param_list]
+            tr = _TraceState()
+            prev_tr = _TraceState.active()
+            _TraceState._current.value = tr
+            prev_r = autograd.set_recording(torch.is_grad_enabled())
+            prev_t = autograd.set_training(training)
+            try:
+                for p, v in zip(param_list, pvals):
+                    p._data._data = v
+                with _random.use_generator(generator):
+                    out = block.forward(*[NDArray(a) for a in args])
+            finally:
+                autograd.set_training(prev_t)
+                autograd.set_recording(prev_r)
+                _TraceState._current.value = prev_tr
+                for p, v in zip(param_list, saved):
+                    p._data._data = v
+            flat = []
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                flat.extend(o if isinstance(o, (tuple, list)) else (o,))
+            return tuple(o._data for o in flat), list(tr.writes.items())
+
+        staged.param_list = param_list
+        return staged
 
     def _finish_deferred(self, *args):
         self.infer_shape(*args)

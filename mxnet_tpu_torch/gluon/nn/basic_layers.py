@@ -1,12 +1,13 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
-Dense, BatchNorm and Flatten.
+Dense, Dropout, BatchNorm, Embedding and Flatten.
 
 BatchNorm in training mode normalises with the batch statistics (mean
 and biased variance, as the JAX op's ``jnp.var``) and folds them into
 the running statistics in place, outside the graph:
 ``running = running * momentum + batch * (1 - momentum)``, the JAX
-package's formula.
+package's formula, through ``block.stateful_write`` (inside a staged
+forward the write is returned instead of applied).
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ import numpy as np
 import torch
 
 from ... import autograd
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, stateful_write
 from .activations import Activation
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "Embedding", "Flatten"]
 
 
 class Sequential(Block):
@@ -111,6 +113,22 @@ class Dense(HybridBlock):
                 f"{'linear' if self.act is None else self.act._act_type})")
 
 
+class Dropout(HybridBlock):
+    """(reference: basic_layers.py:219)"""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}(p = {self._rate}, "
+                f"axes={self._axes})")
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with running statistics (reference:
     basic_layers.py:262)."""
@@ -163,9 +181,12 @@ class BatchNorm(HybridBlock):
         if training and not self._kwargs["use_global_stats"]:
             m = self._momentum
             with torch.no_grad():
-                for run, batch in ((running_mean, batch_mean),
-                                   (running_var, batch_var)):
-                    run._data.copy_(run._data * m + batch._data * (1 - m))
+                for p, run, batch in ((self.running_mean, running_mean,
+                                       batch_mean),
+                                      (self.running_var, running_var,
+                                       batch_var)):
+                    stateful_write(p, run._data * m
+                                   + batch._data.detach() * (1 - m))
         return out
 
     def __repr__(self):
@@ -173,6 +194,33 @@ class BatchNorm(HybridBlock):
         return (f"{self.__class__.__name__}(axis={self._axis}, "
                 f"eps={self._kwargs['eps']}, momentum={self._momentum}, "
                 f"in_channels={in_channels})")
+
+
+class Embedding(HybridBlock):
+    """Index -> dense vector lookup (reference: basic_layers.py:565; the
+    ``Embedding`` op of ``ops/shape_ops.py``)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": sparse_grad}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        pass
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}({self._input_dim} -> "
+                f"{self._output_dim}, {self._kwargs['dtype']})")
 
 
 class Flatten(HybridBlock):

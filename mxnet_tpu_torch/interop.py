@@ -6,7 +6,11 @@
 - ``init_params`` makes a seeded numpy initialisation of a symbol's
   parameters that both packages can be fed from.
 - ``gluon_params_from_jax`` carries a JAX Gluon net's parameters onto
-  the port's net by name.
+  the port's net by name (the RNN layers' ``l0_i2h_weight``..., the
+  cells' and a modifier cell's base cell's too).
+- A ``FusedRNNCell``'s flat ``*_parameters`` vector is one array in the
+  cuDNN layout in both packages: ``params_from_jax`` carries it as it
+  carries any argument.
 - ``decode_params_from_jax`` checks a decode LM's parameter dict against
   its ``TransformerLMSpec`` and stages it for ``DecodePredictor``.
 """

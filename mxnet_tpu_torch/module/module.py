@@ -247,7 +247,7 @@ class Module(BaseModule):
              grad_req="write"):
         """Bind an Executor for the input shapes: every param, gradient
         and aux array allocated on the device (``shared_module``: its
-        argument arrays are shared)."""
+        parameter arrays of equal shapes are shared)."""
         if force_rebind:
             self._exec = None
             self.binded = False
@@ -259,7 +259,12 @@ class Module(BaseModule):
         self._data_shapes = _norm_shapes(data_shapes)
         self._label_shapes = _norm_shapes(label_shapes)
         self._grad_req = grad_req if for_training else "null"
-        shared_buffer = shared_module._exec.arg_dict \
+        # only the parameters are shared: simple_bind adds the arrays it
+        # allocates to the buffer, so the shared module's own arg_dict
+        # must not be it (a bucket of other input shapes would replace
+        # the shared module's data and label arrays)
+        shared_buffer = {n: a for n, a in shared_module._exec.arg_dict.items()
+                         if n in shared_module._param_names} \
             if shared_module is not None else None
         self._exec = self._symbol.simple_bind(
             ctx=self._device, grad_req=self._grad_req,

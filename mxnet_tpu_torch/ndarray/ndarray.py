@@ -21,7 +21,7 @@ from ..ops.registry import get_op
 
 __all__ = ["NDArray", "array", "empty", "waitall"]
 
-_TRAINING_AWARE_OPS = {"BatchNorm"}
+_TRAINING_AWARE_OPS = {"BatchNorm", "Dropout", "RNN"}
 
 
 class NDArray:
@@ -199,6 +199,14 @@ class NDArray:
 
     def flatten(self):
         return _invoke_op("Flatten", [self], {})
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        """``num_outputs`` equal slices along ``axis`` (a list; one
+        NDArray when ``num_outputs`` is 1)."""
+        out = _invoke_op("SliceChannel", [self], {
+            "num_outputs": num_outputs, "axis": axis,
+            "squeeze_axis": squeeze_axis})
+        return list(out) if isinstance(out, tuple) else out
 
     def swapaxes(self, dim1, dim2):
         return _invoke_op("SwapAxis", [self], {"dim1": dim1, "dim2": dim2})
@@ -432,8 +440,9 @@ def _invoke_fn(fn, nd_inputs):
 def _invoke_op(name, nd_inputs, attrs):
     """Run registry op ``name``. ``None`` attributes are dropped (except
     the axis-like ones, where None means "all"); ``out=`` writes the
-    first result into an existing NDArray; BatchNorm takes the training
-    flag from autograd."""
+    first result into an existing NDArray; BatchNorm, Dropout and RNN
+    take the training flag from autograd (the last two draw from
+    ``random.generator`` of the data's device)."""
     opdef = get_op(name)
     attrs = {k: v for k, v in attrs.items()
              if v is not None or k in ("axis", "axes", "a_min", "a_max")}

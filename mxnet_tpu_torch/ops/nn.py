@@ -347,3 +347,189 @@ def ctc_loss(data, label, data_lengths=None, label_lengths=None,
         l_lens = (lab != pad_val).sum(dim=1)
     return F.ctc_loss(logp, lab.clamp_min(0), t_lens, l_lens, blank=blank,
                       reduction="none")
+
+
+# ---------------------------------------------------------------------------
+# Dropout and the fused RNN (the JAX package's ops/nn.py:411-568)
+# ---------------------------------------------------------------------------
+def _generator(device, generator):
+    if generator is not None:
+        return generator
+    from .. import random as _random
+    return _random.generator(device)
+
+
+def _keep_mask(shape, keep, dtype, device, generator):
+    """``bernoulli(keep) / keep`` of ``shape``, drawn from ``generator``
+    (the device's explicit generator when None)."""
+    u = torch.rand(shape, device=device,
+                   generator=_generator(device, generator))
+    return (u < keep).to(dtype) / keep
+
+
+@register_op("Dropout")
+def dropout(data, p=0.5, mode="training", axes=None, training=None,
+            generator=None, **kw):
+    """Inverted dropout (reference: src/operator/nn/dropout.cc): in
+    training (or ``mode="always"``) each element, or each slice along
+    the dims not in ``axes``, is kept with probability 1 - p and scaled
+    by 1 / (1 - p). The mask draws from ``generator``; the op is the
+    identity at p = 0, outside training and on meta tensors."""
+    is_training = training if training is not None else True
+    if (not is_training and mode != "always") or p <= 0.0 \
+            or data.device.type == "meta":
+        return data
+    shape = tuple(data.shape)
+    if axes:
+        shape = tuple(1 if i in tuple(axes) else s
+                      for i, s in enumerate(shape))
+    return data * _keep_mask(shape, 1.0 - p, data.dtype, data.device,
+                             generator)
+
+
+def _rnn_gate_count(mode):
+    return {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def rnn_unpack_params(params, mode, num_layers, input_size, state_size,
+                      bidirectional=False):
+    """Per layer and direction ``[wx, wh, bx, bh]``, views of the flat
+    cuDNN-layout vector: every layer's weights, then every layer's
+    biases (reference: rnn-inl.h GetRnnParamSize)."""
+    ngates = _rnn_gate_count(mode)
+    dirs = 2 if bidirectional else 1
+    layers = []
+    off = 0
+    for layer in range(num_layers):
+        for _ in range(dirs):
+            isz = input_size if layer == 0 else state_size * dirs
+            wx_n = ngates * state_size * isz
+            wh_n = ngates * state_size * state_size
+            wx = params[off:off + wx_n].reshape(ngates * state_size, isz)
+            off += wx_n
+            wh = params[off:off + wh_n].reshape(ngates * state_size,
+                                                state_size)
+            off += wh_n
+            layers.append([wx, wh, None, None])
+    for layer in range(num_layers):
+        for d in range(dirs):
+            b_n = ngates * state_size
+            layers[layer * dirs + d][2] = params[off:off + b_n]
+            off += b_n
+            layers[layer * dirs + d][3] = params[off:off + b_n]
+            off += b_n
+    return layers
+
+
+def rnn_param_size(mode, num_layers, input_size, state_size,
+                   bidirectional=False):
+    """Length of the flat parameter vector."""
+    ngates = _rnn_gate_count(mode)
+    dirs = 2 if bidirectional else 1
+    total = 0
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else state_size * dirs
+        total += dirs * ngates * state_size * (isz + state_size + 2)
+    return total
+
+
+@register_op("_rnn_zero_state")
+def rnn_zero_state(data, state_size=0, num=0, batch_axis=0, **kw):
+    """Zero initial state from a data symbol's batch dim: (num, N,
+    state_size) from (T, N, C) data when ``num`` > 0, else
+    (data.shape[batch_axis], state_size)."""
+    n = data.shape[1] if num else data.shape[int(batch_axis)]
+    shape = (int(num), n, int(state_size)) if num else (n, int(state_size))
+    return torch.zeros(shape, dtype=data.dtype, device=data.device)
+
+
+def _run_layer(xs, mode, wx, wh, bx, bh, h0, c0=None, reverse=False):
+    """One layer and direction over (T, N, C) ``xs``: ``(carry, ys)``,
+    carry ``(c, h)`` for lstm, ``(h,)`` otherwise. The input product of
+    every step is one matmul over T*N rows; the recurrent product stays
+    a matmul a step. lstm steps through ``lstm_cell`` (L1 on the card);
+    gru and the vanilla cells are plain PyTorch, as the reference has no
+    kernel there."""
+    from .lstm_cell import lstm_cell
+    steps = range(xs.shape[0] - 1, -1, -1) if reverse \
+        else range(xs.shape[0])
+    # unbind, not gx[t]: its backward stacks the steps' gradients once,
+    # where indexing would add each into a zeroed (T, N, G) buffer
+    gx = torch.matmul(xs, wx.t())
+    ys = [None] * xs.shape[0]
+    h = h0
+    if mode == "lstm":
+        b, c = bx + bh, c0
+        gxs = gx.unbind(0)
+        for t in steps:
+            h, c = lstm_cell(gxs[t], torch.matmul(h, wh.t()), b, c)
+            ys[t] = h
+        return (c, h), torch.stack(ys)
+    if mode == "gru":
+        gxs = (gx + bx).unbind(0)
+        for t in steps:
+            rx, zx, nx = gxs[t].chunk(3, dim=-1)
+            rh, zh, nh = (torch.matmul(h, wh.t()) + bh).chunk(3, dim=-1)
+            r = torch.sigmoid(rx + rh)
+            z = torch.sigmoid(zx + zh)
+            n = torch.tanh(nx + r * nh)
+            h = (1 - z) * n + z * h
+            ys[t] = h
+        return (h,), torch.stack(ys)
+    act = torch.tanh if mode == "rnn_tanh" else torch.relu
+    b = bx + bh
+    gxs = gx.unbind(0)
+    for t in steps:
+        h = act(gxs[t] + torch.matmul(h, wh.t()) + b)
+        ys[t] = h
+    return (h,), torch.stack(ys)
+
+
+@register_op("RNN", num_outputs=-1)
+def rnn(data, parameters, state, state_cell=None, state_size=None,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=False, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, lstm_state_clip_nan=False, training=None,
+        generator=None, **kw):
+    """Fused multi-layer RNN (reference: src/operator/rnn-inl.h): data
+    (T, N, C), ``parameters`` the flat cuDNN-layout vector, ``state`` /
+    ``state_cell`` (L*dirs, N, H). Layers and directions run in turn;
+    ``p`` drops out between stacked layers in training (the mask from
+    ``generator``). Weights and states are taken in data's dtype. Returns
+    the (T, N, dirs*H) output, and with ``state_outputs`` the final
+    states (h, and c for lstm). The state clips are accepted and not
+    applied, as in the JAX package."""
+    _, _, c_in = data.shape
+    h_size = int(state_size)
+    num_layers = int(num_layers)
+    dirs = 2 if bidirectional else 1
+    dt = data.dtype
+    layers = rnn_unpack_params(parameters, mode, num_layers, c_in, h_size,
+                               bidirectional)
+    drop = p and p > 0.0 and (training is None or training) \
+        and data.device.type != "meta"
+    xs = data
+    h_out, c_out = [], []
+    for layer in range(num_layers):
+        outs = []
+        for d in range(dirs):
+            li = layer * dirs + d
+            wx, wh, bx, bh = (w.to(dt) for w in layers[li])
+            c0 = state_cell[li].to(dt) if mode == "lstm" else None
+            carry, ys = _run_layer(xs, mode, wx, wh, bx, bh,
+                                   state[li].to(dt), c0, reverse=d == 1)
+            outs.append(ys)
+            if mode == "lstm":
+                c_out.append(carry[0])
+                h_out.append(carry[1])
+            else:
+                h_out.append(carry[0])
+        xs = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+        if drop and layer < num_layers - 1:
+            xs = xs * _keep_mask(tuple(xs.shape), 1.0 - p, dt, xs.device,
+                                 generator)
+    if state_outputs:
+        if mode == "lstm":
+            return xs, torch.stack(h_out), torch.stack(c_out)
+        return xs, torch.stack(h_out)
+    return xs

@@ -125,6 +125,22 @@ def concat(*args, dim=1, num_args=None, **kw):
     return torch.cat(args, dim=dim)
 
 
+@register_op("stack")
+def stack(*args, axis=0, num_args=None, **kw):
+    return torch.stack(args, dim=axis)
+
+
+@register_op("SliceChannel", aliases=["split"], num_outputs=-1)
+def split(data, num_outputs=2, axis=1, squeeze_axis=False, **kw):
+    """``num_outputs`` equal slices along ``axis`` (a tuple, as the
+    reference's multi-output op), the axis squeezed with
+    ``squeeze_axis``."""
+    outs = torch.chunk(data, int(num_outputs), dim=axis)
+    if squeeze_axis:
+        outs = [o.squeeze(axis) for o in outs]
+    return tuple(outs)
+
+
 @register_op("dot")
 def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
     """Contracts lhs's last axis with rhs's first (reference: dot.cc;

@@ -58,7 +58,8 @@ PORT_KERNELS = {"K1": ("bn_relu_conv1x1", "bn_gemm_wgmma<1,",
                 "B1": ("_bn_bwd_reduce",),
                 "B1 second stage": ("_bn_bwd_sum_parts",),
                 "B2": ("_bn_bwd_dx",),
-                "D1": ("d1::decode_attention",)}
+                "D1": ("d1::decode_attention",),
+                "L1": ("_lstm_cell_fwd", "_lstm_cell_bwd")}
 # CPU events of kernel launches (the cuda* and cu* launch calls)
 LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cuLaunchKernelEx")

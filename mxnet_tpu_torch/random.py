@@ -2,22 +2,27 @@
 
 ``seed(n)`` seeds one explicit ``torch.Generator`` per device;
 ``generator(device)`` hands out that device's generator (made from the
-last seed, 0 before any, on first use). Initializers and
+last seed, 0 before any, on first use), or, inside ``use_generator(g)``
+on this thread, ``g`` for ``g``'s device (a captured training step
+registers its own generator with the graph and hands it to the ops it
+runs, such as Dropout). Initializers and
 ``nd.random`` draw from it, so a seed reproduces a run on the same
 device. Draws differ from the JAX package's: tests feed both packages
 numpy inputs instead.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["seed", "generator", "get_state", "set_state"]
+__all__ = ["seed", "generator", "use_generator", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _seed = [0]
 _gens = {}
+_local = threading.local()
 
 
 def _key(device):
@@ -38,14 +43,30 @@ def seed(seed_state, ctx="all"):
 
 
 def generator(device):
-    """The explicit generator of ``device``."""
+    """The explicit generator of ``device`` (``use_generator``'s, inside
+    it, for that generator's device)."""
     d = _key(device)
+    g = getattr(_local, "override", None)
+    if g is not None and _key(g.device) == d:
+        return g
     with _lock:
         g = _gens.get(d)
         if g is None:
             g = _gens[d] = torch.Generator(device=d)
             g.manual_seed(_seed[0])
         return g
+
+
+@contextlib.contextmanager
+def use_generator(gen):
+    """Within this block, on this thread, ``generator(gen.device)``
+    returns ``gen`` (None: no override)."""
+    prev = getattr(_local, "override", None)
+    _local.override = gen
+    try:
+        yield gen
+    finally:
+        _local.override = prev
 
 
 def get_state():

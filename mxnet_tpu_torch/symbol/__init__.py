@@ -18,8 +18,20 @@ from .symbol import Symbol, var, Variable, Group, load_json, load, _Node
 __all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load"]
 
 
-def _node_num_outputs(opdef):
-    return opdef.num_outputs if opdef.num_outputs > 0 else 1
+def _node_num_outputs(opdef, attrs=None):
+    """The output count; for ops whose arity depends on attributes
+    (registry ``num_outputs=-1``): SliceChannel's ``num_outputs``,
+    RNN's ``state_outputs``."""
+    if opdef.num_outputs > 0:
+        return opdef.num_outputs
+    attrs = attrs or {}
+    from ..ops.registry import parse_attr
+    if opdef.name == "SliceChannel":
+        return int(parse_attr(attrs.get("num_outputs", 1)))
+    if opdef.name == "RNN" and parse_attr(attrs.get("state_outputs",
+                                                    False)):
+        return 3 if parse_attr(attrs.get("mode", "lstm")) == "lstm" else 2
+    return 1
 
 
 def _symbol_op(op_name, sym_inputs, attrs, name=None, attr=None):
@@ -28,7 +40,8 @@ def _symbol_op(op_name, sym_inputs, attrs, name=None, attr=None):
     name = NameManager.current.get(name, op_name.lower())
     node = _Node(op_name, name, attrs=attrs,
                  inputs=[(s._node, s._out_index) for s in sym_inputs],
-                 num_outputs=_node_num_outputs(opdef), user_attrs=attr)
+                 num_outputs=_node_num_outputs(opdef, attrs),
+                 user_attrs=attr)
     from ..attribute import apply_scope_attrs
     apply_scope_attrs(node)
     return Symbol(node)
@@ -37,7 +50,7 @@ def _symbol_op(op_name, sym_inputs, attrs, name=None, attr=None):
 # data-like inputs are never auto-created as variables; passing None for
 # one of them means "genuinely omitted". Weight-like inputs (bias, gamma,
 # ...) auto-create even when passed as None.
-_NEVER_AUTO_CREATE = frozenset(("data", "lhs", "rhs"))
+_NEVER_AUTO_CREATE = frozenset(("data", "lhs", "rhs", "state_cell"))
 
 
 def _make_sym_func(opdef):

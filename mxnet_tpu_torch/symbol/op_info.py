@@ -22,6 +22,10 @@ OP_INPUTS = {
     "Pooling": (["data"], []),
     "Flatten": (["data"], []),
     "broadcast_add": (["lhs", "rhs"], []),
+    "RNN": (["data", "parameters", "state", "state_cell"], []),
+    "_rnn_zero_state": (["data"], []),
+    "Dropout": (["data"], []),
+    "SliceChannel": (["data"], []),
 }
 
 

@@ -28,8 +28,10 @@ from .op_info import op_input_names
 __all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load"]
 
 _node_uid = itertools.count()
-# ops whose result depends on the walk's mode (batch statistics)
-_TRAINING_AWARE = ("BatchNorm", "_FusedBNReLUConv", "_FusedBNReLUConvK")
+# ops whose result depends on the walk's mode: batch statistics (the BN
+# ops, whose running statistics the walk folds) and dropout
+_BN_OPS = ("BatchNorm", "_FusedBNReLUConv", "_FusedBNReLUConvK")
+_TRAINING_AWARE = _BN_OPS + ("Dropout", "RNN")
 
 
 class _Node:
@@ -291,7 +293,7 @@ class Symbol:
         batch statistics at outputs 1/2 — so the fold applies to them
         unchanged. The statistics are taken detached: the fold is not
         differentiated."""
-        if not training or node.op not in _TRAINING_AWARE \
+        if not training or node.op not in _BN_OPS \
                 or attrs.get("use_global_stats"):
             return []
         momentum = attrs.get("momentum", 0.9)
@@ -562,6 +564,18 @@ def _hint_param_shapes(node, in_shapes, attrs):
     elif node.op in ("LinearRegressionOutput", "LogisticRegressionOutput",
                      "MAERegressionOutput"):
         want = {"label": tuple(data_shape)}
+    elif node.op == "RNN":
+        # the flat parameter vector and the (L*dirs, N, H) states from
+        # the (T, N, C) data (reference: rnn-inl.h GetRnnParamSize)
+        from ..ops.nn import rnn_param_size
+        h = int(attrs.get("state_size"))
+        layers = int(attrs.get("num_layers", 1))
+        bi = bool(attrs.get("bidirectional", False))
+        st = (layers * (2 if bi else 1), data_shape[1], h)
+        want = {"parameters": (rnn_param_size(attrs.get("mode", "lstm"),
+                                              layers, data_shape[2], h,
+                                              bi),),
+                "state": st, "state_cell": st}
     else:
         return None
     hints = {}
@@ -582,14 +596,19 @@ def _hint_param_shapes(node, in_shapes, attrs):
     return hints
 
 
-def var(name, attr=None, shape=None, **kwargs):
-    """Create a variable symbol."""
+def var(name, attr=None, shape=None, init=None, **kwargs):
+    """Create a variable symbol. ``init`` (an initializer, its name or
+    its ``dumps()``) goes into the ``__init__`` attribute that
+    ``Module.init_params`` dispatches on."""
     attrs = {}
     if shape is not None:
         attrs["__shape__"] = str(tuple(shape))
     node = _Node(None, name, attrs=attrs)
     if attr:
         node.user_attrs.update(attr)
+    if init is not None:
+        node.user_attrs["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     from ..attribute import apply_scope_attrs
     apply_scope_attrs(node)
     for k, v in kwargs.items():
@@ -637,7 +656,8 @@ def load_json(json_str):
             node = _Node(opname, jn["name"], attrs=dict(attrs),
                          inputs=[(nodes[nid], out_i)
                                  for nid, out_i, _ in jn["inputs"]],
-                         num_outputs=_node_num_outputs(get_op(opname)))
+                         num_outputs=_node_num_outputs(get_op(opname),
+                                                       attrs))
         nodes.append(node)
     heads = data.get("heads", [[len(nodes) - 1, 0, 0]])
     outs = [Symbol(nodes[nid], out_i) for nid, out_i, _ in heads]

@@ -19,6 +19,7 @@ import torch
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.module.fused import FusedSymbolStep
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, DIM, BATCH, LEN = 50, 4, 8, 3
 

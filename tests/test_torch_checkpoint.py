@@ -28,6 +28,7 @@ from mxnet_tpu.checkpoint import CheckpointManager as JaxManager
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import faultinject, nd
 from mxnet_tpu_torch.checkpoint import CheckpointManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.chaos
 

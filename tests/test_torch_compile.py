@@ -68,6 +68,7 @@ from mxnet_tpu_torch.model_zoo.symbols import resnet as torch_resnet
 from mxnet_tpu_torch.name import NameManager as TorchNameManager
 from mxnet_tpu_torch.parallel import functional_opt as tfo
 from mxnet_tpu_torch.symbol import passes as torch_passes
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = dict(units=[2, 1, 1, 1], num_stages=4,

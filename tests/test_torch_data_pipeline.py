@@ -34,6 +34,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import recordio as trec
 from mxnet_tpu_torch.data import pipeline as tpipe
 from mxnet_tpu_torch.data import workers as twk
+from torch_threads import one_torch_thread  # noqa: F401
 
 JOIN_S = 5.0
 

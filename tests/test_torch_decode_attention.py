@@ -30,6 +30,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import decode_attention as da
 from mxnet_tpu_torch.ops import fused_bn_conv as tfb
 from mxnet_tpu_torch.serving.decode import model as tmodel
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, M, H, D = 6, 24, 2, 8
 POSITIONS = (0, 3, 23, 11, 0, 22)        # lanes 0 and 4: inactive (0)

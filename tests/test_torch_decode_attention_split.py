@@ -20,6 +20,7 @@ from mxnet_tpu.serving.decode import model as jmodel
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import decode_attention as da
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, M, H, D = 6, 24, 2, 8
 R = 4

@@ -15,6 +15,7 @@ from mxnet_tpu_torch.serving import Cancelled, DeadlineExceeded, Overloaded
 from mxnet_tpu_torch.serving.decode import DecodeBatcher
 
 from torch_decode_helpers import make_engine, make_prompts
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

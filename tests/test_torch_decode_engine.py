@@ -24,6 +24,7 @@ from mxnet_tpu_torch.serving.decode import (
 
 from torch_decode_helpers import (SMALL, decode_rows, make_engine,
                                   make_prompts, small_spec)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

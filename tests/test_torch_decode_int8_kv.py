@@ -12,6 +12,7 @@ from mxnet_tpu_torch import config
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.serving.decode import (
     DecodePredictor, TransformerLMSpec, init_params)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

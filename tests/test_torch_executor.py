@@ -32,6 +32,7 @@ from mxnet_tpu.name import NameManager as JaxNameManager
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.model_zoo.symbols import resnet as torch_resnet
 from mxnet_tpu_torch.name import NameManager as TorchNameManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as tmx
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mlp():

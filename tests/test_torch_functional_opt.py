@@ -32,6 +32,7 @@ from mxnet_tpu.parallel import functional_opt as jfo
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch.parallel import functional_opt as tfo
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("sgd", {}),

@@ -34,6 +34,7 @@ from mxnet_tpu.ops.registry import get_op as jax_get_op
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import fused_bn_conv as tfb
 from mxnet_tpu_torch.ops.registry import get_op as torch_get_op
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ATOL = 2e-2   # times the output scale

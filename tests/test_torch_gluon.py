@@ -55,6 +55,7 @@ from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import gluon as tgluon
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.name import NameManager as TorchNameManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = ([1, 1, 1, 1], [16, 32, 48, 64, 80])

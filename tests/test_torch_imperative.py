@@ -32,6 +32,7 @@ from mxnet_tpu import nd as jnd
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.kernels import build as tbuild
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-6

@@ -28,6 +28,7 @@ from mxnet_tpu_torch.kernels import build
 from mxnet_tpu_torch.model_zoo.symbols import resnet
 from mxnet_tpu_torch.ops import fused_bn_conv as tfb
 from mxnet_tpu_torch.symbol import passes
+from torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 SMEM = 232448          # shared memory one H100 block can use

@@ -30,6 +30,7 @@ from mxnet_tpu.symbol import passes as jax_passes
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.serving.decode import model as tmodel
 from mxnet_tpu_torch.symbol import passes as torch_passes
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPECS = {
     "bench_draft": dict(vocab_size=30, num_embed=32, num_heads=2,

@@ -32,6 +32,7 @@ from mxnet_tpu.ops import shape_ops as jshape
 
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops import shape_ops as tshape
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-5, atol=1e-5)

@@ -38,6 +38,7 @@ from mxnet_tpu_torch.serving.decode import (
 from mxnet_tpu_torch.serving.decode import model as tmodel
 
 from torch_decode_helpers import SMALL, make_prompts, small_spec
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

@@ -15,6 +15,7 @@ import torch
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as tmx
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _probs(rng, n, c):

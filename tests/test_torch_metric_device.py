@@ -28,6 +28,7 @@ from mxnet_tpu import metric_device as jmd
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import metric_device as tmd
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mlp(pkg):

@@ -24,6 +24,7 @@ from mxnet_tpu import faultinject as jfi
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import faultinject
 from mxnet_tpu_torch.base import MXNetError
+from torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 8
 SHAPE = (BATCH, 1, 6, 6)

@@ -28,6 +28,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch import lr_scheduler as tlrs
 from mxnet_tpu_torch.base import MXNetError
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("sgd", {}),

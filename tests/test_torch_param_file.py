@@ -21,6 +21,7 @@ from mxnet_tpu.ndarray import sparse as jsparse
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.ndarray import param_file as tpf
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the seven type flags of the format, in flag order
 DTYPES = ["float32", "float64", "float16", "uint8", "int32", "int8",

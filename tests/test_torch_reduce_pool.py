@@ -19,6 +19,7 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as tmx
+from torch_threads import one_torch_thread  # noqa: F401
 
 INT_CASES = [
     ("int32", np.array([[7, -7, 5], [1, 2, 3]])),

@@ -31,6 +31,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import serving
 from mxnet_tpu_torch.model_zoo.symbols import resnet as torch_resnet
 from mxnet_tpu_torch.name import NameManager as TorchNameManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

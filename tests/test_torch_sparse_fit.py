@@ -39,6 +39,7 @@ from mxnet_tpu_torch.io import DataBatch as TBatch
 from mxnet_tpu_torch.parallel import functional_opt as tfo
 from mxnet_tpu_torch.sparse import embedding as temb
 from mxnet_tpu_torch.sparse import rowsparse as trs
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, DIM, HIDDEN = 12, 6, 4
 RULE_TOL = 1e-6

@@ -37,6 +37,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.sparse import rowsparse as trs
 from mxnet_tpu_torch.sparse import embedding as temb
 from mxnet_tpu_torch.telemetry import registry as treg
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROW_TOL = 1e-6
 

@@ -31,6 +31,7 @@ from mxnet_tpu_torch.serving import loadgen
 from mxnet_tpu_torch.serving.decode import (
     DecodeBatcher, DecodePredictor, SpecDecodePredictor,
     TransformerLMSpec, init_params, make_draft_spec)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

@@ -22,6 +22,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.model_zoo.symbols import resnet as torch_resnet
 from mxnet_tpu_torch.name import NameManager as TorchNameManager
 from mxnet_tpu_torch.symbol import passes as torch_passes
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.examples.sparse import two_tower as tt
+from torch_threads import one_torch_thread  # noqa: F401
 
 MINI = dict(n_users=40, n_items=24, embed_dim=4, hidden=8, num_rows=256,
             batch_size=32, pipeline_workers=1, quiet=True, device="cpu")
