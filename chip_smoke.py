@@ -294,13 +294,26 @@ script exits non-zero and prints no result. Phases:
    bench_lstm.py's (N, H) = (512, 650), bf16 and fp32, against its plain
    versions (fp32 within ``L1_FP32_TOL``, bf16 within one rounding,
    ``L1_BF16_REL``), ms beside the plain versions' and the bytes bound.
+   Beside them ATen's CUDA LSTM cell (``_thnn_fused_lstm_cell`` and its
+   backward; timed only, the port never calls it) as ``library_ms``.
+18a'. lstm_step (slice 14): the fused bf16 step
+   (``kernels/csrc/lstm_step.cu``: the cell in the recurrent product's
+   wgmma epilogue forward, dz built as the product's register A operand
+   backward, a thread-block cluster summing the K slices), forward and
+   backward at (512, 650) against their plain versions within
+   ``STEP_TOL``, a repeated backward bit for bit, ms beside the plain
+   versions', the library's (``torch.matmul`` with ATen's cell) and the
+   bound; then ``lstm_step_sweep``: the forward's four tiles and the
+   backward's 4 / 8 / 16 slices (ms, clusters the card holds at once).
 18b. rnn_op: the ``RNN`` op (lstm, T 35, N 512, C = H 650, 2 layers)
-   forward + backward, bf16 and fp32, against the same op with the cell
-   in plain PyTorch and against cuDNN (``torch.nn.LSTM`` with the same
-   weights, timed and compared only: the port never calls it), rel L2
-   within ``RNN_TOL``; L1 launches twice a step and layer, the plain
-   path none. The port and the plain path are timed eagerly and as a
-   captured CUDA graph (their device time alone), cuDNN eagerly.
+   forward + backward, bf16 and fp32, against the same op stepping the
+   cell in plain PyTorch beside a matmul a step and against cuDNN
+   (``torch.nn.LSTM`` with the same weights, timed and compared only:
+   the port never calls it), rel L2 within ``RNN_TOL``; bf16 launches
+   the fused step once a step and layer each way and no pointwise L1,
+   fp32 L1 twice a step and layer, the plain path none. The port and
+   the plain path are timed eagerly and as a captured CUDA graph (their
+   device time alone), cuDNN eagerly.
 18c. lstm_trainstep: bench_lstm.py's configuration, nothing cut (vocab
    33,278, embed 650, 2 x 650 LSTM, batch 512, bptt 35, SGD momentum 0.9
    lr 0.1, bf16 over fp32 masters) through ``parallel.TrainStep``: the
@@ -308,7 +321,8 @@ script exits non-zero and prints no result. Phases:
    from the same state, captured and eager runs in turns (host and event
    ms, tokens/s), L1's launches a step (140, counted from the replays
    and the eager steps), memory, busy share and the top kernels
-   (torch.profiler).
+   (torch.profiler). Since slice 14 the step runs the fused kernels:
+   lstm_step_fwd and lstm_step_bwd 70 times each a step, no pointwise L1.
 18d. word_lm: the port's ``train.py`` (the eager Gluon loop) at its
    defaults for one epoch: its validation perplexity within
    ``WLM_PPL_MARGIN`` of the JAX package's CPU figure
@@ -321,8 +335,9 @@ script exits non-zero and prints no result. Phases:
 19. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
    ``fused_adam`` and ``data_pipeline`` launches, D1 with its
    decode_serving launches and its ``lm_spec`` launches, ``lstm_cell``
-   with TrainStep's launches and cuDNN's whole-RNN time), then the
-   result line.
+   with word_lm's (fp32) launches and cuDNN's whole-RNN time,
+   ``lstm_step_fwd`` / ``lstm_step_bwd`` with TrainStep's launches),
+   then the result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
@@ -5777,6 +5792,12 @@ L1_SHAPE = (512, 650)            # bench_lstm.py's batch and hidden width
 L1_FP32_TOL = 1e-5               # absolute: the same fp32 arithmetic
 L1_BF16_REL = 2 ** -7            # one bf16 rounding, relative to max(1, |x|)
 L1_FLOPS = (36, 60)              # operations a cell, forward / backward
+# the fused step (kernels/csrc/lstm_step.cu) against its plain versions,
+# relative to max(1, |x|): one bf16 rounding of each output (2^-8) and
+# the kernels' tanh.approx activations (2^-10.9); the fp32 outputs sum
+# bf16 products whose dz may round the other way
+STEP_TOL = 2 ** -7
+STEP_FLOPS = (40, 60)            # the cell's operations a unit and row
 RNN_SHAPE = (35, 512, 650, 2)    # T, N, C = H, layers: bench_lstm.py's
 # relative L2 error of outputs and gradients: fp32 against the plain
 # path and cuDNN (TF32 off; the sums are ordered otherwise), bf16 where
@@ -5825,6 +5846,8 @@ def l1_case(mt, torch, gen, dtype):
         * esize
     fb_ms, fb_by = bound_ms(fwd_bytes, L1_FLOPS[0] * cells, dtype)
     bb_ms, bb_by = bound_ms(bwd_bytes, L1_FLOPS[1] * cells, dtype)
+    bz = torch.zeros_like(b)
+    _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(xg, hg, cp, b, bz)
     row = {"phase": "lstm_cell", "dtype": dtype, "shape": [n, h],
            "errors": errs, "tolerance": {key: tol},
            "fwd_ms": time_ms(lambda: lc.lstm_cell_fwd(xg, hg, b, cp)),
@@ -5837,9 +5860,16 @@ def l1_case(mt, torch, gen, dtype):
            "fwd_bound_ms": fb_ms, "bwd_bound_ms": bb_ms,
            "bound_by": fb_by if fb_by == bb_by else [fb_by, bb_by],
            "bytes": {"fwd": fwd_bytes, "bwd": bwd_bytes},
-           "library_ms": None,
-           "library": "none for the cell alone (cuDNN's whole RNN in "
-                      "rnn_op)"}
+           "fwd_library_ms": time_ms(
+               lambda: torch.ops.aten._thnn_fused_lstm_cell(
+                   xg, hg, cp, b, bz)),
+           "bwd_library_ms": time_ms(
+               lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+                   dh, dc, cp, cy, ws, True)),
+           "library": "torch.ops.aten._thnn_fused_lstm_cell and "
+                      "_thnn_fused_lstm_cell_backward_impl (ATen's CUDA "
+                      "LSTM cell, gates i, f, g, o)"}
+    row["library_ms"] = row["fwd_library_ms"] + row["bwd_library_ms"]
     row["ms"] = row["fwd_ms"] + row["bwd_ms"]
     row["plain_ms"] = row["fwd_plain_ms"] + row["bwd_plain_ms"]
     row["bound_ms"] = fb_ms + bb_ms
@@ -5848,6 +5878,181 @@ def l1_case(mt, torch, gen, dtype):
     for name, e in errs.items():
         check(e[key] <= tol, f"L1 {dtype} {name}: {key} {e[key]} > {tol}")
     return row
+
+
+def lstm_step_inputs(torch, gen):
+    """One bf16 step's inputs at ``L1_SHAPE``: xg, b, c_prev, h_prev, wh,
+    dy (bf16) and the recurrent gradients dh_rec, dc (fp32)."""
+    n, h = L1_SHAPE
+
+    def r(*shape, scale=1.0, dt=torch.bfloat16):
+        return (torch.randn(shape, device=S13_DEVICE, generator=gen)
+                * scale).to(dt)
+
+    return (r(n, 4 * h), r(4 * h, scale=0.1), r(n, h), r(n, h),
+            r(4 * h, h, scale=h ** -0.5), r(n, h, scale=0.1),
+            r(n, h, scale=0.1, dt=torch.float32),
+            r(n, h, scale=0.1, dt=torch.float32))
+
+
+def step_errors(got, want, names):
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        d = (g.float() - w.float()).abs()
+        errs[name] = {"max_abs_err": float(d.max()),
+                      "max_rel_err": float((d / w.float().abs()
+                                            .clamp_min(1.0)).max())}
+    return errs
+
+
+def lstm_step_case(mt, torch, gen):
+    """The fused step (``kernels/csrc/lstm_step.cu``), forward and
+    backward at ``L1_SHAPE`` in bf16 with the plan's tile and cluster,
+    against the plain versions (the backward on the kernel's own z):
+    errors, a repeated backward bit for bit, ms (events) beside the
+    plain versions', the library's (``torch.matmul`` with ATen's CUDA
+    LSTM cell; the port never calls it) and the bound."""
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    n, h = L1_SHAPE
+    dt, f32 = torch.bfloat16, torch.float32
+    xg, b, cp, hprev, wh, dy, dh_rec, dc = lstm_step_inputs(torch, gen)
+    plan = lc._l1_plan(dt, n, h, torch.device(S13_DEVICE))
+    w = lc.stage_recurrent_weight(wh)
+    hbuf = torch.zeros((2, n, plan.hp), device=S13_DEVICE, dtype=dt)
+    hbuf[0, :, :h] = hprev
+    h_in, h_next = hbuf[0, :, :h], hbuf[1, :, :h]
+    hout, cout = torch.empty_like(cp), torch.empty_like(cp)
+    z = torch.empty_like(xg)
+    dz = torch.empty_like(xg)
+    dcp = torch.empty((n, h), device=S13_DEVICE, dtype=f32)
+    dhp = torch.empty_like(dcp)
+
+    def fwd():
+        lc.lstm_step_fwd(xg, h_in, w, b, cp, hout, cout, z, h_next, plan)
+
+    def bwd():
+        lc.lstm_step_bwd(dy, dh_rec, dc, z, cp, w, dz, dcp, dhp, plan)
+
+    fwd()
+    bwd()
+    want_f = lc.lstm_step_fwd_plain(xg, h_in, wh, b, cp)
+    want_b = lc.lstm_step_bwd_plain(dy, dh_rec, dc, z, cp, wh)
+    torch.cuda.synchronize()
+    errs = step_errors((hout, cout, z, h_next), want_f + (want_f[0],),
+                       ("h", "c", "z", "h_next"))
+    errs.update(step_errors((dz, dcp, dhp), want_b,
+                            ("dz", "dc_prev", "dh_prev")))
+    first = (dz.clone(), dcp.clone(), dhp.clone())
+    bwd()
+    torch.cuda.synchronize()
+    repeat_equal = all(torch.equal(a, c) for a, c in
+                       zip(first, (dz, dcp, dhp)))
+    bz = torch.zeros_like(b)
+    hg = torch.matmul(hprev, wh.t())
+    _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(xg, hg, cp, b, bz)
+    dh_lib, dc_lib = (dy.float() + dh_rec).to(dt), dc.to(dt)
+    cells, g4 = n * h, n * 4 * h
+    wbytes = 4 * h * h * 2
+    # each input read once, each output written once (h once: its
+    # recurrent copy is the kernel's own), the weight once
+    fwd_bytes = (g4 + cells + 4 * h + cells) * 2 + wbytes \
+        + (2 * cells + g4) * 2
+    bwd_bytes = (cells + g4 + cells) * 2 + 2 * cells * 4 + wbytes \
+        + g4 * 2 + 2 * cells * 4
+    flops = 2 * n * 4 * h * h
+    fb_ms, fb_by = bound_ms(fwd_bytes, flops + STEP_FLOPS[0] * cells,
+                            "bfloat16")
+    bb_ms, bb_by = bound_ms(bwd_bytes, flops + STEP_FLOPS[1] * cells,
+                            "bfloat16")
+    row = {"phase": "lstm_step", "dtype": "bfloat16", "shape": [n, h],
+           "plan": plan._asdict(), "errors": errs,
+           "tolerance": {"max_rel_err": STEP_TOL},
+           "repeat_bit_equal": repeat_equal,
+           "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd),
+           "fwd_plain_ms": time_ms(
+               lambda: lc.lstm_step_fwd_plain(xg, h_in, wh, b, cp)),
+           "bwd_plain_ms": time_ms(
+               lambda: lc.lstm_step_bwd_plain(dy, dh_rec, dc, z, cp, wh)),
+           "fwd_library_ms": time_ms(
+               lambda: torch.ops.aten._thnn_fused_lstm_cell(
+                   xg, torch.matmul(h_in, wh.t()), cp, b, bz)),
+           "bwd_library_ms": time_ms(
+               lambda: torch.matmul(
+                   torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+                       dh_lib, dc_lib, cp, cy, ws, True)[0], wh)),
+           "library": "torch.matmul with torch.ops.aten."
+                      "_thnn_fused_lstm_cell, and "
+                      "_thnn_fused_lstm_cell_backward_impl with "
+                      "torch.matmul (timed only)",
+           "stage_ms": time_ms(lambda: lc.stage_recurrent_weight(wh)),
+           "fwd_bound_ms": fb_ms, "bwd_bound_ms": bb_ms,
+           "bound_by": [fb_by, bb_by],
+           "bytes": {"fwd": fwd_bytes, "bwd": bwd_bytes},
+           "flops": flops}
+    emit(row)
+    for name, e in errs.items():
+        check(e["max_rel_err"] <= STEP_TOL, f"lstm_step {name}: max_rel_err "
+              f"{e['max_rel_err']} > {STEP_TOL}")
+    check(repeat_equal, "lstm_step_bwd: a repeated call differs")
+    return row
+
+
+def lstm_step_sweep(mt, torch, gen):
+    """The forward's tiles and the backward's cluster sizes at
+    ``L1_SHAPE``: ms (events) and how many clusters the card holds at
+    once; each result within ``STEP_TOL`` of the plain version."""
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    n, h = L1_SHAPE
+    dt = torch.bfloat16
+    dev = torch.device(S13_DEVICE)
+    xg, b, cp, hprev, wh, dy, dh_rec, dc = lstm_step_inputs(torch, gen)
+    w = lc.stage_recurrent_weight(wh)
+    hbuf = torch.zeros((2, n, 16 * -(-h // 16)), device=dev, dtype=dt)
+    hbuf[0, :, :h] = hprev
+    hout, cout, z = (torch.empty_like(cp), torch.empty_like(cp),
+                     torch.empty_like(xg))
+    dz = torch.empty_like(xg)
+    dcp = torch.empty(cp.shape, device=dev)
+    dhp = torch.empty_like(dcp)
+    want_f = lc.lstm_step_fwd_plain(xg, hbuf[0, :, :h], wh, b, cp)
+    rows = []
+    for tile in lc._FWD_TILES:
+        plan = lc._l1_plan(dt, n, h, dev, fwd_tile=tile)
+
+        def fwd():
+            lc.lstm_step_fwd(xg, hbuf[0, :, :h], w, b, cp, hout, cout, z,
+                             hbuf[1, :, :h], plan)
+
+        fwd()
+        torch.cuda.synchronize()
+        err = max(e["max_rel_err"] for e in step_errors(
+            (hout, cout, z), want_f, "hcz").values())
+        rows.append({"fwd_tile": list(tile), "grid": list(plan.fwd_grid),
+                     "smem": plan.fwd_smem, "ms": time_ms(fwd),
+                     "max_rel_err": err})
+        check(err <= STEP_TOL, f"lstm_step_fwd tile {tile}: {err}")
+    want_b = lc.lstm_step_bwd_plain(dy, dh_rec, dc, z, cp, wh)
+    lib = lc._lstm_lib()
+    for slices in lc._BWD_SLICE_CHOICES:
+        plan = lc._l1_plan(dt, n, h, dev, bwd_slices=slices)
+
+        def bwd():
+            lc.lstm_step_bwd(dy, dh_rec, dc, z, cp, w, dz, dcp, dhp, plan)
+
+        bwd()
+        torch.cuda.synchronize()
+        err = max(e["max_rel_err"] for e in step_errors(
+            (dz, dcp, dhp), want_b, ("dz", "dc_prev", "dh_prev")).values())
+        rows.append({"bwd_slices": slices, "stages": plan.bwd_stages,
+                     "smem": plan.bwd_smem, "grid": list(plan.bwd_grid),
+                     "max_active_clusters": lib.mxtt_lstm_bwd_max_clusters(
+                         slices, plan.bwd_smem),
+                     "ms": time_ms(bwd), "max_rel_err": err})
+        check(err <= STEP_TOL, f"lstm_step_bwd slices {slices}: {err}")
+    emit({"phase": "lstm_step_sweep", "rows": rows,
+          "chosen": {"fwd_tile": list(lc.L1_FWD_TILE),
+                     "bwd_slices": lc.L1_BWD_SLICES}})
+    return rows
 
 
 def plain_lstm_cell(xg, hg, b, c):
@@ -5927,9 +6132,10 @@ def graph_ms(torch, fn):
 
 
 def rnn_op_case(mt, torch, gen, dtype):
-    """The RNN op (lstm, L1 on each step) forward + backward at
-    ``RNN_SHAPE`` against the plain path (the same op with the cell in
-    plain PyTorch) and cuDNN; times by events."""
+    """The RNN op (lstm: the fused step in bf16, L1 and a matmul a step
+    in fp32) forward + backward at ``RNN_SHAPE`` against the plain path
+    (the same op stepping the cell in plain PyTorch beside a matmul a
+    step) and cuDNN; times by events."""
     from mxnet_tpu_torch import profile_training as pt
     from mxnet_tpu_torch.ops import lstm_cell as lc
     fb = mt.ops.fused_bn_conv
@@ -5940,23 +6146,31 @@ def rnn_op_case(mt, torch, gen, dtype):
         return mt.ops.nn.rnn(d, p, h0, c0, state_size=c, num_layers=layers,
                              mode="lstm")
 
-    real = lc.lstm_cell
+    real, real_plan = lc.lstm_cell, lc._l1_plan
+    cell_loop = real_plan(torch.float32, n, c, torch.device(S13_DEVICE))
 
     def plain(*a):
         lc.lstm_cell = plain_lstm_cell
+        lc._l1_plan = lambda *args, **kw: cell_loop
         try:
             return port(*a)
         finally:
-            lc.lstm_cell = real
+            lc.lstm_cell, lc._l1_plan = real, real_plan
+
+    def counts():
+        return {"lstm_cell": lc.lstm_cell_fwd.launches
+                + lc.lstm_cell_bwd.launches,
+                "lstm_step_fwd": lc.lstm_step_fwd.launches,
+                "lstm_step_bwd": lc.lstm_step_bwd.launches}
 
     fb.reset_launch_counts()
     got = rnn_fwd_bwd(torch, port, ins, gy)
     torch.cuda.synchronize()
-    l1 = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    launched = counts()
     fb.reset_launch_counts()
     ref = rnn_fwd_bwd(torch, plain, ins, gy)
     torch.cuda.synchronize()
-    plain_l1 = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    plain_launched = counts()
     m = cudnn_lstm(mt, torch, dtype, ins[1])
     d_leaf = ins[0].detach().requires_grad_()
     lib_out, _ = m(d_leaf, (ins[2], ins[3]))
@@ -5984,7 +6198,9 @@ def rnn_op_case(mt, torch, gen, dtype):
     row = {"phase": "rnn_op", "dtype": dtype, "T": t, "N": n, "C": c,
            "H": c, "layers": layers, "mode": "lstm",
            "rel_l2_err": err, "tolerance": RNN_TOL[dtype],
-           "l1_launches": l1, "plain_l1_launches": plain_l1,
+           "route": real_plan(getattr(torch, dtype), n, c,
+                              torch.device(S13_DEVICE)).route,
+           "launches": launched, "plain_launches": plain_launched,
            "ms": time_ms(lambda: rnn_fwd_bwd(torch, port, ins, gy),
                          reps=3, inner=2, warmup=1),
            "plain_ms": time_ms(lambda: rnn_fwd_bwd(torch, plain, ins, gy),
@@ -6003,9 +6219,14 @@ def rnn_op_case(mt, torch, gen, dtype):
                      "thousands of launches a call can outrun the spin, "
                      "so their ms may include host gaps"}
     emit(row)
-    check(l1 == 2 * t * layers, f"rnn_op {dtype}: {l1} L1 launches, "
-          f"expected {2 * t * layers} (forward and backward a step)")
-    check(plain_l1 == 0, "the plain path launched L1")
+    want = ({"lstm_cell": 0, "lstm_step_fwd": t * layers,
+             "lstm_step_bwd": t * layers} if dtype == "bfloat16" else
+            {"lstm_cell": 2 * t * layers, "lstm_step_fwd": 0,
+             "lstm_step_bwd": 0})
+    check(launched == want, f"rnn_op {dtype}: launches {launched}, "
+          f"expected {want} (forward and backward a step)")
+    check(not any(plain_launched.values()),
+          f"the plain path launched {plain_launched}")
     for what, es in err.items():
         for nm, e in es.items():
             check(e <= RNN_TOL[dtype], f"rnn_op {dtype} {what} {nm}: "
@@ -6021,8 +6242,8 @@ def lstm_step_state(torch, step):
 def lstm_trainstep_phase(mt, torch, np, smi):
     """bench_lstm.py's configuration through the port's TrainStep:
     eager against captured, a replay bit for bit against an eager step
-    from the same state, L1 launches a step, ms, tokens/s, memory, busy
-    share and top kernels."""
+    from the same state, the fused step's launches a step (and no
+    pointwise L1), ms, tokens/s, memory, busy share and top kernels."""
     from mxnet_tpu_torch import profile_training as pt
     from mxnet_tpu_torch.examples.word_language_model import bench_lstm
     from mxnet_tpu_torch.ops import lstm_cell as lc
@@ -6067,7 +6288,10 @@ def lstm_trainstep_phase(mt, torch, np, smi):
         runs.append(dict(r, mode=mode))
         n_steps += LSTM_STEP_N
     torch.cuda.synchronize()
-    launches = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    launches = {"lstm_step_fwd": lc.lstm_step_fwd.launches,
+                "lstm_step_bwd": lc.lstm_step_bwd.launches,
+                "lstm_cell": lc.lstm_cell_fwd.launches
+                + lc.lstm_cell_bwd.launches}
     trace = pt.busy_summary(pt.device_trace(
         lambda j: step(xs[j % 4], ys[j % 4]), LSTM_TRACE_STEPS),
         LSTM_TRACE_STEPS)
@@ -6084,8 +6308,8 @@ def lstm_trainstep_phase(mt, torch, np, smi):
                          for m in ("eager", "captured")},
         "replay_vs_eager": {"bit_equal": bit_equal,
                             "max_abs_diff": max(diffs)},
-        "l1_launches": launches, "steps": n_steps,
-        "l1_launches_per_step": launches / n_steps,
+        "launches": launches, "steps": n_steps,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
         "memory": {"warm_step_peak_gb": warm_peak,
                    "max_memory_allocated_gb": max(
                        r["max_memory_allocated_gb"] for r in runs),
@@ -6093,16 +6317,20 @@ def lstm_trainstep_phase(mt, torch, np, smi):
         "busy": {k: trace[k] for k in ("device_busy_share",
                                        "device_kernel_ms_per_step",
                                        "traced_wall_ms")},
-        "l1_ms_per_step": trace["port_kernels_ms_per_step"]["L1"],
+        "l1_ms_per_step": {k: v for k, v in trace[
+            "port_kernels_ms_per_step"].items() if k.startswith("L1")},
         "top_kernels": trace["top_kernels_ms_per_step"][:10],
         "program": prog.record.as_dict() if prog is not None else None,
         "losses": losses, "card": smi}
     emit(row)
     check(bit_equal, f"a TrainStep replay differs from the eager step "
                      f"from the same state: max diff {max(diffs)}")
-    check(launches == 2 * t * RNN_SHAPE[3] * n_steps,
-          f"L1 launched {launches} times in {n_steps} steps, expected "
-          f"{2 * t * RNN_SHAPE[3]} a step")
+    per = t * RNN_SHAPE[3] * n_steps
+    check(launches == {"lstm_step_fwd": per, "lstm_step_bwd": per,
+                       "lstm_cell": 0},
+          f"launches {launches} in {n_steps} steps, expected "
+          f"{t * RNN_SHAPE[3]} fused forward and backward steps a step "
+          "and no pointwise L1")
     check(all(np.isfinite(losses)), f"non-finite losses {losses}")
     del step, xs, ys
     return row
@@ -6213,8 +6441,9 @@ def bucketing_phase(mt, torch, np, smi):
 
 
 def slice13_phases(mt, torch, np, smi, gen):
-    """lstm_cell, rnn_op, lstm_trainstep, word_lm, lstm_bucketing (slice
-    13). Returns the kernels line's lstm_cell entry."""
+    """lstm_cell, lstm_step and its sweep (slice 14), rnn_op,
+    lstm_trainstep, word_lm, lstm_bucketing (slice 13). Returns the
+    kernels line's lstm_cell, lstm_step_fwd and lstm_step_bwd entries."""
     seconds, t0 = {}, [time.perf_counter()]
 
     def lap(name):
@@ -6223,6 +6452,9 @@ def slice13_phases(mt, torch, np, smi, gen):
 
     l1 = {dt: l1_case(mt, torch, gen, dt) for dt in ("bfloat16", "float32")}
     lap("lstm_cell")
+    st = lstm_step_case(mt, torch, gen)
+    lstm_step_sweep(mt, torch, gen)
+    lap("lstm_step")
     ops = {dt: rnn_op_case(mt, torch, gen, dt)
            for dt in ("bfloat16", "float32")}
     lap("rnn_op")
@@ -6238,34 +6470,60 @@ def slice13_phases(mt, torch, np, smi, gen):
     lap("lstm_bucketing")
     emit({"phase": "slice13_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
-    bf = l1["bfloat16"]
-    return {
+    bf, fp = l1["bfloat16"], l1["float32"]
+    fused_src = "mxnet_tpu_torch/kernels/csrc/lstm_step.cu"
+    replaces = ("mxnet_tpu/ops/nn.py:486-495 (_lstm_cell_step, jnp in "
+                "lax.scan by _run_layer :518; no pallas_call)")
+
+    def step_entry(name, way):
+        errs = [e["max_abs_err"] for k, e in st["errors"].items()
+                if (k in ("h", "c", "z", "h_next")) == (way == "fwd")]
+        return {
+            "name": name, "route": "cuda", "source": fused_src,
+            "replaces": replaces + ", with the recurrent product",
+            "launches": ts["launches"][name],
+            "launches_per_step": ts["launches_per_step"][name],
+            "max_abs_err": max(errs), "ms": st[f"{way}_ms"],
+            "plain_ms": st[f"{way}_plain_ms"],
+            "bound_ms": st[f"{way}_bound_ms"],
+            "bound_by": st["bound_by"][0 if way == "fwd" else 1],
+            "library_ms": st[f"{way}_library_ms"],
+            "library": st["library"], "dtype": "bfloat16",
+            "shape": list(L1_SHAPE), "plan": st["plan"],
+            "per": "one step at (512, 650)",
+            "path": "TrainStep at bench_lstm.py's configuration (counts "
+                    "set to 0 just before its timed runs); rnn_op bf16 "
+                    f"{ops['bfloat16']['launches'][name]} a call",
+            "status": "ok"}
+
+    return [{
         "name": "lstm_cell", "route": "triton",
         "source": "mxnet_tpu_torch/kernels/lstm_cell_triton.py",
-        "replaces": "mxnet_tpu/ops/nn.py:486-496 (_lstm_cell_step, jnp "
-                    "in lax.scan)",
-        "launches": ts["l1_launches"],
-        "launches_per_step": ts["l1_launches_per_step"],
+        "replaces": replaces,
+        "launches": wlm["l1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in l1.values()),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
-        "library": "none for the cell alone",
+        "library_ms": bf["library_ms"], "library": bf["library"],
+        "fp32": {k: fp[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")},
         "cudnn_rnn_ms": {dt: r["cudnn_ms"] for dt, r in ops.items()},
         "rnn_op_ms": {dt: r["ms"] for dt, r in ops.items()},
         "rnn_op_plain_ms": {dt: r["plain_ms"] for dt, r in ops.items()},
         "rnn_op_captured_ms": {dt: {"port": r["captured_ms"],
                                     "plain": r["captured_plain_ms"]}
                                for dt, r in ops.items()},
-        "fp32": {k: l1["float32"][k] for k in ("ms", "plain_ms",
-                                                "bound_ms")},
         "dtype": "bfloat16", "shape": list(L1_SHAPE),
-        "per": "one forward and one backward at (512, 650)",
-        "path": "TrainStep at bench_lstm.py's configuration (counts set "
-                "to 0 just before its timed runs)",
-        "word_lm": {"launches": wlm["l1_launches"]},
+        "per": "one forward and one backward at (512, 650) (bf16: the "
+               "fused step's yardstick; fp32: the route of fp32 layers)",
+        "path": "train.py's eager Gluon loop in fp32 (word_lm, counts set "
+                "to 0 just before it); rnn_op fp32 "
+                f"{ops['float32']['launches']['lstm_cell']} a call; "
+                "bf16 takes the fused step",
         "bucketing": {"launches": bk["l1_launches"]},
-        "status": "ok"}
+        "status": "ok"},
+        step_entry("lstm_step_fwd", "fwd"),
+        step_entry("lstm_step_bwd", "bwd")]
 
 
 def k4_entry(rows, name, route, launches, what):
@@ -6621,7 +6879,7 @@ def main():
 
     # 18a.-18e. the LSTM language models: L1, the RNN op, TrainStep at
     # bench_lstm.py's widths, train.py's loop, lstm_bucketing (slice 13)
-    l1_entry = slice13_phases(mt, torch, np, smi, gen)
+    l1_entries = slice13_phases(mt, torch, np, smi, gen)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
@@ -6721,7 +6979,7 @@ def main():
              "large elementwise"),
             ("user_scale3_triton", "triton",
              k4_path_launches["user_scale3_triton"], "large elementwise"))
-    ] + [d1_entry, l1_entry], "card": smi,
+    ] + [d1_entry] + l1_entries, "card": smi,
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

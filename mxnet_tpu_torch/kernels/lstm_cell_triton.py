@@ -32,8 +32,8 @@ under the ridge; at the LSTM LM's (512, 650) in bf16 that is 7.3 and
 10.6 MB, about 2-3 us at 3.35 TB/s, so a launch costs about as much as
 the pass. The design keeps it one coalesced pass: a 1-D grid over the
 N*H cells, neighbouring threads on neighbouring columns of each gate
-block. Fusing the pass into the recurrent product's epilogue is later
-work.
+block. The ``RNN`` op runs it for fp32 layers; bf16 layers run the cell
+inside the recurrent product (``kernels/csrc/lstm_step.cu``).
 
 ``triton`` is imported on the first launch, never when this module is
 imported, so the CPU tests can import it.

@@ -446,11 +446,13 @@ def rnn_zero_state(data, state_size=0, num=0, batch_axis=0, **kw):
 def _run_layer(xs, mode, wx, wh, bx, bh, h0, c0=None, reverse=False):
     """One layer and direction over (T, N, C) ``xs``: ``(carry, ys)``,
     carry ``(c, h)`` for lstm, ``(h,)`` otherwise. The input product of
-    every step is one matmul over T*N rows; the recurrent product stays
-    a matmul a step. lstm steps through ``lstm_cell`` (L1 on the card);
-    gru and the vanilla cells are plain PyTorch, as the reference has no
-    kernel there."""
-    from .lstm_cell import lstm_cell
+    every step is one matmul over T*N rows. lstm runs the route
+    ``lstm_cell._l1_plan`` names: the layer function ``lstm_layer`` (the
+    fused step a launch each way in bf16 on the card, the plain steps on
+    the CPU) or, in fp32 on the card, a matmul a step and ``lstm_cell``
+    (L1's pointwise pass). gru and the vanilla cells are plain PyTorch,
+    as the reference has no kernel there."""
+    from . import lstm_cell as lc
     steps = range(xs.shape[0] - 1, -1, -1) if reverse \
         else range(xs.shape[0])
     # unbind, not gx[t]: its backward stacks the steps' gradients once,
@@ -460,9 +462,13 @@ def _run_layer(xs, mode, wx, wh, bx, bh, h0, c0=None, reverse=False):
     h = h0
     if mode == "lstm":
         b, c = bx + bh, c0
+        plan = lc._l1_plan(xs.dtype, xs.shape[1], wh.shape[1], xs.device)
+        if plan.route != "triton":
+            out, h, c = lc.lstm_layer(gx, wh, b, h0, c0, reverse)
+            return (c, h), out
         gxs = gx.unbind(0)
         for t in steps:
-            h, c = lstm_cell(gxs[t], torch.matmul(h, wh.t()), b, c)
+            h, c = lc.lstm_cell(gxs[t], torch.matmul(h, wh.t()), b, c)
             ys[t] = h
         return (c, h), torch.stack(ys)
     if mode == "gru":

@@ -59,7 +59,9 @@ PORT_KERNELS = {"K1": ("bn_relu_conv1x1", "bn_gemm_wgmma<1,",
                 "B1 second stage": ("_bn_bwd_sum_parts",),
                 "B2": ("_bn_bwd_dx",),
                 "D1": ("d1::decode_attention",),
-                "L1": ("_lstm_cell_fwd", "_lstm_cell_bwd")}
+                "L1": ("_lstm_cell_fwd", "_lstm_cell_bwd"),
+                "L1 fused forward": ("ls::lstm_fwd_kernel",),
+                "L1 fused backward": ("ls::lstm_bwd_kernel",)}
 # CPU events of kernel launches (the cuda* and cu* launch calls)
 LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cuLaunchKernelEx")
