@@ -332,6 +332,34 @@ script exits non-zero and prints no result. Phases:
    most the first; every executor program captured once and replayed
    (``compile_report()``); ms a step per bucket in epoch 2.
    ``slice13_seconds`` gives each phase's seconds.
+18f. telemetry (slice 15): ``bench.py main()``'s ``fit`` (ResNet-50
+   s2d, bf16, batch 128, SGD, captured) for ``TELEM_STEPS`` steps with
+   ``MXTPU_TELEMETRY_DIR`` and ``MXTPU_TRACE_DIR`` on temporary
+   directories (a ``train_step`` event every step), in turns with the
+   same fit with them off (``TELEM_RUNS``), on one module whose step is
+   captured once before: the median step wall of each run (the
+   timeline's ``step::wall_s``) and its spread both ways, the overhead
+   (at most ``TELEM_OVERHEAD_MAX``), beside the replay's device ms (CUDA
+   events); each traced run's phase self-times within
+   ``TELEM_PHASE_TOL`` of its step walls, every step's at most its
+   wall, and every step's split printed (the lowest steps, their
+   ``unattributed`` time, the steps under the bar); the event log read
+   back (``train_step``, ``epoch``) and the
+   Chrome trace's ``fit`` -> ``step`` -> ``device_step`` nesting and
+   ``data:stage`` spans. ``telemetry_syncs``: the synchronising calls a
+   step makes (``torch.cuda.set_sync_debug_mode("warn")``, warnings
+   captured), on and off, must be equal. ``telemetry_memory``: the fused
+   step's ``memory_report()`` row (pool bytes > 0 and at most
+   ``torch.cuda.max_memory_allocated()``), the host ms of one pool
+   reading beside the capture's seconds. ``telemetry_profiler``:
+   ``profiler.set_state("run")`` around 3 steps, ``dump()``; the trace
+   must name K1, K2, B1 and B2's kernels. ``telemetry_serving``: 64
+   requests through a ``DynamicBatcher`` on phase 4's Predictor (buckets
+   1, 8, 64), traced: each request span has its batch span and a bucket
+   span under that; each bucket has a memory row.
+   ``telemetry_decode``: a short traced decode run at GPT-2 small's
+   widths: prefill / step / request spans, ``serving::<id>::ttft_ms``,
+   the KV-cache's ``decode_state`` row.
 19. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
    ``fused_adam`` and ``data_pipeline`` launches, D1 with its
    decode_serving launches and its ``lm_spec`` launches, ``lstm_cell``
@@ -6545,6 +6573,444 @@ def k4_entry(rows, name, route, launches, what):
             "hook": "operator.UserKernel (K4)", "status": "ok"}
 
 
+# ---------------------------------------------------------------------------
+# The telemetry layer (slice 15): StepTimeline through fit and the captured
+# step, trace spans, the event log, memory rows, the profiler
+# ---------------------------------------------------------------------------
+TELEM_STEPS = 20
+TELEM_RUNS = ("off", "on", "on", "off", "off", "on", "on", "off")
+TELEM_OVERHEAD_MAX = 0.02     # the JAX package's bar for tracing's cost
+TELEM_PHASE_TOL = 0.10        # named phases against a run's step walls
+TELEM_REQUESTS = 64
+TELEM_DECODE_PROMPTS = (16, 24, 32, 40, 48, 20, 28, 36)
+TELEM_DECODE_TOKENS = 16
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def telemetry_fit(mt, torch, model, batches, metric, dirs=None,
+                  callback=None):
+    """One ``fit`` of ``TELEM_STEPS`` steps over the staged batches on
+    ``model`` (its step already captured); with ``dirs`` = (event dir,
+    trace dir) the event log (a ``train_step`` event every step) and
+    tracing are on. Returns the run's ``step::`` registry snapshot and
+    its ms a step on the card's clock: from an event recorded as ``fit``
+    is called to one recorded in the last step's batch-end callback
+    (the fit's own setup and its steps, host gaps included; not the
+    epoch end nor the timeline's close). No sync is added."""
+    from mxnet_tpu_torch import profile_training as pt
+    it = mt.io.ResizeIter(four_batches(mt, batches), TELEM_STEPS)
+    knobs = {"MXTPU_TELEMETRY_DIR": dirs[0] if dirs else None,
+             "MXTPU_TRACE_DIR": dirs[1] if dirs else None,
+             "MXTPU_TELEMETRY_EVENT_STEPS": 1 if dirs else None}
+    ends = []
+
+    def on_batch(param):
+        if callback is not None:
+            callback(param)
+        if param.nbatch == TELEM_STEPS - 1:
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+
+    start = torch.cuda.Event(enable_timing=True)
+    with contextlib.ExitStack() as stack:
+        for k, v in knobs.items():
+            stack.enter_context(mt.config.override(k, v))
+        mt.telemetry.reset(prefix="step::")
+        torch.cuda.synchronize()
+        start.record()
+        model.fit(it, eval_metric=metric, kvstore=None, optimizer="sgd",
+                  optimizer_params=pt.SGD_PARAMS, num_epoch=1,
+                  batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    return (mt.telemetry.snapshot(prefix="step::"),
+            start.elapsed_time(ends[0]) / TELEM_STEPS)
+
+
+def telemetry_trace_checks(mt, trace_dir):
+    """The Chrome trace of one traced fit: the ``fit`` root, every
+    ``step`` under it, ``device_step`` spans under the steps (and the
+    fused step's inside fit's), the data pipeline's ``data:stage`` spans
+    on the run's trace. Returns span counts by name."""
+    files = mt.telemetry.trace.trace_files(trace_dir)
+    check(files, "the traced fit exported no trace")
+    spans = [e for e in mt.telemetry.trace.read_trace(files[-1])
+             if e["ph"] == "X"]
+    by_id = {e["args"]["span_id"]: e for e in spans
+             if "span_id" in e["args"]}
+    roots = [e for e in spans if e["cat"] == "train"]
+    check(len(roots) == 1 and roots[0]["name"].startswith("fit:"),
+          f"trace roots {[e['name'] for e in roots]}")
+    root = roots[0]["args"]
+    steps = [e for e in spans if e["name"] == "step"]
+    check(len(steps) == TELEM_STEPS and all(
+        e["args"]["parent_id"] == root["span_id"] for e in steps),
+        f"{len(steps)} step spans under the fit root")
+    dev = [e for e in spans if e["name"] == "device_step"]
+    under_step = [e for e in dev
+                  if by_id[e["args"]["parent_id"]]["name"] == "step"]
+    inner = [e for e in dev
+             if by_id[e["args"]["parent_id"]]["name"] == "device_step"]
+    check(len(under_step) == TELEM_STEPS and len(inner) == TELEM_STEPS,
+          f"device_step spans: {len(under_step)} under a step, "
+          f"{len(inner)} inside fit's")
+    stage = [e for e in spans if e["name"] == "data:stage"]
+    check(stage and all(e["args"]["trace_id"] == root["trace_id"]
+                        and e["args"]["parent_id"] == root["span_id"]
+                        for e in stage), "data:stage spans on the run")
+    counts = {}
+    for e in spans:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def phase_split(steps):
+    """Named phases over wall, and the unattributed share, of ``(run,
+    train_step event)`` pairs: least, most, the lowest three steps."""
+    ratios = sorted(((sum(e["phases"].values()) / e["wall_s"], i, e)
+                     for i, e in steps), key=lambda t: t[0])
+    unattr = [e["unattributed_s"] / e["wall_s"] for _, e in steps]
+    return {"min": ratios[0][0], "max": ratios[-1][0], "steps": len(steps),
+            "under_bar": sum(r < 1 - TELEM_PHASE_TOL for r, _, _ in ratios),
+            "unattributed_share": {"median": statistics.median(unattr),
+                                   "max": max(unattr)},
+            "lowest": [{"ratio": r, "run": i, "step": e["step"],
+                        "wall_s": e["wall_s"],
+                        "unattributed_s": e["unattributed_s"],
+                        "phases": e["phases"]} for r, i, e in ratios[:3]]}
+
+
+def telemetry_fit_phase(mt, torch, smi, model, batches, metric):
+    """``telemetry_fit`` / ``telemetry_syncs``: the fits on and off in
+    turns, the per-step checks, the event log, the trace, the syncs."""
+    import warnings
+    progs = [p for p in model._fused._programs.values() if p.captured]
+    prog = progs[-1]
+    dev_ms = time_ms(prog.replay, reps=5, inner=5, warmup=1)
+    captures0, replays0 = prog.record.captures, prog.record.replays
+    runs = {"on": [], "off": []}
+    kinds, spans, steps, run_ratios = None, None, [], []
+    for i, mode in enumerate(TELEM_RUNS):
+        dirs = (tempfile.mkdtemp(), tempfile.mkdtemp()) \
+            if mode == "on" else None
+        try:
+            snap, fit_ms = telemetry_fit(mt, torch, model, batches,
+                                         metric, dirs)
+            check(snap["step::steps"]["value"] == TELEM_STEPS,
+                  f"{mode}: {snap['step::steps']}")
+            wall = snap["step::wall_s"]
+            runs[mode].append({"fit_ms_per_step": fit_ms,
+                               "host_median_ms": wall["p50"] * 1e3,
+                               "host_min_ms": wall["min"] * 1e3,
+                               "host_max_ms": wall["max"] * 1e3})
+            if dirs:
+                events, torn = mt.telemetry.read_events(dirs[0])
+                check(torn == 0, "torn event lines")
+                ts = [e for e in events if e["kind"] == "train_step"]
+                check(len(ts) == TELEM_STEPS, f"{len(ts)} train_step events")
+                steps.extend((i, e) for e in ts)
+                run_ratios.append(
+                    sum(sum(e["phases"].values()) for e in ts)
+                    / sum(e["wall_s"] for e in ts))
+                if kinds is None:
+                    kinds = sorted({e["kind"] for e in events})
+                    spans = telemetry_trace_checks(mt, dirs[1])
+        finally:
+            mt.telemetry.export.reset_exporter()   # closes the event log
+            for d in dirs or ():
+                shutil.rmtree(d, ignore_errors=True)
+    check({"train_step", "epoch", "timeline_close"} <= set(kinds),
+          f"event kinds {kinds}")
+    # one graph both ways: telemetry on or off captures nothing new
+    check(prog.record.captures == captures0 and
+          prog.record.replays - replays0 == len(TELEM_RUNS) * TELEM_STEPS,
+          f"captures {captures0} -> {prog.record.captures}, replays "
+          f"{prog.record.replays - replays0} over the runs")
+    replays_in_runs = prog.record.replays - replays0
+    # the named phases against the step walls of each traced run (the
+    # JAX package's bar, tests/test_telemetry.py:306, over its fit's
+    # sums); each step is checked for double counting and printed: a
+    # host stall between two phases is no phase's time, and on a
+    # host-paced step of 1-2 ms one of a few hundred microseconds takes
+    # that step alone under the bar (PERF.md section 6)
+    split = phase_split(steps)
+    check(min(run_ratios) >= 1 - TELEM_PHASE_TOL and
+          split["max"] <= 1 + 1e-6,
+          f"phase self-times over step wall: runs {run_ratios}, "
+          f"steps {split}")
+
+    def medians(key):
+        return {m: statistics.median(r[key] for r in runs[m])
+                for m in runs}
+
+    med, host = medians("fit_ms_per_step"), medians("host_median_ms")
+    overhead = med["on"] / med["off"] - 1
+    emit({"phase": "telemetry_fit", "steps_per_run": TELEM_STEPS,
+          "order": list(TELEM_RUNS), "runs": runs,
+          "fit_ms_per_step": med,
+          "fit_spread_ms": {m: [min(r["fit_ms_per_step"] for r in runs[m]),
+                                max(r["fit_ms_per_step"] for r in runs[m])]
+                            for m in runs},
+          "overhead": overhead,
+          "host_step_wall_ms": host,
+          "host_overhead": host["on"] / host["off"] - 1,
+          "program": {"captures": prog.record.captures,
+                      "replays_in_runs": replays_in_runs},
+          "replay_device_ms": dev_ms,
+          "phases_over_wall": {"runs": run_ratios, "steps": split},
+          "event_kinds": kinds, "trace_spans": spans,
+          "clocks": "fit_ms_per_step: CUDA events, fit called -> the last "
+                    "step's batch-end callback, over the steps; "
+                    "host_step_wall_ms: the StepTimeline's step::wall_s "
+                    "(host clock; the host runs ahead of the card); "
+                    "replay_device_ms: CUDA events over prog.replay()",
+          "card": smi})
+    check(overhead <= TELEM_OVERHEAD_MAX,
+          f"telemetry and tracing cost {overhead:.2%} of the step")
+
+    # synchronising calls a step, on and off
+    counts = {}
+    for mode in ("off", "on"):
+        marks = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            dirs = (tempfile.mkdtemp(), tempfile.mkdtemp()) \
+                if mode == "on" else None
+            try:
+                telemetry_fit(
+                    mt, torch, model, batches, metric, dirs,
+                    callback=lambda p: marks.append(sum(
+                        SYNC_WARNING in str(w.message) for w in caught)))
+                total = sum(SYNC_WARNING in str(w.message) for w in caught)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                mt.telemetry.export.reset_exporter()
+                for d in dirs or ():
+                    shutil.rmtree(d, ignore_errors=True)
+        counts[mode] = {"per_step": [b - a for a, b in
+                                     zip([0] + marks, marks)],
+                        "whole_fit": total}
+    emit({"phase": "telemetry_syncs", "counts": counts,
+          "counted": "warnings of torch.cuda.set_sync_debug_mode('warn'); "
+                     "a step's window ends at its batch-end callback; "
+                     "whole_fit adds the epoch end and the timeline's "
+                     "close", "card": smi})
+    check(len(counts["on"]["per_step"]) == TELEM_STEPS
+          and counts["on"]["per_step"] == counts["off"]["per_step"],
+          f"synchronising calls a step differ: {counts}")
+    return prog, med
+
+
+def telemetry_serving_phase(mt, torch, np, smi, pred):
+    """``telemetry_serving``: phase 4's Predictor through a traced
+    DynamicBatcher, 64 requests of 1-12 rows from 4 client threads."""
+    tdir = tempfile.mkdtemp()
+    rng = np.random.default_rng(SEED + 15)
+    reqs = [rng.standard_normal((int(rng.integers(1, 13)), 3, 224, 224))
+            .astype(np.float32) for _ in range(TELEM_REQUESTS)]
+    futs = [None] * TELEM_REQUESTS
+    try:
+        with mt.config.override("MXTPU_TRACE_DIR", tdir):
+            mt.telemetry.trace.reset()
+            bat = mt.serving.DynamicBatcher(pred, max_wait_us=2000,
+                                            name="telemetry")
+            bat.start()
+            try:
+                def client(k):
+                    for i in range(k, TELEM_REQUESTS, 4):
+                        futs[i] = bat.submit(reqs[i])
+                        futs[i].result(timeout=300)
+
+                threads = [threading.Thread(target=client, args=(k,))
+                           for k in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+            finally:
+                bat.stop()             # exports the trace
+        files = mt.telemetry.trace.trace_files(tdir)
+        check(files, "the batcher exported no trace")
+        spans = [e for e in mt.telemetry.trace.read_trace(files[-1])
+                 if e["ph"] == "X"]
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    check(all(f is not None and f.done() for f in futs),
+          "a request did not complete")
+    by_id = {e["args"]["span_id"]: e for e in spans
+             if "span_id" in e["args"]}
+    reqspans = {e["args"]["trace_id"]: e for e in spans
+                if e["name"] == "serving:request"}
+    bucket_of = {}
+    for e in spans:
+        if e["name"].startswith("serving:bucket") and \
+                "parent_id" in e["args"]:
+            bucket_of[e["args"]["parent_id"]] = e
+    held = 0
+    for f in futs:
+        r = reqspans.get(f.trace_id)
+        b = by_id.get(r["args"].get("batch_span")) if r else None
+        k = bucket_of.get(b["args"]["span_id"]) if b else None
+        if b is None or k is None or f.trace_id not in \
+                b["args"]["trace_ids"]:
+            continue
+        held += (r["ts"] - 5 <= b["ts"] and b["ts"] <= k["ts"] and
+                 k["ts"] + k["dur"] <= b["ts"] + b["dur"] + 5 and
+                 b["ts"] + b["dur"] <= r["ts"] + r["dur"] + 5)
+    rows = {}
+    for b in pred.buckets:
+        mem = pred.program_memory(b)
+        rows[b] = {k: mem.get(k) for k in ("pool_bytes", "argument_bytes",
+                                           "output_bytes", "peak_bytes")}
+    report = mt.memory_report()["programs"]
+    named = {r["name"] for r in report}
+    emit({"phase": "telemetry_serving", "requests": TELEM_REQUESTS,
+          "requests_with_batch_and_bucket_spans": held,
+          "batches": sum(e["name"] == "serving:batch" for e in spans),
+          "bucket_spans": sum(e["name"].startswith("serving:bucket")
+                              for e in spans),
+          "memory_rows": rows, "card": smi})
+    check(held == TELEM_REQUESTS,
+          f"{held} of {TELEM_REQUESTS} request spans hold their batch and "
+          "bucket spans")
+    for b in pred.buckets:
+        check(rows[b]["peak_bytes"] and
+              f"predictor:{pred.symbol.name}:b{b}" in named,
+              f"bucket {b} has no memory row")
+
+
+def telemetry_decode_phase(mt, torch, np, smi):
+    """``telemetry_decode``: a short traced decode run at GPT-2 small's
+    widths (slots 4, bucket 64)."""
+    dec = mt.serving.decode
+    spec = gpt2_spec(mt, "gpt2tel")
+    params = dec.init_params(spec, seed=SEED)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, spec.vocab_size, size=n).astype(np.int32)
+               for n in TELEM_DECODE_PROMPTS]
+    tdir = tempfile.mkdtemp()
+    try:
+        with mt.config.override("MXTPU_TRACE_DIR", tdir):
+            mt.telemetry.trace.reset()
+            eng = dec.DecodePredictor(spec, params, slots=4,
+                                      seq_buckets=(64,), name="gpt2tel",
+                                      device="cuda:0")
+            del params
+            eng.warmup()
+            with dec.DecodeBatcher(eng, max_wait_us=2000,
+                                   name="gpt2tel") as bat:
+                futs = [bat.submit(p, max_new_tokens=TELEM_DECODE_TOKENS)
+                        for p in prompts]
+                outs = [f.result(timeout=300) for f in futs]
+        spans = [e for e in mt.telemetry.trace.read_trace(
+            mt.telemetry.trace.trace_files(tdir)[-1]) if e["ph"] == "X"]
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    check(all(len(o) == TELEM_DECODE_TOKENS for o in outs),
+          "a generation came back short")
+    ids = {f.trace_id for f in futs}
+    prefill = {e["args"]["trace_id"] for e in spans
+               if e["name"] == "decode:prefill"}
+    reqs = {e["args"]["trace_id"] for e in spans
+            if e["name"] == "serving:request"}
+    steps = sum(e["name"] == "decode:step" for e in spans)
+    pid = eng.telemetry_id
+    ttft = mt.telemetry.snapshot(prefix=f"serving::{pid}::ttft_ms")[
+        f"serving::{pid}::ttft_ms"]
+    row = [r for r in mt.memory_report()["programs"]
+           if r["name"] == f"decode:{pid}:kv_cache"]
+    emit({"phase": "telemetry_decode", "widths": GPT2_SMALL,
+          "requests": len(prompts), "decode_step_spans": steps,
+          "ttft_ms": {"count": ttft["count"], "p50": ttft["p50"],
+                      "p99": ttft["p99"]},
+          "decode_state_row": row[0] if row else None, "card": smi})
+    check(prefill == ids and reqs == ids and
+          steps >= TELEM_DECODE_TOKENS - 1, f"decode spans: {steps} steps")
+    check(ttft["count"] == len(prompts), f"ttft count {ttft['count']}")
+    check(row and row[0]["kind"] == "decode_state" and
+          row[0]["peak_bytes"] == eng.kv_cache_bytes(),
+          f"decode_state row {row}")
+
+
+def telemetry_phases(mt, torch, np, smi, pred):
+    """Every telemetry phase (slice 15)."""
+    from mxnet_tpu_torch import profile_training as pt
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batches = pt.staged_batches(TRAIN_BATCH, 4, SEED)
+    model = pt.build_module(TRAIN_BATCH, SEED)
+    metric = mt.metric.create("acc")
+    telemetry_fit(mt, torch, model, batches, metric)   # warm step, capture
+    prog, med = telemetry_fit_phase(mt, torch, smi, model, batches, metric)
+
+    # the fused step's memory row
+    mem = dict(prog.memory)
+    rows = [r for r in mt.memory_report()["programs"]
+            if r["digest"] == prog.key.digest[:12]]
+    peak_alloc = torch.cuda.max_memory_allocated()
+    # what the row costs a capture: one pool reading (a walk of
+    # memory_snapshot()) after it, and one before it where the pool is
+    # shared (a predictor's buckets); host clock, beside the capture's
+    reads = []
+    for _ in range(5):
+        r0 = time.perf_counter()
+        mt.telemetry.memory.pool_reading(prog.graph.pool())
+        reads.append((time.perf_counter() - r0) * 1e3)
+    emit({"phase": "telemetry_memory", "program": prog.key.name,
+          "row": mem, "max_memory_allocated": peak_alloc,
+          "gauge_process_peak": mt.telemetry.gauge(
+              "mem::process_peak_bytes").get(),
+          "pool_reading_ms": statistics.median(reads),
+          "pool_reading_ms_runs": reads,
+          "allocator_segments": len(torch.cuda.memory_snapshot()),
+          "capture_s": prog.record.capture_s,
+          "clocks": "pool_reading_ms, capture_s: host clock", "card": smi})
+    check(rows and rows[0]["pool_bytes"] == mem.get("pool_bytes"),
+          "memory_report() has no row of the fused step")
+    check(0 < mem["pool_bytes"] <= peak_alloc,
+          f"pool bytes {mem.get('pool_bytes')} against "
+          f"max_memory_allocated {peak_alloc}")
+
+    # the profiler around 3 steps
+    from mxnet_tpu_torch import profiler
+    pdir = tempfile.mkdtemp()
+    try:
+        profiler.set_config(filename=os.path.join(pdir, "profile.json"))
+        profiler.set_state("run")
+        for i in range(3):
+            pt.run_step(model, batches[i])
+        torch.cuda.synchronize()
+        profiler.dump()
+        files = profiler.trace_files()
+        check(len(files) == 1, f"profiler files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(files[0])
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    named = {k: sum(any(sub in n for sub in pt.PORT_KERNELS[k])
+                    for n in kernels) for k in ("K1", "K2", "B1", "B2")}
+    emit({"phase": "telemetry_profiler", "steps": 3,
+          "kernel_events": len(kernels), "port_kernel_events": named,
+          "trace_bytes": size, "card": smi})
+    check(all(v > 0 for v in named.values()),
+          f"the profiler's trace lacks a kernel: {named}")
+    del model, batches, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    telemetry_serving_phase(mt, torch, np, smi, pred)
+    telemetry_decode_phase(mt, torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "telemetry_seconds",
+          "seconds": time.perf_counter() - t0})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6880,6 +7346,9 @@ def main():
     # 18a.-18e. the LSTM language models: L1, the RNN op, TrainStep at
     # bench_lstm.py's widths, train.py's loop, lstm_bucketing (slice 13)
     l1_entries = slice13_phases(mt, torch, np, smi, gen)
+
+    # 18f. the telemetry layer (slice 15) --------------------------------------
+    telemetry_phases(mt, torch, np, smi, pred)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):

@@ -37,7 +37,11 @@ sources), ``recordio`` and the ``telemetry`` registry
 language models: the ``RNN`` op (lstm on the L1 kernel) and ``Dropout``,
 ``gluon.rnn``, ``parallel.TrainStep`` (a Gluon block's captured training
 step), the symbolic cells of ``rnn`` with ``BucketSentenceIter``, and
-``mod.BucketingModule``.
+``mod.BucketingModule``. Slice 15 covers the telemetry layer:
+``telemetry`` (``StepTimeline`` through ``fit`` and the captured step,
+trace spans, the durable event log, ``memory_report()`` of the captured
+programs), ``profiler`` on ``torch.profiler``, and the ``serving``,
+``compile``, ``fault`` and ``data`` collectors (``serving_report()``).
 """
 from . import base, config, context
 from .base import MXNetError
@@ -71,6 +75,9 @@ from .checkpoint import CheckpointManager
 from . import telemetry, sparse, recordio, data
 from .data import data_report
 from . import parallel, rnn
+from . import profiler
+from .telemetry import memory_report
+from .serving import serving_report
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
@@ -81,4 +88,7 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "fault_report", "callback", "checkpoint", "metric_device",
            "model", "executor", "monitor", "CheckpointManager",
            "telemetry", "sparse", "recordio", "data", "data_report",
-           "parallel", "rnn"]
+           "parallel", "rnn", "profiler", "memory_report",
+           "serving_report"]
+
+config._autostart_profiler()

@@ -113,6 +113,8 @@ class CheckpointManager:
         self._lock = threading.Lock()
         self._valid_tags = set()   # tags this process wrote or validated
         self.last_save_s = None
+        from . import profiler
+        self._dom = profiler.Domain("ft")
 
     # -- naming ---------------------------------------------------------------
     def _dir_for(self, tag):
@@ -212,46 +214,54 @@ class CheckpointManager:
         tag = meta["tag"]
         ckpt_dir = self._dir_for(tag)
         t0 = time.perf_counter()
-        os.makedirs(ckpt_dir, exist_ok=True)
-        self._valid_tags.discard(tag)
-        stale = os.path.join(ckpt_dir, _MANIFEST)
-        if os.path.exists(stale):
-            os.unlink(stale)  # a re-save of a tag: invalidate it first
-        # each payload is serialized in memory and its CRC taken from the
-        # exact bytes before they reach the disk (validate() is the read
-        # side's check)
-        save_dict = {f"arg:{k}": v for k, v in args_np.items()}
-        save_dict.update({f"aux:{k}": v for k, v in auxs_np.items()})
-        blobs = {_PARAMS: dumps_params(list(save_dict.values()),
-                                       list(save_dict.keys())),
-                 _EXTRA: pickle.dumps(payload or {})}
-        if opt_state is not None:
-            blobs[_OPT] = opt_state if isinstance(opt_state, bytes) \
-                else pickle.dumps(opt_state)
-        for name in (_PARAMS, _OPT, _EXTRA):
-            # a re-save writing fewer files must not leave an earlier
-            # save's payload behind, outside the new manifest's CRCs
-            p = os.path.join(ckpt_dir, name)
-            if name not in blobs and os.path.exists(p):
-                os.unlink(p)
-        files = {}
-        for name, blob in blobs.items():
-            with atomic_write(os.path.join(ckpt_dir, name)) as f:
-                f.write(blob)
-            files[name] = {"crc32": zlib.crc32(blob) & 0xFFFFFFFF,
-                           "size": len(blob)}
-        manifest = dict(meta, files=files, version=1)
-        # the commit point: the checkpoint is valid iff this file lands
-        # intact and the payloads match its checksums
-        with atomic_write(os.path.join(ckpt_dir, _MANIFEST), mode="w") as f:
-            json.dump(manifest, f, indent=1)
-        # 'ckpt_truncate' tears a payload after the manifest committed:
-        # storage failing below the rename, which the CRC must catch
-        for name in files:
-            faultinject.maybe_truncate(os.path.join(ckpt_dir, name))
+        with self._dom.new_task("save"):
+            os.makedirs(ckpt_dir, exist_ok=True)
+            self._valid_tags.discard(tag)
+            stale = os.path.join(ckpt_dir, _MANIFEST)
+            if os.path.exists(stale):
+                os.unlink(stale)  # a re-save of a tag: invalidate first
+            # each payload is serialized in memory and its CRC taken from
+            # the exact bytes before they reach the disk (validate() is
+            # the read side's check)
+            save_dict = {f"arg:{k}": v for k, v in args_np.items()}
+            save_dict.update({f"aux:{k}": v for k, v in auxs_np.items()})
+            blobs = {_PARAMS: dumps_params(list(save_dict.values()),
+                                           list(save_dict.keys())),
+                     _EXTRA: pickle.dumps(payload or {})}
+            if opt_state is not None:
+                blobs[_OPT] = opt_state if isinstance(opt_state, bytes) \
+                    else pickle.dumps(opt_state)
+            for name in (_PARAMS, _OPT, _EXTRA):
+                # a re-save writing fewer files must not leave an earlier
+                # save's payload behind, outside the new manifest's CRCs
+                p = os.path.join(ckpt_dir, name)
+                if name not in blobs and os.path.exists(p):
+                    os.unlink(p)
+            files = {}
+            for name, blob in blobs.items():
+                with atomic_write(os.path.join(ckpt_dir, name)) as f:
+                    f.write(blob)
+                files[name] = {"crc32": zlib.crc32(blob) & 0xFFFFFFFF,
+                               "size": len(blob)}
+            manifest = dict(meta, files=files, version=1)
+            # the commit point: the checkpoint is valid iff this file
+            # lands intact and the payloads match its checksums
+            with atomic_write(os.path.join(ckpt_dir, _MANIFEST),
+                              mode="w") as f:
+                json.dump(manifest, f, indent=1)
+            # 'ckpt_truncate' tears a payload after the manifest
+            # committed: storage failing below the rename, which the CRC
+            # must catch
+            for name in files:
+                faultinject.maybe_truncate(os.path.join(ckpt_dir, name))
         fault.count("ckpt.saves")
         self._valid_tags.add(tag)
         self.last_save_s = time.perf_counter() - t0
+        from .telemetry import export as _texp
+        if _texp.enabled():
+            _texp.emit_event("checkpoint", action="save", path=ckpt_dir,
+                             epoch=meta.get("epoch"),
+                             secs=round(self.last_save_s, 4))
         self.logger.info("Saved checkpoint '%s' (epoch %s, %.3fs)",
                          ckpt_dir, meta.get("epoch"), self.last_save_s)
         self.prune()
@@ -313,16 +323,18 @@ class CheckpointManager:
         """The newest valid checkpoint, or None. Corrupt, truncated and
         partial checkpoints are counted, logged and skipped."""
         self.wait()
-        for tag in self._tags():
-            ckpt_dir = self._dir_for(tag)
-            if self.validate(ckpt_dir):
-                self._valid_tags.add(tag)
-                return self._load_dir(ckpt_dir, tag)
-            fault.count("ckpt.corrupt_detected")
-            fault.count("ckpt.fallbacks")
-            self.logger.warning(
-                "checkpoint '%s' failed validation (torn write or "
-                "corruption); falling back to the previous one", ckpt_dir)
+        with self._dom.new_task("load"):
+            for tag in self._tags():
+                ckpt_dir = self._dir_for(tag)
+                if self.validate(ckpt_dir):
+                    self._valid_tags.add(tag)
+                    return self._load_dir(ckpt_dir, tag)
+                fault.count("ckpt.corrupt_detected")
+                fault.count("ckpt.fallbacks")
+                self.logger.warning(
+                    "checkpoint '%s' failed validation (torn write or "
+                    "corruption); falling back to the previous one",
+                    ckpt_dir)
         return None
 
     # -- restore ---------------------------------------------------------------
@@ -351,6 +363,10 @@ class CheckpointManager:
                     "snapshot: the RNG stream was not restored",
                     state.path)
         fault.count("ckpt.restores")
+        from .telemetry import export as _texp
+        if _texp.enabled():
+            _texp.emit_event("checkpoint", action="restore",
+                             path=state.path, epoch=state.epoch)
         return state
 
     # -- retention -------------------------------------------------------------

@@ -18,9 +18,13 @@ reports the same events there.
   and what diverged are kept (``changed``: the key materials; where one
   of them is a dict, ``detail`` names its entries, such as
   ``extra.metrics`` for a metric attached to the fused step).
-- :func:`compile_report` (exported as ``mxnet_tpu_torch.compile_report``):
-  ``programs``, ``retraces``, ``totals`` (``fresh_compiles`` counts
-  captures) and ``cache``.
+- :func:`compile_report` (exported as ``mxnet_tpu_torch.compile_report``),
+  the ``compile`` collector of the telemetry registry: ``programs``,
+  ``retraces``, ``totals`` (``fresh_compiles`` counts captures) and
+  ``cache``.
+- Each capture records the program's memory row (``telemetry.memory``:
+  the allocator read just before and right after the capture, never
+  inside it).
 
 Kernel launch counts: a capture calls each kernel wrapper once and runs
 nothing; a replay runs every kernel and calls no wrapper. So the wrapper
@@ -45,6 +49,8 @@ import time
 import weakref
 
 import torch
+
+from ..telemetry import registry as _treg
 
 __all__ = ["ProgramRecord", "CapturedProgram", "note_entry_point",
            "compile_report", "reset", "CACHE_REASON", "shared_programs"]
@@ -146,33 +152,47 @@ class CapturedProgram:
         self.outputs = None
         self.launches = {}
         self.static = None       # the caller's static input buffers
+        self.arguments = ()      # tensors read in place (memory row)
+        self.pool_before = self.pool_after = None
+        self.memory = {}         # telemetry.memory row of the capture
 
     @property
     def captured(self):
         return self.graph is not None
 
-    def capture(self, fn, capture_error_mode="global", generators=()):
+    def capture(self, fn, capture_error_mode="global", generators=(),
+                arguments=()):
         """Capture ``fn()`` on the current device. A capture that fails
         raises (the error of ``torch.cuda.graph``); the launch counters
         are left as they were. ``generators``: explicit CUDA generators
         ``fn`` draws from, registered with the graph (each replay then
-        draws anew)."""
+        draws anew). ``arguments``: the tensors the program reads in
+        place besides ``static`` (parameters, optimizer state), counted
+        in its memory row, which is taken after the capture has
+        ended."""
         from ..ops import fused_bn_conv
+        from ..telemetry import memory as _tmem
         graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
         for g in generators:
             graph.register_generator_state(g)
+        before = _tmem.pool_reading(self.pool)
         t0 = time.perf_counter()
         with fused_bn_conv.capture_tally(stream) as delta, \
                 torch.cuda.graph(graph, pool=self.pool, stream=stream,
                                  capture_error_mode=capture_error_mode):
             out = fn()
         secs = time.perf_counter() - t0
+        self.pool_before = before
+        self.pool_after = _tmem.pool_reading(graph.pool())
+        self.arguments = tuple(arguments)
         self.graph, self.outputs, self.launches = graph, out, delta
         with _lock:
             rec = self._live_record()
             rec.captures += 1
             rec.capture_s += secs
             rec.launches = dict(delta)
+        self.memory = _tmem.record(self.key.name, self.key.kind,
+                                   self.key.digest, self)
         return out
 
     def _live_record(self):
@@ -212,7 +232,7 @@ def shared_programs(key, make):
     return built, False
 
 
-def compile_report(reset=False):
+def _collect(reset=False):
     """Program observability (``mxnet_tpu_torch.compile_report()``):
 
     - ``programs``: one row per canonical program (captures, capture
@@ -245,6 +265,9 @@ def compile_report(reset=False):
         "totals": totals,
         "cache": {"enabled": False, "reason": CACHE_REASON},
     }
+
+
+compile_report = _treg.collector_view("compile", _collect)
 
 
 def reset():

@@ -134,6 +134,51 @@ register("MXTPU_DATA_STAGE_AHEAD", 2, int,
          "Staged batches already on the device ahead of the consumer "
          "(2 = double buffering: the next batch is on the card before "
          "the current step retires)")
+register("MXTPU_TELEMETRY_DIR", "", str,
+         "Durable telemetry export directory (telemetry/export.py): "
+         "rotating JSONL event log + periodic report snapshots land "
+         "here. Empty = in-memory telemetry only (registry/report stay "
+         "on)")
+register("MXTPU_TELEMETRY_ROTATE_BYTES", 4 * 1024 * 1024, int,
+         "Event-log segment size: events-NNNNN.jsonl rotates to the "
+         "next index past this many bytes")
+register("MXTPU_TELEMETRY_EVENT_STEPS", 50, int,
+         "Emit a train_step milestone event every N steps (step 1 "
+         "always emits so short runs still produce a log)")
+register("MXTPU_TELEMETRY_SNAPSHOT_STEPS", 500, int,
+         "Export a full telemetry snapshot every N train steps "
+         "(plus one at timeline close); 0 = close-time snapshot only")
+register("MXTPU_TRACE_DIR", "", str,
+         "Structured-trace export directory (telemetry/trace.py): host "
+         "spans (serving request->batch->bucket, fit step->phase) land "
+         "in a bounded ring and export as Chrome trace-event JSON "
+         "(trace-<pid>-NNNNN.json, loadable in Perfetto / "
+         "chrome://tracing). Empty = tracing off (zero hot-path cost)")
+register("MXTPU_TRACE_RING", 16384, int,
+         "Span capacity of the in-memory trace ring: the newest N "
+         "completed spans are kept, older ones are overwritten "
+         "(trace::dropped counts them)")
+register("MXTPU_TRACE_ANNOTATE", True, bool,
+         "Mirror trace spans as torch.profiler.record_function while "
+         "the profiler runs (profiler.set_state('run')), so host spans "
+         "and the card's kernels line up by name in the same trace")
+register("MXNET_PROFILER_AUTOSTART", False, bool,
+         "Start the profiler when the package is imported (aggregate "
+         "stats on, profile.json in the working directory)")
+register("MXNET_PROFILER_MODE", "symbolic", str,
+         "Profiler mode at autostart: symbolic or all")
 register("MXNET_BACKWARD_DO_MIRROR", False, bool,
          "Recompute activations in backward (parallel.TrainStep's remat: "
          "torch.utils.checkpoint) to trade FLOPs for memory")
+
+
+def _autostart_profiler():
+    """``MXNET_PROFILER_AUTOSTART``: start the profiler (run by the
+    package ``__init__`` once every module is imported)."""
+    if get("MXNET_PROFILER_AUTOSTART"):
+        from . import profiler
+        profiler.profiler_set_config(
+            mode=str(get("MXNET_PROFILER_MODE")),
+            filename=os.path.join(os.getcwd(), "profile.json"))
+        profiler.set_config(aggregate_stats=True)
+        profiler.set_state("run")

@@ -34,10 +34,16 @@ the exact next batch. Worker failures (the ``data_worker`` fault site
 among them) surface at ``next()``; ``close()`` joins every thread and
 never hangs on a full queue (``data/workers.py``, also run at exit).
 
-Not ported: the JAX package's trace spans (``set_trace``, with
-``telemetry/trace.py``) and its profiler tasks; the per-host shard of
-``RecordIOSource`` defaults to the whole file (one process: the port has
-no ``parallel/dist``).
+Observability: every stage runs under a profiler task of the ``data``
+domain (``data::source`` / ``decode`` / ``stage`` in the aggregate
+table, and ``record_function`` ranges while the profiler runs), and once
+a caller hands the pipeline its trace (:meth:`DataPipeline.set_trace`:
+``fit`` gives its step timeline's run) each stage's interval is recorded
+as a ``data:source`` / ``data:decode`` / ``data:stage`` span on that
+trace, under the run's root span.
+
+Not ported: the per-host shard of ``RecordIOSource`` defaults to the
+whole file (one process: the port has no ``parallel/dist``).
 """
 from __future__ import annotations
 
@@ -212,6 +218,10 @@ class DataPipeline(DataIter):
         self._current = None
         self._slock = threading.Lock()
         self._zero_stats()
+        self._trace_id = None       # fit's trace (set_trace): stage
+        self._trace_parent = None   # spans link to the run-root span
+        from .. import profiler
+        self._dom = profiler.Domain("data")
         register_pipeline(self)
         wk.register_closeable(self)
 
@@ -289,6 +299,25 @@ class DataPipeline(DataIter):
         with self._slock:
             setattr(self, field, getattr(self, field) + dt)
 
+    # -- structured tracing ----------------------------------------------------
+    def set_trace(self, trace_id, parent_id=None):
+        """Adopt the caller's trace (``fit`` hands its StepTimeline's
+        trace id and root span here): the stage spans recorded on the
+        pipeline's threads carry it, so a Chrome-trace viewer shows the
+        source / decode / stage work in the same tree as the steps it
+        fed."""
+        self._trace_id = trace_id
+        self._trace_parent = parent_id
+
+    def _trace_stage(self, name, t0, dt, **args):
+        if self._trace_id is None:
+            return
+        from ..telemetry import trace as _trace
+        _trace.record_span(f"data:{name}", "data", t0, dt,
+                           trace_id=self._trace_id,
+                           parent_id=self._trace_parent,
+                           args=args or None)
+
     # -- stage threads ---------------------------------------------------------
     def _start_stream(self):
         if self._closed:
@@ -316,11 +345,14 @@ class DataPipeline(DataIter):
         ordinal = 0
         while not group.stopped:
             t0 = time.perf_counter()
-            try:
-                batch = self._base.next()
-            except StopIteration:
-                break
-            self._acc("_source_busy_s", time.perf_counter() - t0)
+            with self._dom.new_task("source"):
+                try:
+                    batch = self._base.next()
+                except StopIteration:
+                    break
+            dt = time.perf_counter() - t0
+            self._acc("_source_busy_s", dt)
+            self._trace_stage("source", t0, dt, ordinal=ordinal)
             if skip > 0:       # checkpoint resume: replay to the cursor
                 skip -= 1
                 continue
@@ -349,7 +381,8 @@ class DataPipeline(DataIter):
                     "data_worker", batch=ordinal + 1, worker=widx)
             t0 = time.perf_counter()
             if self._transform is not None:
-                batch = self._transform(batch)
+                with self._dom.new_task("decode"):
+                    batch = self._transform(batch)
             dt = time.perf_counter() - t0
             n_items = self.batch_size or (
                 len(batch.data[0]) if batch.data else 0)
@@ -357,6 +390,8 @@ class DataPipeline(DataIter):
                 self._decode_busy_s += dt
                 self._batches_decoded += 1
                 self._items_decoded += n_items
+            self._trace_stage("decode", t0, dt, ordinal=ordinal,
+                              worker=widx)
             wk.q_put(self._q_done, (ordinal, batch), group)
 
     def _stager_loop(self, group):
@@ -397,23 +432,26 @@ class DataPipeline(DataIter):
         if self._device is None:
             return batch
         t0 = time.perf_counter()
-        staged = copy.copy(batch)
-        staged.host = batch
-        staged.ready = None
-        keep = []
-        if stream is not None:
-            with torch.cuda.stream(stream):
+        with self._dom.new_task("stage"):
+            staged = copy.copy(batch)
+            staged.host = batch
+            staged.ready = None
+            keep = []
+            if stream is not None:
+                with torch.cuda.stream(stream):
+                    staged.data = self._put_all(batch.data, keep)
+                    staged.label = self._put_all(batch.label, keep)
+                    staged.ready = torch.cuda.Event()
+                    staged.ready.record(stream)
+            else:
                 staged.data = self._put_all(batch.data, keep)
                 staged.label = self._put_all(batch.label, keep)
-                staged.ready = torch.cuda.Event()
-                staged.ready.record(stream)
-        else:
-            staged.data = self._put_all(batch.data, keep)
-            staged.label = self._put_all(batch.label, keep)
-        staged.pinned = keep
+            staged.pinned = keep
+        dt = time.perf_counter() - t0
         with self._slock:
-            self._stage_busy_s += time.perf_counter() - t0
+            self._stage_busy_s += dt
             self._batches_staged += 1
+        self._trace_stage("stage", t0, dt)
         return staged
 
     def _put_all(self, arrays, keep):

@@ -7,11 +7,10 @@ seconds, the decode rate and the headline: the consumer's wait time and
 starvation fraction, how long and how often ``next()`` blocked because
 no staged batch was ready. A starving consumer means the job is
 input-bound (more workers or deeper queues, ``MXTPU_DATA_*``); near-zero
-wait means the step is the bottleneck. Reading it syncs nothing.
-
-The JAX package also mirrors the two headline figures into profiler
-counters (``_mirror_prof``); that waits for ``profiler.py`` (ROADMAP.md
-queue A, item 9).
+wait means the step is the bottleneck. Reading it syncs nothing; each
+read also mirrors the two headline figures into the profiler counters
+``data::wait_s`` and ``data::starvation_fraction`` (registry gauges,
+beside the pipeline's ``data::source`` / ``decode`` / ``stage`` tasks).
 """
 from __future__ import annotations
 
@@ -35,6 +34,21 @@ def register_pipeline(pipe):
 def _live():
     with _lock:
         return [p for p in (wr() for wr in _pipelines) if p is not None]
+
+
+_prof_counters = [None]
+
+
+def _mirror_prof(wait_s, starvation):
+    """The headline gauges as profiler ``data::`` counters (the one
+    registry store: ``profiler.counters()`` and snapshots read them)."""
+    from .. import profiler
+    if _prof_counters[0] is None:
+        dom = profiler.Domain("data")
+        _prof_counters[0] = (dom.new_counter("wait_s"),
+                             dom.new_counter("starvation_fraction"))
+    _prof_counters[0][0].set_value(round(wait_s, 6))
+    _prof_counters[0][1].set_value(round(starvation, 6))
 
 
 def _collect(reset=False):
@@ -62,6 +76,7 @@ def _collect(reset=False):
         tot_calls += s["next_calls"]
         tot_items += s["items_decoded"]
         tot_busy += s["decode_busy_s"]
+    _mirror_prof(tot_wait, tot_waits / tot_calls if tot_calls else 0.0)
     return {
         "pipelines": per,
         "wait_s": round(tot_wait, 6),

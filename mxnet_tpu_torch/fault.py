@@ -8,33 +8,38 @@ non-finite step guard (``module/fused.py``), the CheckpointManager
 point: it reads the guards' device counters (the guard itself never
 syncs the host per step).
 
-The JAX package keeps these counters in its telemetry registry; the
-port has none yet (ROADMAP queue A item 5), so they live in a dict under
-a lock, and ``reset=True`` snapshots and clears them under it.
+Counters live in the telemetry registry (telemetry/registry.py) under
+the ``fault::`` namespace, so ``fault_report`` is the ``fault`` subtree
+of ``telemetry.report()`` and ``reset=True`` is the registry's atomic
+snapshot-and-clear: a concurrent ``count()`` lands in exactly one
+window. Each read also mirrors the guard's skip total into the
+``ft::skipped_steps`` gauge (a profiler ``Counter``), beside the
+checkpoint's ``ft::save`` / ``ft::load`` tasks.
 """
 from __future__ import annotations
 
 import threading
 import weakref
 
+from .telemetry import registry as _treg
+
 __all__ = ["count", "counters", "register_guard", "fault_report"]
 
 _lock = threading.Lock()
-_counters = {}
 _guards = []        # weakrefs to live FusedSymbolStep instances
+_PREFIX = "fault::"
 
 
 def count(name, delta=1):
     """Bump a named counter (dot-namespaced: ``ckpt.saves``,
     ``injected.nan_grad``, ...)."""
-    with _lock:
-        _counters[name] = _counters.get(name, 0) + delta
+    _treg.counter(_PREFIX + name).inc(delta)
 
 
 
 def counters():
-    with _lock:
-        return dict(_counters)
+    snap = _treg.snapshot(prefix=_PREFIX, kinds=("counter",))
+    return {k[len(_PREFIX):]: m["value"] for k, m in snap.items()}
 
 
 def register_guard(step):
@@ -45,7 +50,20 @@ def register_guard(step):
         _guards.append(weakref.ref(step))
 
 
-def fault_report(reset=False):
+_prof_counter = [None]
+
+
+def _update_prof_counter(val):
+    """Mirror the guard's skip total into the ``ft::skipped_steps``
+    registry gauge (through the profiler Counter facade)."""
+    from . import profiler
+    if _prof_counter[0] is None:
+        _prof_counter[0] = profiler.Counter(profiler.Domain("ft"),
+                                            "skipped_steps")
+    _prof_counter[0].set_value(val)
+
+
+def _collect(reset=False):
     """Fault-tolerance state:
 
     - ``skipped_steps`` / ``consecutive_skips``: non-finite training
@@ -73,10 +91,11 @@ def fault_report(reset=False):
         consec = max(consec, cons)
         if reset:
             g.reset_fault_state()
-    with _lock:
-        cs = dict(_counters)
-        if reset:
-            _counters.clear()
+    _update_prof_counter(skipped)
+    snap = _treg.snapshot(reset=reset, prefix=_PREFIX, kinds=("counter",))
+    # a counter that counted nothing in this window is left out
+    cs = {k[len(_PREFIX):]: m["value"] for k, m in snap.items()
+          if m["value"]}
 
     def _sub(prefix):
         plen = len(prefix) + 1
@@ -86,3 +105,6 @@ def fault_report(reset=False):
     return {"skipped_steps": skipped, "consecutive_skips": consec,
             "guard_active": guard_active, "checkpoint": _sub("ckpt"),
             "dist": _sub("dist"), "injected": _sub("injected")}
+
+
+fault_report = _treg.collector_view("fault", _collect)

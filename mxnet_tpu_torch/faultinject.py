@@ -47,6 +47,14 @@ index, batch index, call ordinal). The sites the port consults:
   error surfaces at the consumer's ``next()``; ``action=kill`` is the
   dying-input-worker drill.
 
+- ``slow_step`` (``module/fused.py``): consulted at the top of every
+  fused step (``step=N``); ``action=sleep:ms=N`` stretches the step,
+  the straggler drill the step timeline must show.
+- ``telemetry_write`` (``telemetry/export.py``): consulted on every
+  event-log write (``event=N``) and rotation (``rotation=K``). A raise
+  drops that event (counted in ``fault::telemetry.write_errors``) and
+  the next write reopens the log; ``action=kill`` tears it mid-write.
+
 The JAX package's other sites come with the subsystems that consult
 them (ROADMAP.md). The same spec always produces the same failure.
 

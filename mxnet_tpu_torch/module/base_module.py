@@ -14,8 +14,17 @@ which ``fit`` closes when it ends, also on an error. With
 optimizer state, RNG stream and the data cursor) and skips the epochs
 it completed; a cursor saved under the other ``MXTPU_DATA_PIPELINE``
 setting is refused with a warning, and the data restart at a fresh
-epoch. The JAX package's step timeline (``StepTimeline``) is not
-ported (ROADMAP queue A, item 7).
+epoch. A step timeline (``telemetry.StepTimeline``) spans the loop:
+each step's host wall time splits into ``data_wait`` (the next batch),
+``device_step`` (forward_backward + update; the fused step books its
+``h2d_stage`` / ``compile`` / replay inside it) and ``metric_ft_sync``
+(the metric update); the rest, the batch-end callbacks among it, is the
+step's ``unattributed`` time;
+with ``MXTPU_TELEMETRY_DIR`` set, step milestones, epoch ends and
+snapshots land in the event log, and with ``MXTPU_TRACE_DIR`` the run's
+trace (``fit:<symbol>`` -> ``step`` -> phases, and the data pipeline's
+stage spans) exports as Chrome trace JSON when the timeline closes,
+also on an error.
 """
 from __future__ import annotations
 
@@ -235,35 +244,77 @@ class BaseModule:
                   validation_metric, epoch_end_callback, batch_end_callback,
                   eval_end_callback, eval_batch_end_callback, begin_epoch,
                   num_epoch, checkpoint_manager):
-        """The epochs of :meth:`fit`."""
+        """The epochs of :meth:`fit` under one
+        :class:`~mxnet_tpu_torch.telemetry.StepTimeline` (closed also when
+        training raises)."""
+        from ..telemetry import StepTimeline
+        sym_name = getattr(self._symbol, "name", None) or "module"
+        tl = StepTimeline(name=f"fit:{sym_name}").activate()
+        if tl.trace_id is not None:
+            # the data pipeline's source / decode / stage spans (recorded
+            # on its threads) join this run's trace tree
+            setter = getattr(train_data, "set_trace", None)
+            if callable(setter):
+                setter(tl.trace_id, tl.root_span_id)
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, begin_epoch,
+                             num_epoch, checkpoint_manager, tl)
+        finally:
+            tl.close()
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    checkpoint_manager, tl):
+        from ..telemetry import export as _texp
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
             data_iter = iter(train_data)
             end_of_batch = False
-            next_data_batch = next(data_iter)
+            # the epoch's first step opens before the epoch-start fetch,
+            # so that data wait is attributed to it (the loop's
+            # step_start is a no-op while a step is open)
+            tl.step_start()
+            with tl.phase("data_wait"):
+                next_data_batch = next(data_iter)
             while not end_of_batch:
                 data_batch = next_data_batch
-                self.forward_backward(data_batch)
-                self.update()
+                tl.step_start()
+                with tl.phase("device_step"):
+                    self.forward_backward(data_batch)
+                    self.update()
                 try:
-                    next_data_batch = next(data_iter)
+                    with tl.phase("data_wait"):
+                        next_data_batch = next(data_iter)
                     self.prepare(next_data_batch)
                 except StopIteration:
                     end_of_batch = True
-                self.update_metric(eval_metric, data_batch.label)
+                with tl.phase("metric_ft_sync"):
+                    self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
                                            locals=locals())
                     for callback in _as_list(batch_end_callback):
                         callback(params)
+                tl.step_end(epoch=epoch)
                 nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
+            toc = time.time()
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
+            if _texp.enabled():
+                _texp.emit_event(
+                    "epoch", name=tl.name, epoch=epoch, nbatch=nbatch,
+                    time_s=round(toc - tic, 4),
+                    metrics={n: float(v) for n, v
+                             in eval_metric.get_name_value()})
             if epoch_end_callback is not None:
                 arg_params_, aux_params_ = self.get_params()
                 for callback in _as_list(epoch_end_callback):

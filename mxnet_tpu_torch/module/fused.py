@@ -116,6 +116,7 @@ from ..base import MXNetError, host_numpy, torch_dtype
 from ..context import as_device
 from ..executor import build_graph_fns
 from ..parallel import functional_opt
+from ..telemetry import timeline as _tlmod
 
 __all__ = ["FusedSymbolStep"]
 
@@ -664,13 +665,14 @@ class FusedSymbolStep:
                 vals[n] = vals[n] * float("nan")
         return vals
 
-    def _run_eager(self, vals, lr):
+    def _run_eager(self, vals, lr, check=True):
         if lr is not None:
             self.set_lr(lr)
         loss, outs = self._body(self._on_device(vals))
         self.num_update += 1
         self.last_loss = loss
-        self._check_abort()
+        if check:
+            self._check_abort()
         return outs
 
     def step_eager(self, feed, lr=None, host=None):
@@ -691,35 +693,64 @@ class FusedSymbolStep:
         (see the module docstring); on the CPU the eager step. Returns
         the graph's outputs (copies); the loss stays on the device in
         ``last_loss``. ``host``: a host copy of the feed, read only by
-        the sparse id statistics."""
+        the sparse id statistics.
+
+        Step-time attribution (``telemetry.timeline``): inside ``fit``'s
+        ``device_step`` phase the step books ``h2d_stage`` (the feed
+        into the static buffers), ``compile`` (the warm step and the
+        capture at a new signature, and the program's key wherever a
+        new one is made), the replay (on the CPU the eager step) under
+        ``device_step`` and the abort check under ``metric_ft_sync``;
+        nesting subtracts, so nothing counts twice. Without an active
+        timeline each phase is one shared no-op. Nothing of it touches
+        the card: the phases are host wall time (the replay returns once
+        launched)."""
         if not self.started:
             raise MXNetError("FusedSymbolStep used before start()")
+        # the straggler drill: 'slow_step:action=sleep:ms=N' stretches
+        # every step by N ms
+        faultinject.fire("slow_step", step=self.num_update)
         self._sparse_hooks(feed, host)
-        vals = self._poisoned(self._inputs(feed))
+        tl = _tlmod.current()
+        null = _tlmod.null_phase()
+        with tl.phase("h2d_stage") if tl else null:
+            vals = self._poisoned(self._inputs(feed))
         sig = compile_mod.arg_signature(list(vals.values()))
         pkey = (sig, self._slots_version)
         prog = self._programs.get(pkey)
         if prog is None:
-            key = self._program_key(sig)
-            compile_mod.note_entry_point(key.name, key, sig)
-            prog = self._programs[pkey] = compile_mod.CapturedProgram(key)
-            prog.metric_slots = len(self._metric_sigs)
+            with tl.phase("compile") if tl else null:
+                key = self._program_key(sig)
+                compile_mod.note_entry_point(key.name, key, sig)
+                prog = self._programs[pkey] = \
+                    compile_mod.CapturedProgram(key)
+                prog.metric_slots = len(self._metric_sigs)
         if not self.captured:
-            return self._run_eager(vals, lr)
+            with tl.phase("device_step") if tl else null:
+                outs = self._run_eager(vals, lr, check=False)
+            with tl.phase("metric_ft_sync") if tl else null:
+                self._check_abort()
+            return outs
         if sig not in self._warm_sigs:
             self._warm_sigs.add(sig)
-            return self._warm_step(vals, lr)
+            with tl.phase("compile") if tl else null:
+                return self._warm_step(vals, lr)
         if lr is not None:
             self.set_lr(lr)
         if not prog.captured:
-            self._capture(prog, vals)
-        self._load_inputs(prog, vals)
-        prog.replay()
-        self.num_update += 1
-        loss, outs = prog.outputs
-        self.last_loss = loss.clone()
-        self._check_abort()
-        return [o.clone() for o in outs]
+            with tl.phase("compile") if tl else null:
+                self._capture(prog, vals)
+        with tl.phase("h2d_stage") if tl else null:
+            self._load_inputs(prog, vals)
+        with tl.phase("device_step") if tl else null:
+            prog.replay()
+            self.num_update += 1
+            loss, outs = prog.outputs
+            self.last_loss = loss.clone()
+            outs = [o.clone() for o in outs]
+        with tl.phase("metric_ft_sync") if tl else null:
+            self._check_abort()
+        return outs
 
     def _warm_step(self, vals, lr):
         """The first step at a feed signature: eager, on a side stream."""
@@ -743,11 +774,45 @@ class FusedSymbolStep:
             prog.capture(lambda: self._body(prog.static),
                          capture_error_mode=self.capture_error_mode,
                          generators=(self._gen,) if self._gen is not None
-                         else ())
+                         else (), arguments=self._state_tensors())
         except Exception as e:
             raise MXNetError(f"capturing the fused step "
                              f"{prog.key.name} as a CUDA graph failed: "
                              f"{e}") from e
+
+    def _state_tensors(self):
+        """Every tensor the step reads or writes in place besides its
+        static inputs (the memory row's arguments)."""
+        out = [self._flat_p, self._flat_aux, self._t, self._lr,
+               self.fault_state]
+        out += list(self._flat_state) + list(self._metric_state)
+        out += list(self._p.values()) + list(self._aux.values())
+        for leaves in self._table_state.values():
+            out += list(leaves)
+        return [t for t in out if isinstance(t, torch.Tensor)]
+
+    def _program_of(self, feed):
+        """The program of ``feed``'s signature at the current metric
+        slots, or None before :meth:`step` acquired it."""
+        sig = compile_mod.arg_signature(list(self._inputs(feed).values()))
+        return self._programs.get((sig, self._slots_version))
+
+    def step_cost(self, feed):
+        """``{}``: the step's cost (flops, bytes accessed) has no source
+        here. The JAX package reads it off XLA's cost analysis of the
+        compiled step; a CUDA graph of hand-written kernels carries no
+        such count, so the port records none and the ``step::flops`` /
+        ``step::bytes_accessed`` gauges stay unset: the JAX package's
+        own path for a backend without cost analysis."""
+        return {}
+
+    def step_memory(self, feed):
+        """The memory row recorded when the program of ``feed``'s
+        signature was captured (``telemetry.memory``: pool, argument,
+        output, temp and peak bytes), or ``{}`` (not captured yet, or
+        the CPU). Never captures a second time."""
+        prog = self._program_of(feed)
+        return dict(prog.memory) if prog is not None else {}
 
     def _load_inputs(self, prog, vals):
         """Copy the feed into the program's static inputs (stream order:

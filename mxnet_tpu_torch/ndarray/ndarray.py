@@ -437,7 +437,19 @@ def _invoke_fn(fn, nd_inputs):
     return NDArray(res)
 
 
+# dispatch hook: the profiler's aggregate table installs a timing
+# wrapper here; checking it inside _invoke_op covers every binding of
+# the name (methods, generated module functions, nd.random)
+_PROFILE_HOOK = None
+
+
 def _invoke_op(name, nd_inputs, attrs):
+    if _PROFILE_HOOK is not None:
+        return _PROFILE_HOOK(_invoke_op_impl, name, nd_inputs, attrs)
+    return _invoke_op_impl(name, nd_inputs, attrs)
+
+
+def _invoke_op_impl(name, nd_inputs, attrs):
     """Run registry op ``name``. ``None`` attributes are dropped (except
     the axis-like ones, where None means "all"); ``out=`` writes the
     first result into an existing NDArray; BatchNorm, Dropout and RNN

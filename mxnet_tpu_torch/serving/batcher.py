@@ -8,6 +8,21 @@ sheds load with ``Overloaded`` once queued rows would exceed
 ``max_queue``; a request whose deadline expires while queued completes
 with ``DeadlineExceeded`` without taking a batch slot; ``start()`` warms
 every bucket first.
+
+Observability: per-bucket latency histograms in the telemetry registry
+(``serving::<predictor id>::b<b>::latency_ms``, keyed by the predictor's
+id so two replicas never share a series) and ``serving::<id>::batches``,
+queue depth, occupancy and shed / deadline counters, read through
+``serving_report()``. Every request carries a trace id (its future's
+``trace_id``): with ``MXTPU_TRACE_DIR`` set a request is a
+``serving:request`` span and its micro-batch a ``serving:batch`` span
+(listing every member's trace id) with the Predictor's
+``serving:bucket<b>`` span nested under it; with ``MXTPU_TELEMETRY_DIR``
+set the ``serving_batch``, ``serving_overloaded`` and
+``serving_deadline`` events carry the same ids. Each micro-batch runs
+under a profiler task of the ``serving`` domain. Events and spans are
+written after the futures complete, off the response path; ``stop()``
+exports the trace.
 """
 from __future__ import annotations
 
@@ -18,25 +33,28 @@ import time
 import numpy as np
 
 from .. import config
+from .. import profiler
 from ..base import MXNetError
-from . import DeadlineExceeded, Overloaded
+from ..telemetry import trace as _trace
+from . import DeadlineExceeded, Overloaded, _register_batcher
 
 __all__ = ["DynamicBatcher", "ServingFuture"]
 
 _DEADLINE_SLACK_S = 0.002  # launch this early so an at-deadline
                            # request is still live when collected
-_LATENCY_WINDOW = 4096     # latency samples kept per bucket
 
 
 class ServingFuture:
-    """Completion handle for one submitted request."""
+    """Completion handle for one submitted request. ``trace_id`` is the
+    request's id in the trace and event-log surfaces."""
 
-    __slots__ = ("_event", "_result", "_error")
+    __slots__ = ("_event", "_result", "_error", "trace_id")
 
     def __init__(self):
         self._event = threading.Event()
         self._result = None
         self._error = None
+        self.trace_id = None
 
     def _complete(self, result=None, error=None):
         self._result = result
@@ -55,13 +73,18 @@ class ServingFuture:
 
 
 class _Request:
-    __slots__ = ("arrays", "rows", "future", "deadline", "t_submit")
+    __slots__ = ("arrays", "rows", "future", "deadline", "t_submit",
+                 "trace_id", "span_id")
 
     def __init__(self, arrays, rows, future, deadline):
         self.arrays = arrays
         self.rows = rows
         self.future = future
         self.deadline = deadline
+        # every request has a trace id (a counter, no syscall): the
+        # event log and the trace attribute it to THIS request
+        self.trace_id = future.trace_id = _trace.new_trace_id()
+        self.span_id = _trace.new_span_id()
         self.t_submit = time.perf_counter()
 
 
@@ -96,6 +119,9 @@ class DynamicBatcher:
         self.max_queue = int(max_queue) if max_queue is not None \
             else int(config.get("MXTPU_SERVING_MAX_QUEUE"))
         self.name = name
+        self._domain = profiler.Domain("serving")
+        self._tasks = {b: self._domain.new_task(f"{name}::bucket{b}")
+                       for b in predictor.buckets}
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._queue = collections.deque()
@@ -105,11 +131,18 @@ class DynamicBatcher:
         # counters (guarded by _lock)
         self._occ_rows = {b: 0 for b in predictor.buckets}
         self._occ_batches = {b: 0 for b in predictor.buckets}
-        self._latency_ms = {b: collections.deque(maxlen=_LATENCY_WINDOW)
-                            for b in predictor.buckets}
         self._shed = 0
         self._deadline_missed = 0
         self._served = 0
+        _register_batcher(self)
+        # the latency windows are registry histograms keyed by the
+        # PREDICTOR id: report() and the snapshots read one store
+        from ..telemetry import registry as treg
+        pid = predictor.telemetry_id
+        self._lat_hist = {
+            b: treg.histogram(f"serving::{pid}::b{b}::latency_ms")
+            for b in predictor.buckets}
+        self._batches_c = treg.counter(f"serving::{pid}::batches")
 
     # -- lifecycle ------------------------------------------------------------
     def start(self):
@@ -153,6 +186,11 @@ class DynamicBatcher:
                              "draining within 60s; call stop() again to "
                              "re-join")
         self._thread = None
+        if _trace.enabled():
+            # flush the serving spans now that the loop is quiet
+            _trace.export_trace()
+        from ..telemetry import export as _texp
+        _texp.release()      # the event log's file, until the next event
 
     def _cancel_inflight(self):
         """Hook of ``stop(drain=False)``, called under the queue lock.
@@ -182,20 +220,43 @@ class DynamicBatcher:
         future = ServingFuture()
         deadline = time.perf_counter() + deadline_ms / 1e3 \
             if deadline_ms is not None else None
+        req = _Request(arrays, rows, future, deadline)
         with self._cond:
             if not self._running:
                 raise MXNetError(f"DynamicBatcher '{self.name}' is not "
                                  "started")
             if self._queued_rows + rows > self.max_queue:
                 self._shed += 1
-                raise Overloaded(
-                    f"serving queue at bound ({self._queued_rows} rows "
-                    f"queued, max_queue={self.max_queue}); shedding load — "
-                    "retry with backoff")
-            self._queue.append(_Request(arrays, rows, future, deadline))
-            self._queued_rows += rows
-            self._cond.notify_all()
+                shed_depth = self._queued_rows
+            else:
+                shed_depth = None
+                self._queue.append(req)
+                self._queued_rows += rows
+                self._cond.notify_all()
+        if shed_depth is not None:
+            # the event and span carry the shed request's trace id;
+            # written outside the queue lock, on the failing path only
+            self._shed_event(req, shed_depth)
+            raise Overloaded(
+                f"serving queue at bound ({shed_depth} rows "
+                f"queued, max_queue={self.max_queue}); shedding load — "
+                "retry with backoff")
         return future
+
+    def _shed_event(self, req, queue_rows):
+        from ..telemetry import export as _texp
+        if _texp.enabled():
+            _texp.emit_event(
+                "serving_overloaded", batcher=self.telemetry_id,
+                predictor=self.predictor.telemetry_id,
+                trace_id=req.trace_id, rows=req.rows,
+                queue_rows=queue_rows, max_queue=self.max_queue)
+        if _trace.enabled():
+            _trace.record_span(
+                "serving:request", "serving", req.t_submit,
+                time.perf_counter() - req.t_submit,
+                trace_id=req.trace_id, span_id=req.span_id,
+                args={"rows": req.rows, "error": "Overloaded"})
 
     def predict(self, data, deadline_ms=None, timeout=None):
         """Blocking convenience: ``submit(...).result(...)``."""
@@ -230,7 +291,7 @@ class DynamicBatcher:
                 if rows >= self.max_batch or remaining <= 0:
                     break
                 self._cond.wait(timeout=remaining)
-            batch, rows = [], 0
+            batch, rows, expired = [], 0, []
             now = time.perf_counter()
             while self._queue:
                 r = self._queue[0]
@@ -238,9 +299,11 @@ class DynamicBatcher:
                     self._queue.popleft()
                     self._queued_rows -= r.rows
                     self._deadline_missed += 1
+                    waited_ms = (now - r.t_submit) * 1e3
                     r.future._complete(error=DeadlineExceeded(
                         f"deadline expired after "
-                        f"{(now - r.t_submit) * 1e3:.1f} ms in queue"))
+                        f"{waited_ms:.1f} ms in queue"))
+                    expired.append((r, waited_ms))
                     continue
                 if rows + r.rows > self.max_batch:
                     break
@@ -248,6 +311,22 @@ class DynamicBatcher:
                 self._queued_rows -= r.rows
                 batch.append(r)
                 rows += r.rows
+        # expired requests' events and spans, outside the queue lock and
+        # after their futures completed
+        from ..telemetry import export as _texp
+        for r, waited_ms in expired:
+            if _texp.enabled():
+                _texp.emit_event(
+                    "serving_deadline", batcher=self.telemetry_id,
+                    predictor=self.predictor.telemetry_id,
+                    trace_id=r.trace_id, rows=r.rows,
+                    waited_ms=round(waited_ms, 3))
+            if _trace.enabled():
+                _trace.record_span(
+                    "serving:request", "serving", r.t_submit,
+                    waited_ms / 1e3, trace_id=r.trace_id,
+                    span_id=r.span_id,
+                    args={"rows": r.rows, "error": "DeadlineExceeded"})
         return batch
 
     def _loop(self):
@@ -264,7 +343,19 @@ class DynamicBatcher:
                       if len(batch) > 1 else batch[0].arrays[i]
                       for i in range(n_inputs)]
             try:
-                outs = self.predictor._run_bucket(arrays, rows, bucket)
+                # the batch span adopts the first member's trace and lists
+                # every member's trace id; the Predictor's bucket span
+                # nests under it (the thread's open span is its parent)
+                with _trace.span(
+                        "serving:batch", cat="serving",
+                        trace=batch[0].trace_id,
+                        args={"batcher": self.telemetry_id,
+                              "bucket": bucket, "rows": rows,
+                              "requests": len(batch),
+                              "trace_ids": [r.trace_id for r in batch]}
+                ) as bspan, self._tasks[bucket]:
+                    outs = self.predictor._run_bucket(arrays, rows,
+                                                      bucket)
             except Exception as e:  # noqa: BLE001 - a failed batch fails
                 for r in batch:     # its requests; the loop survives
                     r.future._complete(error=e)
@@ -274,8 +365,10 @@ class DynamicBatcher:
                 self._occ_rows[bucket] += rows
                 self._occ_batches[bucket] += 1
                 self._served += len(batch)
-                self._latency_ms[bucket].extend(
-                    (now - r.t_submit) * 1e3 for r in batch)
+            hist = self._lat_hist[bucket]
+            for r in batch:
+                hist.observe((now - r.t_submit) * 1e3)
+            self._batches_c.inc()
             start = 0
             for r in batch:
                 mine = [o[start:start + r.rows] if is_b else o
@@ -284,6 +377,25 @@ class DynamicBatcher:
                 r.future._complete(
                     result=mine[0] if len(mine) == 1 else mine)
                 start += r.rows
+            # request spans and the event AFTER the futures complete:
+            # the exporter's disk append never sits on the response path
+            if _trace.enabled():
+                for r in batch:
+                    _trace.record_span(
+                        "serving:request", "serving", r.t_submit,
+                        now - r.t_submit, trace_id=r.trace_id,
+                        span_id=r.span_id,
+                        args={"rows": r.rows,
+                              "batch_span": bspan.span_id})
+            from ..telemetry import export as _texp
+            if _texp.enabled():
+                _texp.emit_event(
+                    "serving_batch", batcher=self.telemetry_id,
+                    predictor=self.predictor.telemetry_id,
+                    bucket=bucket, rows=rows, requests=len(batch),
+                    trace_ids=[r.trace_id for r in batch],
+                    max_latency_ms=round(max(
+                        (now - r.t_submit) * 1e3 for r in batch), 3))
 
     # -- observability --------------------------------------------------------
     @property
@@ -294,24 +406,26 @@ class DynamicBatcher:
 
     def report(self, reset=False):
         """Per-bucket batches, rows, occupancy and p50/p99 latency (ms,
-        submit to completion, over the last samples), plus queue depth
-        and served / shed / deadline-missed counts."""
+        submit to completion, from the registry histograms), plus queue
+        depth and served / shed / deadline-missed counts."""
+        from ..telemetry import registry as treg
         with self._lock:
             per_bucket = {}
             for b in self.predictor.buckets:
+                h = self._lat_hist[b]
+                hsnap = treg.snapshot(reset=reset,
+                                      prefix=h.name).get(h.name, {})
                 nb = self._occ_batches[b]
-                lat = np.asarray(self._latency_ms[b], np.float64)
                 per_bucket[b] = {
                     "batches": nb,
                     "rows": self._occ_rows[b],
                     "occupancy": self._occ_rows[b] / (nb * b) if nb
                     else None,
-                    "p50_ms": float(np.percentile(lat, 50)) if lat.size
-                    else None,
-                    "p99_ms": float(np.percentile(lat, 99)) if lat.size
-                    else None,
+                    "p50_ms": hsnap.get("p50"),
+                    "p99_ms": hsnap.get("p99"),
                 }
             out = {
+                "id": self.telemetry_id,
                 "name": self.name,
                 "predictor_id": self.predictor.telemetry_id,
                 "max_batch": self.max_batch,
@@ -321,13 +435,13 @@ class DynamicBatcher:
                 "served_requests": self._served,
                 "shed_requests": self._shed,
                 "deadline_missed": self._deadline_missed,
+                "retraces": self.predictor.retraces,
                 "per_bucket": per_bucket,
             }
             if reset:
                 for b in self.predictor.buckets:
                     self._occ_rows[b] = 0
                     self._occ_batches[b] = 0
-                    self._latency_ms[b].clear()
                 self._shed = 0
                 self._deadline_missed = 0
                 self._served = 0

@@ -28,9 +28,22 @@ decode, or ``result()`` for the whole stream. ``stop(drain=True)`` runs
 every in-flight generation to completion; ``stop(drain=False)`` ends
 them with ``serving.Cancelled`` after the tokens already streamed, and
 fails queued requests with ``Overloaded``; a future is always completed,
-even when the loop crashes. Time to first token, inter-token and handoff
-times are kept as plain samples (the last 4096 of each), with p50 and
-p99 in ``report()``; the port has no telemetry registry yet.
+even when the loop crashes.
+
+Observability: time to first token, inter-token and handoff times and
+whole generations per prompt bucket are telemetry registry histograms
+(``serving::<predictor id>::ttft_ms``, ``::inter_token_ms``,
+``::handoff_ms``, ``::b<b>::latency_ms``; ``::generations`` counts),
+with p50 and p99 in ``report()``. With ``MXTPU_TRACE_DIR`` set each
+generation is a ``serving:request`` span (its future's ``trace_id``),
+its prefill a ``decode:prefill`` span on the same trace, every loop step
+a ``decode:step`` span listing the lanes' trace ids, and an adopted
+lane's ``decode:lane_import`` or ``decode:reprefill``; with
+``MXTPU_TELEMETRY_DIR`` set a finished generation writes a
+``serving_generation`` event, a shed or expired one a
+``serving_overloaded`` / ``serving_deadline`` event. Prefills run under
+the ``serving`` profiler domain's bucket tasks, steps under
+``<name>::decode``.
 """
 from __future__ import annotations
 
@@ -39,12 +52,12 @@ import logging
 import threading
 import time
 
-import numpy as np
 
 from ... import config
 from ...base import MXNetError
+from ...telemetry import trace as _trace
 from .. import Cancelled, DeadlineExceeded, Overloaded
-from ..batcher import DynamicBatcher, _DEADLINE_SLACK_S, _LATENCY_WINDOW
+from ..batcher import DynamicBatcher, _DEADLINE_SLACK_S
 
 __all__ = ["DecodeBatcher", "StreamFuture"]
 
@@ -55,11 +68,6 @@ def _run_callback(cb, fut):
     except Exception:                      # noqa: BLE001
         logging.getLogger("mxnet_tpu_torch.serving").exception(
             "StreamFuture done-callback failed")
-
-
-def _pct(samples, q):
-    return float(np.percentile(np.asarray(samples, np.float64), q)) \
-        if samples else None
 
 
 class StreamFuture:
@@ -75,13 +83,15 @@ class StreamFuture:
     iterator (and ``result``) raises the error, ``Cancelled`` on
     ``stop(drain=False)``: never a hang."""
 
-    __slots__ = ("_cond", "_tokens", "_done", "_error", "_callbacks")
+    __slots__ = ("_cond", "_tokens", "_done", "_error", "trace_id",
+                 "_callbacks")
 
     def __init__(self):
         self._cond = threading.Condition()
         self._tokens = []
         self._done = False
         self._error = None
+        self.trace_id = None
         self._callbacks = []
 
     # producer side (batcher loop)
@@ -157,7 +167,8 @@ class StreamFuture:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "stop_token", "future",
-                 "deadline", "t_submit", "rows", "speculative")
+                 "deadline", "t_submit", "trace_id", "span_id", "rows",
+                 "speculative")
 
     def __init__(self, prompt, max_new_tokens, stop_token, future,
                  deadline, speculative=True):
@@ -168,6 +179,8 @@ class _GenRequest:
         self.deadline = deadline
         self.rows = 1                      # the base batcher's queue unit
         self.speculative = bool(speculative)
+        self.trace_id = future.trace_id = _trace.new_trace_id()
+        self.span_id = _trace.new_span_id()
         self.t_submit = time.perf_counter()
 
 
@@ -251,9 +264,13 @@ class DecodeBatcher(DynamicBatcher):
                 "speculative=True needs a SpecDecodePredictor "
                 "(predictor has no spec_step)")
         self.speculative = bool(speculative)
-        self._ttft_ms = collections.deque(maxlen=_LATENCY_WINDOW)
-        self._itl_ms = collections.deque(maxlen=_LATENCY_WINDOW)
-        self._handoff_ms = collections.deque(maxlen=_LATENCY_WINDOW)
+        self._decode_task = self._domain.new_task(f"{name}::decode")
+        from ...telemetry import registry as treg
+        pid = predictor.telemetry_id
+        self._ttft_hist = treg.histogram(f"serving::{pid}::ttft_ms")
+        self._itl_hist = treg.histogram(f"serving::{pid}::inter_token_ms")
+        self._gens_c = treg.counter(f"serving::{pid}::generations")
+        self._handoff_hist = treg.histogram(f"serving::{pid}::handoff_ms")
         self._inflight = {}                # slot -> _Gen (under _lock)
         self._adopt_q = collections.deque()  # _Adoption (under _cond)
         self._handoff_fn = None
@@ -287,13 +304,18 @@ class DecodeBatcher(DynamicBatcher):
                     f"DecodeBatcher '{self.name}' is not started")
             if self._queued_rows + 1 > self.max_queue:
                 self._shed += 1
-                raise Overloaded(
-                    f"decode queue at bound ({self._queued_rows} requests "
-                    f"queued, max_queue={self.max_queue}); shedding load, "
-                    "retry with backoff")
-            self._queue.append(req)
-            self._queued_rows += 1
-            self._cond.notify_all()
+                shed_depth = self._queued_rows
+            else:
+                shed_depth = None
+                self._queue.append(req)
+                self._queued_rows += 1
+                self._cond.notify_all()
+        if shed_depth is not None:
+            self._shed_event(req, shed_depth)
+            raise Overloaded(
+                f"decode queue at bound ({shed_depth} requests "
+                f"queued, max_queue={self.max_queue}); shedding load, "
+                "retry with backoff")
         return future
 
     def generate(self, prompt, max_new_tokens=None, stop_token=None,
@@ -365,25 +387,36 @@ class DecodeBatcher(DynamicBatcher):
         landed = False
         if a.lane is not None:
             try:
-                self.predictor.import_lane(slot, a.lane, prompt=req.prompt)
+                with _trace.span(
+                        "decode:lane_import", cat="serving",
+                        trace=req.trace_id,
+                        args={"batcher": self.telemetry_id,
+                              "bytes": a.lane.get("bytes")}):
+                    self.predictor.import_lane(slot, a.lane,
+                                               prompt=req.prompt)
                 landed = True
             except Exception:                # noqa: BLE001
                 landed = False
         if not landed:
             try:
-                self.predictor.prefill(slot, req.prompt)
+                with _trace.span(
+                        "decode:reprefill", cat="serving",
+                        trace=req.trace_id,
+                        args={"batcher": self.telemetry_id,
+                              "bucket": bucket}), self._tasks[bucket]:
+                    self.predictor.prefill(slot, req.prompt)
             except Exception as e:           # noqa: BLE001
                 self.predictor.release(slot)
                 req.future._finish(error=e)
                 return
         now = time.perf_counter()
+        if a.t0 is not None:
+            self._handoff_hist.observe((now - a.t0) * 1e3)
         g = _Gen(req, slot, bucket, limit)
         g.last = a.last
         g.produced = a.produced
         g.t_first = g.t_last = now
         with self._lock:
-            if a.t0 is not None:
-                self._handoff_ms.append((now - a.t0) * 1e3)
             self._adopted += 1
         if g.finished():
             self._complete_gen(g)
@@ -446,7 +479,7 @@ class DecodeBatcher(DynamicBatcher):
                     if remaining <= 0:
                         break
                     self._cond.wait(timeout=remaining)
-            admitted = []
+            admitted, expired = [], []
             now = time.perf_counter()
             while self._queue:
                 r = self._queue[0]
@@ -454,9 +487,11 @@ class DecodeBatcher(DynamicBatcher):
                     self._queue.popleft()
                     self._queued_rows -= 1
                     self._deadline_missed += 1
+                    waited_ms = (now - r.t_submit) * 1e3
                     r.future._finish(error=DeadlineExceeded(
                         f"deadline expired after "
-                        f"{(now - r.t_submit) * 1e3:.1f} ms in queue"))
+                        f"{waited_ms:.1f} ms in queue"))
+                    expired.append((r, waited_ms))
                     continue
                 slot = self.predictor.alloc_slot()
                 if slot is None:
@@ -464,7 +499,26 @@ class DecodeBatcher(DynamicBatcher):
                 self._queue.popleft()
                 self._queued_rows -= 1
                 admitted.append((r, slot))
+        self._emit_expired(expired)
         return admitted, adopted
+
+    def _emit_expired(self, expired):
+        """Expired requests' events and spans (outside the queue lock,
+        after their futures completed)."""
+        from ...telemetry import export as _texp
+        for r, waited_ms in expired:
+            if _texp.enabled():
+                _texp.emit_event(
+                    "serving_deadline", batcher=self.telemetry_id,
+                    predictor=self.predictor.telemetry_id,
+                    trace_id=r.trace_id, rows=1,
+                    waited_ms=round(waited_ms, 3))
+            if _trace.enabled():
+                _trace.record_span(
+                    "serving:request", "serving", r.t_submit,
+                    waited_ms / 1e3, trace_id=r.trace_id,
+                    span_id=r.span_id,
+                    args={"error": "DeadlineExceeded"})
 
     def _start_gen(self, req, slot):
         """Prefill a newly admitted request into its lane (outside the
@@ -474,19 +528,24 @@ class DecodeBatcher(DynamicBatcher):
         bucket = self.predictor.bucket_for(plen)
         limit = self.predictor.gen_limit(plen, req.max_new_tokens)
         try:
-            tok = self.predictor.prefill(slot, req.prompt)
+            with _trace.span(
+                    "decode:prefill", cat="serving", trace=req.trace_id,
+                    args={"batcher": self.telemetry_id,
+                          "bucket": bucket, "prompt_len": plen}), \
+                    self._tasks[bucket]:
+                tok = self.predictor.prefill(slot, req.prompt)
         except Exception as e:                       # noqa: BLE001
             self.predictor.release(slot)
             req.future._finish(error=e)
             return
         now = time.perf_counter()
+        self._ttft_hist.observe((now - req.t_submit) * 1e3)
         g = _Gen(req, slot, bucket, limit)
         g.last = tok
         g.produced = 1
         g.t_first = g.t_last = now
         req.future._push(tok)
         with self._lock:
-            self._ttft_ms.append((now - req.t_submit) * 1e3)
             self._streamed_tokens += 1
         if g.finished():
             self._complete_gen(g)
@@ -506,16 +565,25 @@ class DecodeBatcher(DynamicBatcher):
         if not active:
             return
         try:
-            if self.speculative:
-                out = self.predictor.spec_step(
-                    {slot: (g.last, g.limit - g.produced,
-                            g.req.speculative)
-                     for slot, g in active.items()})
-            else:
-                out = {slot: [tok] for slot, tok in
-                       self.predictor.decode(
-                           {slot: g.last for slot, g in active.items()}
-                       ).items()}
+            with _trace.span(
+                    "decode:step", cat="serving",
+                    args={"batcher": self.telemetry_id,
+                          "lanes": len(active),
+                          "speculative": self.speculative,
+                          "trace_ids": [g.req.trace_id
+                                        for g in active.values()]}), \
+                    self._decode_task:
+                if self.speculative:
+                    out = self.predictor.spec_step(
+                        {slot: (g.last, g.limit - g.produced,
+                                g.req.speculative)
+                         for slot, g in active.items()})
+                else:
+                    out = {slot: [tok] for slot, tok in
+                           self.predictor.decode(
+                               {slot: g.last
+                                for slot, g in active.items()}
+                           ).items()}
         except Exception as e:                       # noqa: BLE001
             with self._lock:
                 for slot in active:
@@ -534,7 +602,7 @@ class DecodeBatcher(DynamicBatcher):
                 for tok in out[slot]:
                     g.last = tok
                     g.produced += 1
-                    self._itl_ms.append((now - g.t_last) * 1e3)
+                    self._itl_hist.observe((now - g.t_last) * 1e3)
                     g.t_last = now
                     self._streamed_tokens += 1
                     pushes.append((g.req.future, tok))
@@ -553,8 +621,25 @@ class DecodeBatcher(DynamicBatcher):
         now = time.perf_counter()
         with self._lock:
             self._served += 1
-            self._latency_ms[g.bucket].append((now - g.req.t_submit) * 1e3)
+        self._lat_hist[g.bucket].observe((now - g.req.t_submit) * 1e3)
+        self._gens_c.inc()
         g.req.future._finish(error=error)
+        if _trace.enabled():
+            _trace.record_span(
+                "serving:request", "serving", g.req.t_submit,
+                now - g.req.t_submit, trace_id=g.req.trace_id,
+                span_id=g.req.span_id,
+                args={"tokens": g.produced,
+                      "prompt_len": int(g.req.prompt.shape[0])})
+        from ...telemetry import export as _texp
+        if _texp.enabled():
+            _texp.emit_event(
+                "serving_generation", batcher=self.telemetry_id,
+                predictor=self.predictor.telemetry_id,
+                trace_id=g.req.trace_id, tokens=g.produced,
+                prompt_len=int(g.req.prompt.shape[0]),
+                ttft_ms=round((g.t_first - g.req.t_submit) * 1e3, 3),
+                total_ms=round((now - g.req.t_submit) * 1e3, 3))
 
     def _loop(self):
         try:
@@ -614,14 +699,25 @@ class DecodeBatcher(DynamicBatcher):
     def report(self, reset=False):
         """Generations, tokens, queue and shed counters, and p50/p99 (ms)
         of time to first token, inter-token gaps, handoffs and whole
-        generations per prompt bucket, over the last samples."""
+        generations per prompt bucket (the registry histograms)."""
+        from ...telemetry import registry as treg
+
+        def _snap(h):
+            return treg.snapshot(reset=reset,
+                                 prefix=h.name).get(h.name, {})
+
+        ttft = _snap(self._ttft_hist)
+        itl = _snap(self._itl_hist)
+        handoff = _snap(self._handoff_hist)
         with self._lock:
-            per_bucket = {
-                b: {"generations": len(self._latency_ms[b]),
-                    "p50_ms": _pct(self._latency_ms[b], 50),
-                    "p99_ms": _pct(self._latency_ms[b], 99)}
-                for b in self.predictor.buckets}
+            per_bucket = {}
+            for b in self.predictor.buckets:
+                hsnap = _snap(self._lat_hist[b])
+                per_bucket[b] = {"generations": hsnap.get("count", 0),
+                                 "p50_ms": hsnap.get("p50"),
+                                 "p99_ms": hsnap.get("p99")}
             out = {
+                "id": self.telemetry_id,
                 "name": self.name,
                 "predictor_id": self.predictor.telemetry_id,
                 "slots": self.predictor.slots,
@@ -635,23 +731,20 @@ class DecodeBatcher(DynamicBatcher):
                 "shed_requests": self._shed,
                 "deadline_missed": self._deadline_missed,
                 "retraces": self.predictor.retraces,
-                "ttft_p50_ms": _pct(self._ttft_ms, 50),
-                "ttft_p99_ms": _pct(self._ttft_ms, 99),
-                "inter_token_p50_ms": _pct(self._itl_ms, 50),
-                "inter_token_p99_ms": _pct(self._itl_ms, 99),
+                "ttft_p50_ms": ttft.get("p50"),
+                "ttft_p99_ms": ttft.get("p99"),
+                "inter_token_p50_ms": itl.get("p50"),
+                "inter_token_p99_ms": itl.get("p99"),
                 "per_bucket": per_bucket,
                 "role": self.role,
                 "speculative": self.speculative,
                 "handoffs": self._handoffs,
                 "handoff_failures": self._handoff_failures,
                 "adopted": self._adopted,
-                "handoff_p50_ms": _pct(self._handoff_ms, 50),
-                "handoff_p99_ms": _pct(self._handoff_ms, 99),
+                "handoff_p50_ms": handoff.get("p50"),
+                "handoff_p99_ms": handoff.get("p99"),
             }
             if reset:
-                for d in ([self._ttft_ms, self._itl_ms, self._handoff_ms]
-                          + list(self._latency_ms.values())):
-                    d.clear()
                 self._served = 0
                 self._shed = 0
                 self._deadline_missed = 0

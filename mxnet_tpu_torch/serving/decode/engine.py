@@ -38,11 +38,13 @@ through a pinned buffer with the one synchronisation a step needs (the
 batcher routes tokens per lane). The CPU runs the same functions
 eagerly, keys its programs all the same, and reads the same report.
 
+Telemetry: ``serving::<id>::tokens`` counts the tokens produced and
+``serving::<id>::kv_cache_bytes`` gauges the live cache; the KV-cache
+has its own ``memory_report()`` row (kind ``decode_state``: persistent
+state written in place, beside the program rows each capture records).
 Not ported: the persistent program cache and the degrade-to-plain-jit
-fallback, the telemetry registry (``report()`` keeps plain counters) and
-``memory_report()``'s ``decode_state`` row (``kv_cache_bytes()`` is the
-live buffers' bytes). ``program_cost`` is a count from shapes, not a
-compiler's cost analysis.
+fallback. ``program_cost`` is a count from shapes, not a compiler's
+cost analysis.
 
 The engine stages its own copy of every parameter, so the weights it
 serves are frozen when it is built: a Module that trains on afterwards
@@ -173,6 +175,21 @@ class DecodePredictor:
         self._prefills = 0
         self._tokens = 0
         _register_decoder(self)
+        from ...telemetry import registry as treg
+        self._tokens_c = treg.counter(
+            f"serving::{self.telemetry_id}::tokens")
+        kv = self.kv_cache_bytes()
+        treg.gauge(f"serving::{self.telemetry_id}::kv_cache_bytes").set(kv)
+        # the cache is persistent device state, not a program's temp: its
+        # own memory_report() row, next to the program rows (written in
+        # place by every program: the JAX package's donation)
+        from ...telemetry import memory as _tmem
+        _tmem.record(
+            f"decode:{self.telemetry_id}:kv_cache", "decode_state",
+            f"kv:{self.telemetry_id}",
+            {"argument_bytes": kv, "output_bytes": kv,
+             "alias_bytes": kv, "peak_bytes": kv,
+             "donation_saved_bytes": kv})
 
     @classmethod
     def from_module(cls, module, spec, **kwargs):
@@ -332,7 +349,9 @@ class DecodePredictor:
         try:
             with torch.inference_mode():
                 prog.capture(lambda: prog.fn(prog.static),
-                             capture_error_mode=mode)
+                             capture_error_mode=mode,
+                             arguments=list(self._p.values())
+                             + list(self._caches))
         except Exception as e:
             raise MXNetError(f"capturing {prog.key.name} as a CUDA graph "
                              f"failed: {e}") from e
@@ -445,6 +464,7 @@ class DecodePredictor:
             self._slot_pos[slot] = plen
             self._prefills += 1
             self._tokens += 1
+            self._tokens_c.inc()
         return int(nxt[0])
 
     def decode(self, slot_tokens):
@@ -470,6 +490,7 @@ class DecodePredictor:
             for slot in slot_tokens:
                 self._slot_pos[slot] += 1
             self._tokens += len(slot_tokens)
+            self._tokens_c.inc(len(slot_tokens))
         return {slot: int(nxt[slot]) for slot in slot_tokens}
 
     def _verify_width_for(self, n):

@@ -25,7 +25,9 @@ or the ``spec_verify`` fault site) drops to plain decode for
 :func:`distill_draft` trains a draft on the target's own greedy
 rollouts through ``Module.fit``, on the target's device.
 
-Not ported: the telemetry gauges (``report()["spec"]`` has the figures).
+The windowed figures are also the registry gauges
+``serving::<id>::accepted_per_step`` and ``::acceptance_rate``
+(``report()["spec"]`` has them all).
 """
 from __future__ import annotations
 
@@ -200,6 +202,10 @@ class SpecDecodePredictor(DecodePredictor):
         self._draft_backlog = [
             collections.deque(maxlen=2 * (self.spec_k + 1))
             for _ in range(self.slots)]
+        from ...telemetry import registry as treg
+        pid = self.telemetry_id
+        self._aps_g = treg.gauge(f"serving::{pid}::accepted_per_step")
+        self._rate_g = treg.gauge(f"serving::{pid}::acceptance_rate")
 
     # -- lifecycle ------------------------------------------------------------
     def prefill(self, slot, prompt):
@@ -329,6 +335,7 @@ class SpecDecodePredictor(DecodePredictor):
         ntok = sum(len(v) for v in out.values())
         with self._lock:
             self._tokens += ntok
+            self._tokens_c.inc(ntok)
         self._note_round(out, offered, accepted, verify_round=True)
         return out
 
@@ -362,8 +369,11 @@ class SpecDecodePredictor(DecodePredictor):
             self._win.append((len(out),
                               sum(len(v) for v in out.values()),
                               offered, accepted))
+            lanes = sum(w[0] for w in self._win)
+            toks = sum(w[1] for w in self._win)
             off = sum(w[2] for w in self._win)
             acc = sum(w[3] for w in self._win)
+            aps = toks / lanes if lanes else 0.0
             rate = acc / off if off else 0.0
             decide = sum(1 for w in self._win if w[2] > 0)
             if offered and rate < self.disable_below and \
@@ -373,6 +383,8 @@ class SpecDecodePredictor(DecodePredictor):
                 self._plain_until = self._spec_rounds + self.probe_steps
                 self._degrade_events += 1
                 self._win.clear()
+        self._aps_g.set(aps)
+        self._rate_g.set(rate)
 
     # -- measured-gate surfaces ----------------------------------------------
     def spec_bytes_per_accepted_token(self):

@@ -29,7 +29,6 @@ same, so ``retraces`` and ``compile_report()`` read alike on both.
 from __future__ import annotations
 
 import contextlib
-import itertools
 import threading
 
 import numpy as np
@@ -41,10 +40,11 @@ from ..base import MXNetError, torch_dtype
 from ..context import as_device
 from ..dtype import resolve_dtype
 from ..symbol import passes as _passes
+from ..telemetry import trace as _trace
+from . import _register_predictor
 
 __all__ = ["Predictor", "default_buckets"]
 
-_IDS = itertools.count()
 _STAGE_CHUNKS = 8     # chunks of a request's staging through pinned memory
 
 
@@ -171,7 +171,7 @@ class Predictor:
         self.fusion_report = _passes.legacy_fusion_entry(self.pass_report)
         self._run_sym = fused_sym if fused_sym is not None else symbol
 
-        self.telemetry_id = f"{symbol.name or 'predictor'}#{next(_IDS)}"
+        _register_predictor(self)
         self._programs = {}     # (bucket, dtypes) -> CapturedProgram
         self._materialized = 0  # programs acquired BY this instance
         self._pool = None       # the buckets' shared graph memory pool
@@ -285,7 +285,8 @@ class Predictor:
         try:
             with torch.inference_mode():
                 prog.capture(lambda: self._forward(prog.static),
-                             capture_error_mode=mode)
+                             capture_error_mode=mode,
+                             arguments=list(self._params.values()))
         except Exception as e:
             raise MXNetError(f"capturing {prog.key.name} as a CUDA graph "
                              f"failed: {e}") from e
@@ -340,7 +341,10 @@ class Predictor:
         # float64 runs as float32, as in the JAX package (no x64)
         dtypes = tuple("float32" if a.dtype == np.float64 else a.dtype.name
                        for a in arrays)
-        with self._lock, torch.inference_mode():
+        with self._lock, torch.inference_mode(), _trace.span(
+                f"serving:bucket{bucket}", cat="serving",
+                args={"predictor": self.telemetry_id, "rows": rows,
+                      "pad_rows": bucket - rows}):
             if self.captured and not eager:
                 prog = self._program(bucket, dtypes)
                 self._copy_in(prog, arrays, rows)
@@ -427,6 +431,16 @@ class Predictor:
         return self.retraces
 
     # -- observability --------------------------------------------------------
+    def program_memory(self, bucket=None):
+        """The memory row recorded when ``bucket``'s program (largest
+        bucket by default) was captured (``telemetry.memory``), or
+        ``{}`` (not captured yet, or the CPU). Never captures again."""
+        b = self.buckets[-1] if bucket is None else bucket
+        for (bk, _dt), prog in self._programs.items():
+            if bk == b and prog.memory:
+                return dict(prog.memory)
+        return {}
+
     def report(self, reset=False):
         with self._lock:
             out = {

@@ -11,11 +11,12 @@ subsystems report into.
   ``reset=True`` zeroes) every metric under one lock acquisition, so a
   concurrent writer is never counted twice nor torn across windows.
 - **Collectors**: a subsystem whose report needs live computation (the
-  data pipelines' queue depths) registers a ``fn(reset) -> dict``
-  collector; :func:`report` assembles ``{subsystems: {...}, metrics:
-  {...}}`` and each ``*_report()`` view (``sparse_report``,
-  ``data_report``) is ``collect(name, reset)`` of it
-  (:func:`collector_view`).
+  data pipelines' queue depths, the guard's device counters) registers
+  a ``fn(reset) -> dict`` collector; :func:`report` assembles
+  ``{subsystems: {...}, metrics: {...}}`` and each ``*_report()`` view
+  (``sparse_report``, ``data_report``, ``fault_report``,
+  ``compile_report``, ``serving_report``, ``memory_report``) is
+  ``collect(name, reset)`` of it (:func:`collector_view`).
 
 Handles are cheap and cacheable: ``counter("sparse::steps")`` returns
 the same object every call; hot paths hold the handle.
@@ -315,8 +316,9 @@ def collect(name: str, reset=False):
 def report(reset=False, subsystems=None):
     """The unified telemetry tree:
 
-    - ``subsystems``: every registered collector's report (``sparse``
-      and ``data`` in the port),
+    - ``subsystems``: every registered collector's report (``sparse``,
+      ``data``, ``fault``, ``compile``, ``serving``, ``memory``,
+      ``profiler``),
     - ``metrics``: the flat registry snapshot (``subsystem::name`` ->
       values).
 

@@ -1,0 +1,365 @@
+"""StepTimeline: where does a training step's wall time go?
+(counterpart of ``mxnet_tpu/telemetry/timeline.py``)
+
+- **Phase attribution**: ``fit()`` opens one timeline for the run;
+  each step's wall time splits across ``data_wait`` (blocked on the
+  host input pipeline), ``h2d_stage`` (the feed copied into the
+  captured step's static input buffers), ``compile`` (program
+  acquisition: the eager warm step and the CUDA-graph capture at a new
+  feed signature), ``device_step`` (the step itself: on the card the
+  graph replay, which returns once launched), ``metric_ft_sync``
+  (metric update, fault-guard bookkeeping), with the remainder (the
+  loop's own code between phases, the batch-end callbacks, a host
+  stall that lands there) reported as ``unattributed``.
+  Phases NEST: an inner phase's time is subtracted from its enclosing
+  phase's self-time, so the self-times sum to (at most) the step wall
+  time by construction; the fused step attributes its h2d / compile /
+  replay from *inside* ``fit()``'s outer ``device_step`` span without
+  double counting.
+- **Host time.** Every phase is host wall time, as under the JAX
+  package's asynchronous dispatch: the host runs ahead of the card, and
+  a replay that returns at once shows its device time wherever the host
+  next waits (a full launch queue, a metric read). The timeline adds no
+  synchronisation to make the phases look like device time.
+- **Cost**: :func:`set_step_cost` is the one write point of the
+  ``step::flops`` / ``step::bytes_accessed`` gauges. The port's fused
+  step has no cost analysis that covers its hand-written kernels, so it
+  records none (``FusedSymbolStep.step_cost`` is ``{}``), the gauges
+  stay unset and the timeline derives no roofline gauge from them.
+  :func:`peak_hbm_bytes_s` is the card's memory rate (a table keyed by
+  ``torch.cuda.get_device_name()``; 0.0 for an unknown device).
+
+Everything lands in the telemetry registry under ``step::`` (histograms
+``step::wall_s``, ``step::phase::<name>_s``) and, when
+``MXTPU_TELEMETRY_DIR`` is set, as ``train_step`` milestone events and
+periodic snapshots through the durable exporter (export.py).
+"""
+from __future__ import annotations
+
+import threading
+import time
+
+from . import registry
+from . import trace as _trace
+
+__all__ = ["StepTimeline", "current", "null_phase", "peak_hbm_bytes_s",
+           "set_step_cost", "PHASES"]
+
+PHASES = ("data_wait", "h2d_stage", "compile", "device_step",
+          "metric_ft_sync")
+
+# device memory GB/s per card, keyed by torch.cuda.get_device_name():
+# the roofline denominator (the figure PERF.md's kernel bounds use)
+_PEAK_HBM_GBS = {
+    "NVIDIA H100 80GB HBM3": 3350.0,
+}
+
+
+def peak_hbm_bytes_s(device=None) -> float:
+    """Peak device-memory bytes/s of ``device`` (a ``torch.device``, an
+    index or a device name; default: the current CUDA device); 0.0 when
+    unknown (the CPU, a card outside the table) rather than a guess."""
+    import torch
+    if isinstance(device, str) and device in _PEAK_HBM_GBS:
+        return _PEAK_HBM_GBS[device] * 1e9
+    if device is None:
+        if not torch.cuda.is_available():
+            return 0.0
+        device = torch.cuda.current_device()
+    try:
+        dev = torch.device("cuda", device) if isinstance(device, int) \
+            else torch.device(device)
+    except RuntimeError:     # a card's name outside the table
+        return 0.0
+    if dev.type != "cuda":
+        return 0.0
+    return _PEAK_HBM_GBS.get(torch.cuda.get_device_name(dev), 0.0) * 1e9
+
+
+def set_step_cost(flops=None, bytes_accessed=None):
+    """THE write point for the ``step::`` cost gauges (``flops``,
+    ``bytes_accessed``, ``arithmetic_intensity_flop_b``). Non-positive
+    or unparseable values (-1 for "unavailable") leave the gauges
+    untouched.
+    Returns the ``(flops, bytes)`` floats recorded (None where not)."""
+    def _pos(v):
+        try:
+            v = float(v)
+        except (TypeError, ValueError):
+            return None
+        return v if v > 0 else None
+
+    flops, by = _pos(flops), _pos(bytes_accessed)
+    if flops:
+        registry.gauge("step::flops").set(flops)
+    if by:
+        registry.gauge("step::bytes_accessed").set(by)
+    if flops and by:
+        registry.gauge("step::arithmetic_intensity_flop_b").set(
+            flops / by)
+    return flops, by
+
+
+class _Phase:
+    """Context manager for one phase span; re-entrant across steps
+    (the timeline hands out one object per phase name)."""
+
+    __slots__ = ("_tl", "name")
+
+    def __init__(self, tl, name):
+        self._tl = tl
+        self.name = name
+
+    def __enter__(self):
+        self._tl._enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self._tl._exit()
+
+
+class _NullPhase:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+_NULL = _NullPhase()
+
+
+def null_phase():
+    return _NULL
+
+
+# the active timeline (one training loop per process; the fused step
+# looks it up per step — two attribute reads when telemetry is idle).
+# Pinned to the thread that activated it: the _stack/_acc bookkeeping
+# is deliberately lock-free for the hot path, so a DIFFERENT thread
+# (a second fit(), a serving loop driving a fused step) must see None
+# and attribute nothing rather than corrupt the owner's span stack
+_current = None
+_current_tid = None
+
+
+def current():
+    if _current is not None and \
+            threading.get_ident() == _current_tid:
+        return _current
+    return None
+
+
+class StepTimeline:
+    """Per-step wall-time attribution for one training run.
+
+    Usage (what ``fit()`` does)::
+
+        tl = StepTimeline(name="fit:resnet").activate()
+        try:
+            for batch ...:
+                tl.step_start()
+                with tl.phase("device_step"):
+                    ...   # inner code may open nested phases
+                with tl.phase("data_wait"):
+                    next_batch = next(it)
+                tl.step_end()
+        finally:
+            tl.close()
+
+    Nested phases subtract from their parent's self-time, so the
+    recorded phase self-times sum to at most the measured step wall
+    time (the gap is ``unattributed``).
+    """
+
+    def __init__(self, name="train"):
+        self.name = name
+        self.steps = 0
+        self._stack = []        # open spans: [name, t_enter, child_s]
+        self._acc = {}          # this step's per-phase self seconds
+        self._t_step = None
+        self._phases = {}       # name -> _Phase (reused, no per-step alloc)
+        self._wall_h = registry.histogram("step::wall_s")
+        self._steps_c = registry.counter("step::steps")
+        from .. import config
+        self._event_every = max(1, int(
+            config.get("MXTPU_TELEMETRY_EVENT_STEPS")))
+        self._snapshot_every = int(
+            config.get("MXTPU_TELEMETRY_SNAPSHOT_STEPS"))
+        self._snap_thread = None
+        # structured tracing (telemetry/trace.py): the timeline IS the
+        # phase measurement, so trace spans are recorded FROM the
+        # _enter/_exit bookkeeping below — same perf_counter reads,
+        # never a second clock. A step's phase spans wait in a plain
+        # list and reach the ring in one write once the step's wall
+        # clock has stopped: the ring's lock, which the data pipeline's
+        # threads also take, is never waited for inside a timed step.
+        # All of it is off unless MXTPU_TRACE_DIR is set (checked once
+        # per step, not per phase).
+        self._trace_on = False
+        self._span_buf = []      # this step's phase spans, not yet ringed
+        self._trace_id = None    # one trace per run (fit/epoch loop)
+        self._root_span = None   # the run-root span id ("fit:<name>")
+        self._step_span = None   # current step's span id
+        self._t_activate = None
+        self._t_step0 = None
+
+    # -- lifecycle ------------------------------------------------------------
+    def activate(self):
+        """Install as the current timeline for THIS thread (what the
+        fused step attributes into; other threads see None)."""
+        global _current, _current_tid
+        _current = self
+        _current_tid = threading.get_ident()
+        self._t_activate = time.perf_counter()
+        self._trace_on = _trace.enabled()
+        if self._trace_on and self._trace_id is None:
+            self._trace_id = _trace.new_trace_id()
+            self._root_span = _trace.new_span_id()
+        return self
+
+    @property
+    def trace_id(self):
+        """This run's trace id (None unless tracing) — what fit() hands
+        the data pipeline so stage spans link to the run root."""
+        return self._trace_id
+
+    @property
+    def root_span_id(self):
+        return self._root_span
+
+    def close(self):
+        """Deactivate; flush a final snapshot + event when exporting."""
+        global _current, _current_tid
+        if _current is self:
+            _current = None
+            _current_tid = None
+        self._flush_spans()
+        if self._trace_id is not None and self._t_activate is not None:
+            _trace.record_span(
+                self.name, "train", self._t_activate,
+                time.perf_counter() - self._t_activate,
+                trace_id=self._trace_id, span_id=self._root_span,
+                args={"steps": self.steps})
+            self._t_activate = None
+        if _trace.enabled():
+            _trace.export_trace()
+        from . import export
+        if export.enabled():
+            export.emit_event("timeline_close", name=self.name,
+                              steps=self.steps)
+            if self._snap_thread is not None:
+                self._snap_thread.join(timeout=30)
+            export.export_snapshot(tag=f"{self.name}-final")
+            export.release()
+
+    # -- phases ---------------------------------------------------------------
+    def phase(self, name):
+        p = self._phases.get(name)
+        if p is None:
+            p = self._phases[name] = _Phase(self, name)
+        return p
+
+    def _enter(self, name):
+        sid = _trace.new_span_id() if self._trace_on else None
+        self._stack.append([name, time.perf_counter(), 0.0, sid])
+
+    def _exit(self):
+        if not self._stack:      # defensive: never raise out of a step
+            return
+        name, t0, child, sid = self._stack.pop()
+        dur = time.perf_counter() - t0
+        self._acc[name] = self._acc.get(name, 0.0) + max(0.0, dur - child)
+        if self._stack:
+            self._stack[-1][2] += dur
+        if sid is not None:
+            # the phase record IS the trace span (same t0 / dur); inside
+            # a step it waits for the step's end, no lock, no I/O
+            parent = self._stack[-1][3] if self._stack else self._step_span
+            self._span_buf.append((name, "step", t0, dur, self._trace_id,
+                                   sid, parent or self._root_span, None))
+            if self._t_step is None:
+                self._flush_spans()
+
+    def _flush_spans(self):
+        """Move the buffered phase spans into the trace ring (one lock
+        acquisition)."""
+        if self._span_buf:
+            buf, self._span_buf = self._span_buf, []
+            _trace.record_spans(buf)
+
+    # -- steps ----------------------------------------------------------------
+    def step_start(self):
+        """Open a step's wall clock. A no-op while a step is already
+        open: ``fit()`` opens the first step of an epoch BEFORE the
+        epoch-start batch fetch so that (often epoch-heaviest) data
+        wait is attributed to the first step rather than discarded —
+        the loop's per-batch step_start then must not reset it."""
+        if self._t_step is not None:
+            return
+        self._trace_on = _trace.enabled()
+        if self._trace_on:
+            if self._trace_id is None:
+                self._trace_id = _trace.new_trace_id()
+                self._root_span = _trace.new_span_id()
+            self._step_span = _trace.new_span_id()
+        else:
+            self._step_span = None
+        self._t_step = self._t_step0 = time.perf_counter()
+        self._acc = {}
+        self._stack = []
+
+    def step_end(self, **event_fields):
+        """Close one step: record wall + per-phase histograms and
+        (exporter on) emit milestone events / periodic snapshots."""
+        if self._t_step is None:
+            return None
+        wall = time.perf_counter() - self._t_step
+        self._t_step = None
+        if self._step_span is not None:
+            self._span_buf.append(("step", "step", self._t_step0, wall,
+                                   self._trace_id, self._step_span,
+                                   self._root_span,
+                                   {"step": self.steps + 1}))
+            self._step_span = None
+        self._flush_spans()
+        self.steps += 1
+        self._steps_c.inc()
+        self._wall_h.observe(wall)
+        attributed = 0.0
+        for name, secs in self._acc.items():
+            registry.histogram(f"step::phase::{name}_s").observe(secs)
+            attributed += secs
+        registry.histogram("step::phase::unattributed_s").observe(
+            max(0.0, wall - attributed))
+        from . import export
+        if export.enabled():
+            if self.steps == 1 or self.steps % self._event_every == 0:
+                export.emit_event(
+                    "train_step", name=self.name, step=self.steps,
+                    wall_s=round(wall, 6),
+                    phases={n: round(s, 6)
+                            for n, s in sorted(self._acc.items())},
+                    unattributed_s=round(max(0.0, wall - attributed), 6),
+                    # the JAX package's fields; the port's step has no
+                    # cost analysis (see the module docstring)
+                    bytes_accessed=None, flops=None,
+                    **event_fields)
+            if self._snapshot_every > 0 and \
+                    self.steps % self._snapshot_every == 0:
+                # off-thread: a full report (collector locks, the FT
+                # guard's device-counter host sync, a whole-tree JSON
+                # write) must not stall the training loop between
+                # steps — close() joins before the final snapshot. One
+                # at a time: if the last is still writing, skip this
+                # milestone rather than queue behind it
+                t = self._snap_thread
+                if t is None or not t.is_alive():
+                    self._snap_thread = threading.Thread(
+                        target=export.export_snapshot,
+                        kwargs={"tag": f"{self.name}-{self.steps}"},
+                        daemon=True)
+                    self._snap_thread.start()
+        return wall
