@@ -360,8 +360,38 @@ script exits non-zero and prints no result. Phases:
    ``telemetry_decode``: a short traced decode run at GPT-2 small's
    widths: prefill / step / request spans, ``serving::<id>::ttft_ms``,
    the KV-cache's ``decode_state`` row.
-19. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
-   ``fused_adam`` and ``data_pipeline`` launches, D1 with its
+19. image classification (slice 16), through the examples of
+   ``mxnet_tpu_torch.examples.image_classification``:
+   19a ``ic_benchmark``: ``train_imagenet --benchmark 1`` (ResNet-50,
+   ``stem="std"``, bf16, batch 128) through the example's
+   ``_benchmark``: its JSON line, one capture and replays, per step K1
+   28 (every one on the wgmma core), K2 62, B1 and B2 45 (the std
+   stem's 17 residual sites against phase 7's 16), a finite loss, ms a
+   step beside phase 7's captured step. 19b ``ic_fit``: ``common/fit.py``
+   ``fit`` with ``--kv-store device``, ResNet-50 fp32, batch 128 over 8
+   learnable synthetic batches (2 for validation), 2 epochs with an lr
+   step after the first, checkpoints to a temporary prefix, a
+   Speedometer: the fused step engaged, one store key per parameter,
+   K1 (fp32 route) / K2 / B1 / B2 launches per train step and eval
+   forward; ``ic_fit_resume``: ``--load-epoch 1`` loads the saved
+   params bit for bit; ``ic_fit_first_step``: one fused step against
+   ``Module(fused=False)`` with both passes off from the same params
+   and batch, within ``FP32_TRAIN_LIMITS``; ``ic_fit_fusion_ab``: the
+   fp32 step with ``MXTPU_PALLAS_FUSION`` on and off in turns. 19c
+   ``ic_mnist``: ``train_mnist`` for mlp (the defaults) and lenet (lr
+   0.02, batch 32), validation accuracy above 0.95 and 0.9. 19d
+   ``ic_score``: ``benchmark_score`` over every network of
+   ``get_network`` at batch 32 in bf16: img/s, ms a batch, K1 / K2
+   launches a forward (equal to the pass sites) with K1's routes, the
+   captured eval output against the fp32 plain graph on the same four
+   batches with phase 4's seeded params (top-1 on decisive rows, logit
+   errors within the phase-4 limits or twice the plain bf16 graph's), a
+   ``torch.profiler`` trace of 5 forwards (device ms a forward, busy
+   share, top kernels); ``ic_cifar10_benchmark``:
+   ``train_cifar10 --benchmark 1``. ``slice16_seconds`` times them.
+20. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
+   ``fused_adam``, ``data_pipeline`` and ``image_classification``
+   launches, D1 with its
    decode_serving launches and its ``lm_spec`` launches, ``lstm_cell``
    with word_lm's (fp32) launches and cuDNN's whole-RNN time,
    ``lstm_step_fwd`` / ``lstm_step_bwd`` with TrainStep's launches),
@@ -2493,7 +2523,7 @@ def fit_phase(mt, torch, np, smi, batches, bare):
         b = check_batches[i % 4]
         pt.run_step(model, b)
         model.update_metric(em, b.label)
-        out = model.get_outputs()[0]
+        out = model.get_outputs()[0].data
         ref_acc.update_dict({"softmax_label": b.label[0]},
                             {"softmax_output": out})
         host_hit, tie = top_k_rows(np, out, b.label[0], FIT_TOP_K)
@@ -3893,7 +3923,7 @@ def module_eager_phase(mt, torch, np, smi, batches):
         pt.run_step(m, batches[i % 4])
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        out = m.get_outputs()[0].float()
+        out = m.get_outputs()[0].data.float()
         lab = batches[i % 4].label[0].long()
         losses.append(float(-torch.log(out.gather(1, lab[:, None])
                                        .clamp_min(1e-30)).mean()))
@@ -4155,7 +4185,7 @@ def eval_capture_phase(mt, torch, np, smi, batches):
         if i == 2:
             fb.reset_launch_counts()
         m.forward(batches[i], is_train=False)
-        outs.append(m.get_outputs()[0].clone())
+        outs.append(m.get_outputs()[0].data.clone())
     torch.cuda.synchronize()
     launches = kernel_counts(fb)
     prog = m._exec._progs.captured["fwd_eval"]
@@ -4163,7 +4193,7 @@ def eval_capture_phase(mt, torch, np, smi, batches):
     eager = []
     for _ in range(2):
         m.forward(batches[2], is_train=False)
-        eager.append(m.get_outputs()[0].clone())
+        eager.append(m.get_outputs()[0].data.clone())
     torch.cuda.synchronize()
     bit = torch.equal(outs[2], eager[0])
     err, spread = rel_l2(outs[2], eager[0]), rel_l2(eager[1], eager[0])
@@ -4491,7 +4521,7 @@ def lm_eval_vs_reprefill(mt, torch, np, m, spec, data, label):
                                               .astype(np.float32))],
                             [torch.from_numpy(label[:LM_BATCH])])
     m.forward(batch, is_train=False)
-    probs = m.get_outputs()[0]
+    probs = m.get_outputs()[0].data
     p = {k: v.detach().clone() for k, v in m.get_params()[0].items()}
     caches = dm.init_caches(spec, 1, "float32", LM_DEVICE)
     worst, checked, exempt, differ = 0.0, 0, 0, []
@@ -4980,7 +5010,7 @@ def lm_full_phase(mt, torch, np, F, smi):
         name="gpt2s-from-module")
     tok = list(pred.generate(prompt, max_new_tokens=1))[0]
     m.forward(batches[0], is_train=False)
-    logp = torch.log(m.get_outputs()[0][0, LM_FULL_PROMPT - 1].double())
+    logp = torch.log(m.get_outputs()[0].data[0, LM_FULL_PROMPT - 1].double())
     top = torch.topk(logp, 2)
     gap = float(top.values[0] - top.values[1])
     del pred
@@ -5543,7 +5573,7 @@ def two_tower_phase(mt, torch, np, smi):
     resumed.forward(mt.io.DataBatch(
         [torch.from_numpy(req["user"]).to(SP_DEVICE),
          torch.from_numpy(req["item"]).to(SP_DEVICE)]), is_train=False)
-    own = resumed.get_outputs()[0].float().cpu().numpy()
+    own = resumed.get_outputs()[0].data.float().cpu().numpy()
     scores = tt.serve(resumed, n_requests=64, device=SP_DEVICE)
     row = {"phase": "two_tower", "fit_s": fit_s, "train_acc": acc,
            "resumed_acc": acc2, "fault": raised,
@@ -7011,6 +7041,484 @@ def telemetry_phases(mt, torch, np, smi, pred):
           "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# 19. the image-classification examples (slice 16): train_imagenet's
+# --benchmark loop and fit path, train_mnist, benchmark_score over every
+# network of get_network
+# ---------------------------------------------------------------------------
+IC_BENCH_STEPS = 30            # the example's own default
+IC_FIT_BATCHES = 8             # learnable 3x224x224 sets: ~154 MB a batch
+IC_VAL_BATCHES = 2             # of float64 on the host while drawn
+IC_FIT_EPOCHS = 2
+IC_AB_RUNS = ("on", "off", "off", "on")
+IC_AB_STEPS = 10
+IC_MNIST = (("mlp", [], 0.95),
+            # the example's lr 0.05 and batch 64 leave LeNet at chance in
+            # both packages (the JAX script reads 0.09 after 2 epochs on
+            # the CPU); tests/test_train_conv.py trains it at lr 0.02,
+            # batch 32
+            ("lenet", ["--lr", "0.02", "--batch-size", "32"], 0.9))
+IC_SCORE_NETWORKS = ("alexnet", "googlenet", "inception-bn", "mobilenet",
+                     "vgg-16", "inception-v3", "resnext-50", "resnet-50",
+                     "resnet-152")
+IC_SCORE_BATCH = 32
+IC_SCORE_STEPS = 10
+IC_SCORE_TRACE = 5             # forwards in each network's device trace
+# std-stem ResNet-50 training sites: 28 K1 (pallas_fusion) and 17 of the
+# residual_fusion's K2 + convolution (the s2d stem of phase 7 has 16: its
+# stem is not a Convolution); a step launches K2 at the 17 in the forward
+# and again at all 45 in the backward, B1 and B2 at all 45
+IC_TRAIN_PER_STEP = {"bn_relu_conv_nchw": 28, "bn_act_prologue": 62,
+                     "bn_backward_reduce": 45, "bn_backward_dx": 45}
+IC_EVAL_PER_FORWARD = {"bn_relu_conv_nchw": 28, "bn_act_prologue": 17,
+                       "bn_backward_reduce": 0, "bn_backward_dx": 0}
+
+
+def ic_launches(fb):
+    return {k: v for k, v in fb.launch_counts().items()
+            if k in KERNEL_WRAPPERS.values()}
+
+
+def ic_benchmark_phase(mt, torch, np, smi, phase7_ms):
+    """19a: train_imagenet.py --benchmark 1 (ResNet-50, std stem, bf16,
+    batch 128) through the example's own _benchmark."""
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+    fb = mt.ops.fused_bn_conv
+    argv = ["--benchmark", "1", "--network", "resnet", "--num-layers",
+            "50", "--dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    totals0 = registry_totals(mt)
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = train_imagenet.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = ic_launches(fb)
+    routes = fb.route_counts()["bn_relu_conv_nchw"]
+    registry = registry_delta(totals0, registry_totals(mt))
+    res = model.benchmark_result
+    steps = 3 + 3 * res["steps"]
+    loss = float(model._fused.last_loss)
+    sites = {e["pass"]: len(e["sites"]) for e in
+             model.pass_report["passes"]}
+    emit({"phase": "ic_benchmark", "argv": argv, "line": {
+        k: res[k] for k in ("value", "step_time_s", "steps")},
+        "device_ms_per_step": res["device_s"] / res["steps"] * 1e3,
+        "host_ms_per_step": res["host_s"] / res["steps"] * 1e3,
+        "img_per_s_device": TRAIN_BATCH * res["steps"] / res["device_s"],
+        "phase7_captured_host_ms_per_step": phase7_ms,
+        "steps_counted": steps, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "k1_routes": routes, "pass_sites": sites,
+        "compile_report_delta": registry, "loss": loss,
+        "seconds": seconds, "card": smi})
+    check(model._fused is not None and np.isfinite(loss),
+          f"benchmark step: fused {model._fused is not None}, loss {loss}")
+    check(registry["fresh_compiles"] == 1 and registry["replays"]
+          == steps - 1, f"the benchmark's {steps} steps must be one eager "
+          f"step, one capture and replays: {registry}")
+    check(launches == {k: v * steps for k, v in IC_TRAIN_PER_STEP.items()},
+          f"benchmark launches {launches} over {steps} steps, expected "
+          f"{IC_TRAIN_PER_STEP} a step")
+    check(sum(routes[r] for r in WGMMA_ROUTES) == 28 * steps,
+          f"benchmark K1 routes {routes}: every launch on the wgmma core")
+    del model
+    return {"launches": launches, "steps": steps,
+            "path": "train_imagenet --benchmark 1 (bf16, batch 128)"}
+
+
+def ic_one_step(mt, torch, net, w0, batch, fused):
+    """One SGD step (lr 0.1, momentum 0.9, wd 1e-4) of a fresh Module
+    from params ``w0``: (loss, updates w1 - w0, new aux). The eager
+    Module's aux is read after its training forward: its backward walks
+    its own training forward and folds the statistics again (the
+    reference executor's semantics), the fused step folds them once."""
+    from mxnet_tpu_torch import config
+    off = contextlib.ExitStack()
+    if not fused:
+        off.enter_context(config.override("MXTPU_PALLAS_FUSION", "0"))
+        off.enter_context(config.override("MXTPU_PASS_RESIDUAL_FUSION",
+                                          "0"))
+    with off:
+        m = mt.mod.Module(net, context="cuda:0",
+                          fused=None if fused else False)
+        m.bind([("data", tuple(batch.data[0].shape))],
+               [("softmax_label", tuple(batch.label[0].shape))])
+        m.init_params(arg_params=w0[0], aux_params=w0[1])
+        m.init_optimizer(kvstore="device", optimizer="sgd",
+                         optimizer_params={"learning_rate": 0.1,
+                                           "momentum": 0.9, "wd": 1e-4})
+    check((m._fused is not None) == fused, "one-step module regime")
+    m.forward(batch, is_train=True)
+    if not fused:
+        aux_fwd = {n: v.clone() for n, v in m.get_params()[1].items()}
+    m.backward()
+    m.update()
+    args, aux = m.get_params()
+    if not fused:
+        aux = aux_fwd
+    out = m.get_outputs()[0].data.float()
+    lab = batch.label[0].data.long()
+    loss = -torch.log(out[torch.arange(out.shape[0]), lab]).sum()
+    res = (loss, {n: (v - w0[0][n]).clone() for n, v in args.items()},
+           {n: v.clone() for n, v in aux.items()})
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ic_fit_phase(mt, torch, np, smi):
+    """19b: common/fit.py's fit on the default path (--kv-store device,
+    ResNet-50, fp32, batch 128) over learnable synthetic sets."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+    from mxnet_tpu_torch.examples.image_classification.common import (
+        data as icd, fit as icf)
+    from mxnet_tpu_torch.examples.image_classification.symbols import resnet
+    fb = mt.ops.fused_bn_conv
+    shape = (TRAIN_BATCH, 3, 224, 224)
+    sets = {}
+
+    def loader(n_train, n_val, learnable=True):
+        def load(args, kv):
+            t0 = time.perf_counter()
+            train = icd.SyntheticDataIter(1000, shape, num_batches=n_train,
+                                          learnable=learnable, seed=0)
+            val = icd.SyntheticDataIter(1000, shape, num_batches=n_val,
+                                        learnable=learnable, seed=1)
+            sets["draw_s"] = time.perf_counter() - t0
+            sets["train"] = train
+            return train, val
+        return load
+
+    tmp = tempfile.mkdtemp()
+    prefix = os.path.join(tmp, "r50")
+    argv = ["--kv-store", "device", "--batch-size", str(TRAIN_BATCH),
+            "--num-epochs", str(IC_FIT_EPOCHS), "--lr-step-epochs", "1",
+            "--num-examples", str(TRAIN_BATCH * IC_FIT_BATCHES),
+            "--model-prefix", prefix, "--disp-batches", "4"]
+    args = train_imagenet.parse_args(argv)
+    net = resnet.get_symbol(1000, 50, "3,224,224")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        fb.reset_launch_counts()
+        totals0 = registry_totals(mt)
+        t0 = time.perf_counter()
+        model = icf.fit(args, net, loader(IC_FIT_BATCHES, IC_VAL_BATCHES))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ic_launches(fb)
+        routes = fb.route_counts()["bn_relu_conv_nchw"]
+        registry = registry_delta(totals0, registry_totals(mt))
+        steps = model._fused.num_update
+        evals = IC_VAL_BATCHES * IC_FIT_EPOCHS
+        want = {k: IC_TRAIN_PER_STEP[k] * steps
+                + IC_EVAL_PER_FORWARD[k] * evals for k in IC_TRAIN_PER_STEP}
+        lr_now = float(model._fused._lr)
+        keys = len(model._kvstore._data)
+        saved = mt.model.load_checkpoint(prefix, 1)
+        emit({"phase": "ic_fit", "argv": argv, "steps": steps,
+              "eval_forwards": evals, "seconds": seconds,
+              "data_draw_s": sets["draw_s"], "launches": launches,
+              "expected_launches": want, "k1_routes": routes,
+              "kvstore": {"type": model._kvstore.type, "keys": keys,
+                          "params": len(model._param_names),
+                          "update_on_kvstore": model._update_on_kvstore},
+              "lr_after_step": {"scheduler": model._optimizer.lr_scheduler(
+                  steps), "step_scalar": lr_now},
+              "compile_report_delta": registry, "card": smi})
+        check(model._fused is not None, "fit's Module left the fused step")
+        check(keys == len(model._param_names) and
+              not model._update_on_kvstore,
+              f"the store holds {keys} keys for "
+              f"{len(model._param_names)} params")
+        check(launches == want, f"fit launches {launches}, expected {want}")
+        check(routes["fp32"] == launches["bn_relu_conv_nchw"],
+              f"fit's fp32 K1 launches took routes {routes}")
+        check(abs(lr_now - 0.01) < 1e-9, f"lr after the step epoch {lr_now}")
+        sets["train"].reset()
+        train_batch = sets["train"].next()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume from --load-epoch 1: what was saved, bit for bit
+        args2 = train_imagenet.parse_args(
+            argv + ["--load-epoch", "1", "--num-epochs", "1"])
+        resumed = icf.fit(args2, net, loader(1, 1, learnable=False))
+        r_args, r_aux = resumed.get_params()
+        diff = [n for n, v in list(saved[1].items()) + list(saved[2].items())
+                if not torch.equal((r_args.get(n) if n in r_args
+                                    else r_aux[n]).cpu(), v.data.cpu())]
+        w0 = ({n: v.clone() for n, v in r_args.items()},
+              {n: v.clone() for n, v in r_aux.items()})
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "ic_fit_resume", "load_epoch": 1,
+              "params": len(saved[1]) + len(saved[2]),
+              "not_bit_identical": diff})
+        check(not diff, f"resumed params differ from the saved: {diff}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the first step against Module(fused=False) with the passes off,
+    # from the same params and batch
+    ref = ic_one_step(mt, torch, net, w0, train_batch, fused=False)
+    got = ic_one_step(mt, torch, net, w0, train_batch, fused=True)
+    summ = grad_check_summary(*got, ref)
+    fails = training_failures(summ, FP32_TRAIN_LIMITS)
+    emit(dict({"phase": "ic_fit_first_step", "against": "Module(fused="
+               "False) with both passes off, same params and batch; the "
+               "updates w1 - w0 of one SGD step (momentum 0) in place of "
+               "the gradients; its moving statistics after its training "
+               "forward (its backward folds them a second time)",
+               "limits": FP32_TRAIN_LIMITS,
+               "failures": fails}, **summ))
+    check(not fails, f"fit's first step against the eager step: {fails}")
+
+    # the fp32 fused step with MXTPU_PALLAS_FUSION on and off, in turns
+    from mxnet_tpu_torch import profile_training as pt
+    batches = pt.staged_batches(TRAIN_BATCH, 4, SEED)
+    mods = {}
+    for flag in ("on", "off"):
+        with config.override("MXTPU_PALLAS_FUSION",
+                             "1" if flag == "on" else "0"):
+            m = mt.mod.Module(net, context="cuda:0")
+            m.bind([("data", shape)], [("softmax_label", (TRAIN_BATCH,))])
+            m.init_params(arg_params=w0[0], aux_params=w0[1])
+            m.init_optimizer(kvstore="device", optimizer="sgd",
+                             optimizer_params={"learning_rate": 0.1,
+                                               "momentum": 0.9, "wd": 1e-4})
+        for i in range(3):
+            pt.run_step(m, batches[i % 4])
+        mods[flag] = m
+    runs = []
+    for flag in IC_AB_RUNS:
+        fb.reset_launch_counts()
+        r = timed_runs(torch, lambda i: pt.run_step(
+            mods[flag], batches[i % 4]), IC_AB_STEPS)
+        runs.append(dict(r, mode=flag, launches=ic_launches(fb)))
+    sites = {f: {e["pass"]: len(e["sites"]) for e in
+                 m.pass_report["passes"]} for f, m in mods.items()}
+    emit({"phase": "ic_fit_fusion_ab", "dtype": "float32",
+          "batch": TRAIN_BATCH, "order": list(IC_AB_RUNS),
+          "steps_per_run": IC_AB_STEPS, "pass_sites": sites,
+          "host_ms_per_step": ab_summary(runs, "host_ms", ("on", "off")),
+          "event_ms_per_step": ab_summary(runs, "event_ms", ("on", "off")),
+          "launches_per_step": {f: {k: v / IC_AB_STEPS for k, v in
+                                    next(r["launches"] for r in runs
+                                         if r["mode"] == f).items()}
+                                for f in ("on", "off")},
+          "card": smi})
+    check(sites["on"]["pallas_fusion"] == 28
+          and sites["off"].get("pallas_fusion", 0) == 0,
+          f"fusion A/B pass sites {sites}")
+    del mods, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "eval_forwards": evals,
+            "path": "common/fit.py fit (--kv-store device, fp32, batch "
+                    "128): train steps and eval forwards"}
+
+
+def ic_mnist_phase(mt, torch, np, smi):
+    """19c: train_mnist.py for mlp and lenet on the synthetic fallback."""
+    from mxnet_tpu_torch.examples.image_classification import train_mnist
+    from mxnet_tpu_torch.examples.image_classification.common import (
+        data as icd)
+    rows = {}
+    for network, extra, bar in IC_MNIST:
+        argv = ["--network", network] + extra
+        t0 = time.perf_counter()
+        model = train_mnist.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        args = train_mnist.parse_args(argv)
+        with mt.gpu(0):
+            _, val = icd.get_mnist_iter(args)
+        acc = model.score(val, "acc")[0][1]
+        steps = model._fused.num_update
+        rows[network] = {"argv": argv, "val_accuracy": acc, "bar": bar,
+                         "steps": steps, "seconds": seconds,
+                         "steps_per_s": steps / seconds,
+                         "fused": model._fused is not None}
+        check(acc > bar, f"train_mnist {network}: validation accuracy "
+                         f"{acc} <= {bar}")
+        del model
+    emit({"phase": "ic_mnist", "runs": rows,
+          "clock": "steps_per_s: host clock over main(), evaluation and "
+                   "set-up included", "card": smi})
+
+
+def ic_score_phase(mt, torch, np, smi):
+    """19d: benchmark_score.py over every network of get_network at
+    batch 32 in bf16: img/s and ms a batch, K1 / K2 launches and routes
+    a forward, the captured eval output against the fp32 plain graph."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch import profile_training as pt
+    from mxnet_tpu_torch.examples.image_classification import (
+        benchmark_score as bs)
+    fb = mt.ops.fused_bn_conv
+    rows = {}
+    for net in IC_SCORE_NETWORKS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.manual_seed(SEED)
+        t0 = time.perf_counter()
+        mod, batches = bs.bind_scoring(net, IC_SCORE_BATCH, "bfloat16",
+                                       "cuda:0")
+        bind_s = time.perf_counter() - t0
+        sites = {e["pass"]: len(e["sites"]) for e in
+                 mod.pass_report["passes"]}
+        fb.reset_launch_counts()
+        routes0 = dict(fb.route_counts()["bn_relu_conv_nchw"])
+        best = bs.time_scoring(mod, batches, IC_SCORE_STEPS)
+        forwards = 2 + 3 * IC_SCORE_STEPS
+        launches = ic_launches(fb)
+        routes = {r: n - routes0.get(r, 0) for r, n in
+                  fb.route_counts()["bn_relu_conv_nchw"].items()
+                  if n - routes0.get(r, 0)}
+        # device time a forward and the busy share (torch.profiler), as
+        # the scoring loop runs them: is the loop host-paced?
+        trace = pt.device_trace(lambda i: (
+            mod.forward(batches[i % 4], is_train=False),
+            mod.get_outputs()[0].sum()), IC_SCORE_TRACE)
+        busy = pt.busy_summary(trace, IC_SCORE_TRACE, "forward")
+        # the check's params: phase 4's seeded draw (Xavier's uniform
+        # init leaves these outputs near-uniform, with no decisive row)
+        args, aux = mt.interop.init_params(
+            mod.symbol, {"data": tuple(batches[0].data[0].shape)}, SEED)
+        mod.set_params(args, aux)
+        outs = []
+        for b in batches:
+            mod.forward(b, is_train=False)
+            outs.append(mod.get_outputs()[0].data.float().cpu().numpy())
+        out_dtype = str(mod.get_outputs()[0].data.dtype)
+        with config.override("MXTPU_PALLAS_FUSION", "0"), \
+                config.override("MXTPU_PASS_RESIDUAL_FUSION", "0"):
+            plain = mt.mod.Module(mod.symbol, context="cuda:0",
+                                  label_names=("softmax_label",))
+            plain.bind(data_shapes=[("data", tuple(
+                batches[0].data[0].shape))], label_shapes=[(
+                    "softmax_label", (IC_SCORE_BATCH,))],
+                       for_training=False)
+        plain.set_params(args, aux)
+        # fp32 and bf16 batches in turns: run its programs eagerly rather
+        # than capture one for each switch of the input's dtype
+        plain._exec.captured = False
+        ref, p16 = [], []
+        for b in batches:
+            x = b.data[0].data
+            plain.forward(mt.io.DataBatch([mt.nd.NDArray(x.float())], []),
+                          is_train=False)
+            ref.append(plain.get_outputs()[0].data.float().cpu().numpy())
+            plain.forward(mt.io.DataBatch([mt.nd.NDArray(x)], []),
+                          is_train=False)
+            p16.append(plain.get_outputs()[0].data.float().cpu().numpy())
+        got, ref, p16 = (np.concatenate(v) for v in (outs, ref, p16))
+        check(np.ptp(ref, axis=0).max() > 0, f"benchmark_score {net}: the "
+              "fp32 plain graph's output does not depend on its input")
+        cmp = compare_to_fp32(ref, got, p16)
+        fails = []
+        if cmp["decisive_rows"] >= 8 and \
+                cmp["top1_agreement_decisive"] < 0.98:
+            fails.append("top-1 on decisive rows")
+        for k, lim in (("logit_rel_err", MAX_LOGIT_REL_ERR),
+                       ("input_part_rel_err", MAX_INPUT_PART_REL_ERR)):
+            bar = max(lim, 2 * cmp[k + "_plain_bf16"])
+            if not cmp[k] <= bar:
+                fails.append(f"{k} {cmp[k]} > {bar}")
+        per_fwd = {"K1": launches["bn_relu_conv_nchw"] / forwards,
+                   "K2": launches["bn_act_prologue"] / forwards}
+        rows[net] = {"img_per_s": IC_SCORE_BATCH * IC_SCORE_STEPS / best,
+                     "ms_per_batch": best / IC_SCORE_STEPS * 1e3,
+                     "forwards_counted": forwards,
+                     "device": {k: busy[k] for k in (
+                         "device_kernel_ms_per_forward",
+                         "device_busy_share", "traced_wall_ms")},
+                     "top_kernels_ms_per_forward":
+                         busy["top_kernels_ms_per_forward"][:5],
+                     "launches_per_forward": per_fwd, "k1_routes": routes,
+                     "pass_sites": sites, "output_dtype": out_dtype,
+                     "bind_s": bind_s, "finite": bool(np.isfinite(got)
+                                                      .all()),
+                     "vs_fp32_plain": {k: cmp[k] for k in (
+                         "decisive_rows", "top1_agreement_decisive",
+                         "logit_rel_err", "logit_rel_err_plain_bf16",
+                         "input_part_rel_err",
+                         "input_part_rel_err_plain_bf16")},
+                     "failures": fails}
+        emit(dict({"phase": "ic_score", "network": net,
+                   "batch": IC_SCORE_BATCH, "dtype": "bfloat16",
+                   "card": smi}, **rows[net]))
+        check(not fails and rows[net]["finite"],
+              f"benchmark_score {net}: {fails}")
+        check(per_fwd["K1"] == sites.get("pallas_fusion", 0)
+              and per_fwd["K2"] == sites.get("residual_fusion", 0),
+              f"benchmark_score {net}: launches a forward {per_fwd} "
+              f"against the pass sites {sites}")
+        del mod, plain, batches
+    return rows
+
+
+def ic_cifar_phase(mt, torch, np, smi):
+    """19d': train_cifar10.py --benchmark 1 (ResNet-110 at 32x32, fp32,
+    batch 128), one line."""
+    from mxnet_tpu_torch.examples.image_classification import train_cifar10
+    fb = mt.ops.fused_bn_conv
+    fb.reset_launch_counts()
+    model = train_cifar10.main(["--benchmark", "1"])
+    res = model.benchmark_result
+    steps = 3 + 3 * res["steps"]
+    launches = ic_launches(fb)
+    emit({"phase": "ic_cifar10_benchmark", "line": {
+        k: res[k] for k in ("value", "step_time_s", "steps")},
+        "device_ms_per_step": res["device_s"] / res["steps"] * 1e3,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "loss": float(model._fused.last_loss), "card": smi})
+    check(np.isfinite(float(model._fused.last_loss)), "cifar10 loss")
+    del model
+    return {"launches": launches, "steps": steps}
+
+
+def image_classification_phases(mt, torch, np, smi, phase7_ms=None):
+    """Phase 19 (slice 16); returns each kernel's launches per path for
+    the kernels line."""
+    t0 = time.perf_counter()
+    lap = {}
+    paths = {}
+    paths["benchmark"] = ic_benchmark_phase(mt, torch, np, smi, phase7_ms)
+    lap["ic_benchmark"] = time.perf_counter() - t0
+    paths["fit"] = ic_fit_phase(mt, torch, np, smi)
+    lap["ic_fit"] = time.perf_counter() - t0 - sum(lap.values())
+    ic_mnist_phase(mt, torch, np, smi)
+    lap["ic_mnist"] = time.perf_counter() - t0 - sum(lap.values())
+    scores = ic_score_phase(mt, torch, np, smi)
+    lap["ic_score"] = time.perf_counter() - t0 - sum(lap.values())
+    paths["cifar10_benchmark"] = ic_cifar_phase(mt, torch, np, smi)
+    lap["ic_cifar10"] = time.perf_counter() - t0 - sum(lap.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "slice16_seconds", "seconds": time.perf_counter() - t0,
+          "per_phase": lap})
+    out = {}
+    for key, wrapper in KERNEL_WRAPPERS.items():
+        entry = {name: {"launches": p["launches"][wrapper],
+                        "per_step": p["launches"][wrapper] / p["steps"],
+                        "steps": p["steps"], "path": p.get("path", name)}
+                 for name, p in paths.items()}
+        if key in ("K1", "K2"):
+            entry["benchmark_score"] = {
+                net: {"per_forward": r["launches_per_forward"][key],
+                      "k1_routes": r["k1_routes"] if key == "K1" else None}
+                for net, r in scores.items()}
+        out[key] = entry
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7350,6 +7858,10 @@ def main():
     # 18f. the telemetry layer (slice 15) --------------------------------------
     telemetry_phases(mt, torch, np, smi, pred)
 
+    # 19a.-19d. the image-classification examples (slice 16) ------------------
+    ic = image_classification_phases(
+        mt, torch, np, smi, ab_row["host_ms_per_step"]["captured"]["median"])
+
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
         rows = per_fwd[name].values()
@@ -7403,12 +7915,14 @@ def main():
                    "routes": train_routes, "wmma_ms": sum(
                        r["sites_per_step"] * r["wmma_ms"] for r in k1_sites),
                    "core": "mxnet_tpu_torch/kernels/csrc/"
-                           "bn_gemm_wgmma.cuh"}),
+                           "bn_gemm_wgmma.cuh",
+                   "image_classification": ic["K1"]}),
         train_agg("K2", "bn_prologue",
                   "mxnet_tpu_torch/kernels/bn_prologue_triton.py",
                   f"{pf}:250 (_make_prologue_kernel; pallas_call :390)",
                   "triton", "bn_act_prologue",
-                  {"serving": serving_agg("bn_prologue")}),
+                  {"serving": serving_agg("bn_prologue"),
+                   "image_classification": ic["K2"]}),
         {"name": "bn_relu_matmul", "route": "cuda",
          "source": "mxnet_tpu_torch/kernels/csrc/bn_relu_matmul.cu",
          "replaces": f"{pf}:219 (_make_kernel; pallas_call :280 in "
@@ -7430,11 +7944,13 @@ def main():
                   "reduction, jnp there; under the K1/K2 sites' custom "
                   "VJPs, and _fused_matmul's f_bwd :299)", "triton",
                   "bn_backward_reduce",
-                  {"library_covers": "B1 and B2 together"}),
+                  {"library_covers": "B1 and B2 together",
+                   "image_classification": ic["B1"]}),
         train_agg("B2", "bn_backward_dx",
                   "mxnet_tpu_torch/kernels/bn_backward_triton.py",
                   f"{pf}:529-537 (dx assembly of the fused BN backwards, "
-                  "jnp there)", "triton", "bn_backward_dx", {}),
+                  "jnp there)", "triton", "bn_backward_dx",
+                  {"image_classification": ic["B2"]}),
     ] + [
         k4_entry(k4_rows, name, route, launches, per)
         for name, route, launches, per in (

@@ -42,6 +42,11 @@ step), the symbolic cells of ``rnn`` with ``BucketSentenceIter``, and
 trace spans, the durable event log, ``memory_report()`` of the captured
 programs), ``profiler`` on ``torch.profiler``, and the ``serving``,
 ``compile``, ``fault`` and ``data`` collectors (``serving_report()``).
+Slice 16 covers the image-classification examples
+(``examples.image_classification``): the single-process ``kvstore``
+(``kv``) with ``gradient_compression``, ``Module.predict`` /
+``iter_predict`` / ``as_predictor``, a Trainer that updates on the
+store, and the ``LRN`` op.
 """
 from . import base, config, context
 from .base import MXNetError
@@ -71,6 +76,9 @@ from . import fault, faultinject
 from .fault import fault_report
 from . import callback, checkpoint, metric_device, model
 from . import executor, monitor
+from . import monitor as mon
+from . import gradient_compression, kvstore
+from . import kvstore as kv
 from .checkpoint import CheckpointManager
 from . import telemetry, sparse, recordio, data
 from .data import data_report
@@ -86,7 +94,8 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "lr_scheduler", "metric", "optimizer", "module", "mod", "gluon",
            "compile", "compile_report", "fault", "faultinject",
            "fault_report", "callback", "checkpoint", "metric_device",
-           "model", "executor", "monitor", "CheckpointManager",
+           "model", "executor", "monitor", "mon", "kvstore", "kv",
+           "gradient_compression", "CheckpointManager",
            "telemetry", "sparse", "recordio", "data", "data_report",
            "parallel", "rnn", "profiler", "memory_report",
            "serving_report"]

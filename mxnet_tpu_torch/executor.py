@@ -31,7 +31,12 @@ under the bind's program key, so executors with equal keys share them;
 a program owns its static inputs, and the executor copies its arrays
 in before a replay and the results out after it, into the same storage
 (``arg_dict[n][:] = x``, ``copy_params_from`` and the Updater's writes
-never rebind an array). A capture that fails raises. Captures run in
+never rebind an array). The one rebinding: an input that ``forward``
+gets in another floating dtype than its array's (a bf16 batch into a
+float32 bind; float64 excepted, which JAX makes float32) replaces the
+array by a copy in that dtype, as the JAX package's executor computes in
+the dtype it is fed; the program's signature changes with it, so the
+program is captured anew. A capture that fails raises. Captures run in
 ``capture_error_mode="thread_local"``, so that a ``DataPipeline``'s
 stager thread may pin and copy the next batch meanwhile (the global
 mode would let its calls invalidate the capture). ``captured =
@@ -416,7 +421,7 @@ class Executor:
         for name, arr in kwargs.items():
             if name not in self.arg_dict:
                 raise MXNetError(f"Unknown argument {name}")
-            self.assign_array(self.arg_dict[name], arr)
+            self._feed(self.arg_dict[name], arr)
         self._is_train = is_train
         monitor_now = self._monitor_now()
         if monitor_now and self._monitor_all:
@@ -467,6 +472,19 @@ class Executor:
         is active for (its ``active()``, when it has one)."""
         self._monitor_callback = callback
         self._monitor_all = monitor_all
+
+    def _feed(self, tgt, value):
+        """An input for ``forward``: copied into ``tgt``, or, in another
+        floating dtype than float64 and ``tgt``'s, ``tgt`` rebound to a
+        copy in that dtype (see the module docstring)."""
+        src = getattr(value, "_data", value)
+        if isinstance(src, torch.Tensor) and src.is_floating_point() \
+                and tgt._data.is_floating_point() \
+                and src.dtype not in (tgt._data.dtype, torch.float64) \
+                and tuple(src.shape) == tuple(tgt.shape):
+            tgt._data = src.detach().to(tgt._data.device, copy=True)
+            return
+        self.assign_array(tgt, value)
 
     def assign_array(self, tgt, value):
         """Copy ``value`` into the bound array ``tgt``'s storage."""

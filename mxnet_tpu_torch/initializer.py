@@ -85,6 +85,8 @@ class Initializer:
         return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr, generator=None):
+        """Fill ``arr`` (a tensor, or an NDArray: its tensor, in place)."""
+        arr = getattr(arr, "_data", arr)
         if not isinstance(desc, InitDesc):
             desc = InitDesc(str(desc))
         if desc.global_init is None:
@@ -120,6 +122,7 @@ class Initializer:
 
     @staticmethod
     def _set(arr, value):
+        arr = getattr(arr, "_data", arr)
         with torch.no_grad():
             arr.copy_(value.to(arr.device) if isinstance(value, torch.Tensor)
                       else torch.as_tensor(value))

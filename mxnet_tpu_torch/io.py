@@ -2,8 +2,9 @@
 python/mxnet/io.py — DataDesc/DataBatch :60-130, DataIter :182,
 ResizeIter :247, NDArrayIter :546).
 
-The iterators hold numpy arrays and hand out batches of CPU tensors; the
-Module moves them to its device. ``NDArrayIter`` and ``ResizeIter`` have
+The iterators hold numpy arrays and hand out batches of NDArrays around
+CPU tensors (no copy), as the reference hands out NDArrays; the Module
+unwraps them and moves the tensors to its device. ``NDArrayIter`` and ``ResizeIter`` have
 the JAX package's checkpointable cursor (``get_state`` / ``set_state``),
 which ``fit(checkpoint_manager=...)`` saves and restores.
 """
@@ -276,13 +277,14 @@ class NDArrayIter(DataIter):
 
     def _getdata(self, data_source):
         assert self.cursor < self.num_data, "DataIter needs reset."
+        from .ndarray.ndarray import NDArray
         end = self.cursor + self.batch_size
         if end <= self.num_data:
-            return [torch.from_numpy(np.ascontiguousarray(
-                x[1][self.cursor:end])) for x in data_source]
+            return [NDArray(torch.from_numpy(np.ascontiguousarray(
+                x[1][self.cursor:end]))) for x in data_source]
         pad = self.batch_size - self.num_data + self.cursor
-        return [torch.from_numpy(np.concatenate(
-            (x[1][self.cursor:], x[1][:pad]), axis=0))
+        return [NDArray(torch.from_numpy(np.concatenate(
+            (x[1][self.cursor:], x[1][:pad]), axis=0)))
             for x in data_source]
 
     def getdata(self):

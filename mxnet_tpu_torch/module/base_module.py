@@ -1,7 +1,11 @@
 """BaseModule: the high-level training interface (counterpart of
 ``mxnet_tpu/module/base_module.py``; reference:
 python/mxnet/module/base_module.py — forward_backward :189, score :194,
-fit :376).
+predict :238, fit :376).
+
+``iter_predict`` and ``predict`` run eval forwards (the executor's
+captured eval program on the card) and trim each batch's padding rows;
+``predict`` concatenates the batches' outputs (``merge_batches``).
 
 ``fit`` is the reference loop: bind, init_params, init_optimizer, then
 per batch forward_backward + update + update_metric, an epoch log, the
@@ -9,7 +13,8 @@ epoch-end callbacks, the checkpoint manager's epoch-end save and an
 optional evaluation. Its train iterator goes through the asynchronous
 data pipeline (``data.maybe_wrap_for_fit``, ``MXTPU_DATA_PIPELINE``:
 read-ahead and staging into the step's device, the stream unchanged),
-which ``fit`` closes when it ends, also on an error. With
+which ``fit`` closes when it ends, also on an error. With a ``monitor``
+it ticks and prints it around every batch. With
 ``auto_resume`` it first restores the newest valid checkpoint (params,
 optimizer state, RNG stream and the data cursor) and skips the epochs
 it completed; a cursor saved under the other ``MXTPU_DATA_PIPELINE``
@@ -33,6 +38,8 @@ import os
 import time
 import warnings
 from collections import namedtuple
+
+import numpy as np
 
 from .. import metric as metric_mod
 
@@ -177,6 +184,49 @@ class BaseModule:
                 callback(params)
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` for each batch: the eval
+        forward's outputs (NDArrays) without the batch's padding rows."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False,
+                sparse_row_id_fn=None):
+        """The eval outputs over ``eval_data`` (an iterator, or an array
+        wrapped in an ``NDArrayIter``), padding trimmed: with
+        ``merge_batches`` one NDArray per output (just the NDArray for a
+        single output unless ``always_output_list``), else a list per
+        batch."""
+        from .. import io as io_mod
+        from .. import ndarray as nd
+        assert self.binded and self.params_initialized
+        if isinstance(eval_data, np.ndarray) or hasattr(eval_data, "_data"):
+            eval_data = io_mod.NDArrayIter(eval_data)
+        output_list = [outputs for outputs, _, _ in self.iter_predict(
+            eval_data, num_batch=num_batch, reset=reset)]
+        if not output_list or not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        for out in output_list:
+            assert len(out) == num_outputs, \
+                "Cannot merge batches, as num of outputs is not the " \
+                "same in mini-batches. Maybe bucketing is used?"
+        merged = [nd.concat(*[out[i] for out in output_list], dim=0)
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", optimizer="sgd",
@@ -185,6 +235,7 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, sparse_row_id_fn=None,
             checkpoint_manager=None, auto_resume=False):
         """Train over ``train_data`` for epochs ``begin_epoch`` to
         ``num_epoch`` - 1.
@@ -195,9 +246,14 @@ class BaseModule:
         metric and the train iterator's cursor. ``auto_resume=True``
         restores the newest valid checkpoint first (a torn or corrupt
         newest one falls back to the one before) and continues at the
-        epoch after it."""
+        epoch after it. ``monitor`` is installed and ticked around every
+        batch; ``sparse_row_id_fn`` (row-sparse pulls) is not ported."""
         from .. import initializer as init_mod
         assert num_epoch is not None, "please specify number of epochs"
+        if sparse_row_id_fn is not None:
+            raise NotImplementedError(
+                "sparse_row_id_fn needs row-sparse storage, which is not "
+                "ported (ROADMAP.md A6)")
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
         if checkpoint_manager is None and auto_resume:
@@ -210,6 +266,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -229,7 +287,7 @@ class BaseModule:
                            validation_metric, epoch_end_callback,
                            batch_end_callback, eval_end_callback,
                            eval_batch_end_callback, begin_epoch, num_epoch,
-                           checkpoint_manager)
+                           checkpoint_manager, monitor)
         finally:
             if owned_pipe is not None:
                 # fit made the pipeline: join its threads even when
@@ -243,7 +301,7 @@ class BaseModule:
     def _fit_loop(self, train_data, eval_data, eval_metric,
                   validation_metric, epoch_end_callback, batch_end_callback,
                   eval_end_callback, eval_batch_end_callback, begin_epoch,
-                  num_epoch, checkpoint_manager):
+                  num_epoch, checkpoint_manager, monitor=None):
         """The epochs of :meth:`fit` under one
         :class:`~mxnet_tpu_torch.telemetry.StepTimeline` (closed also when
         training raises)."""
@@ -261,7 +319,7 @@ class BaseModule:
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch,
-                             num_epoch, checkpoint_manager, tl)
+                             num_epoch, checkpoint_manager, tl, monitor)
         finally:
             tl.close()
 
@@ -269,7 +327,7 @@ class BaseModule:
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    checkpoint_manager, tl):
+                    checkpoint_manager, tl, monitor=None):
         from ..telemetry import export as _texp
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -286,6 +344,8 @@ class BaseModule:
             while not end_of_batch:
                 data_batch = next_data_batch
                 tl.step_start()
+                if monitor is not None:
+                    monitor.tic()
                 with tl.phase("device_step"):
                     self.forward_backward(data_batch)
                     self.update()
@@ -297,6 +357,8 @@ class BaseModule:
                     end_of_batch = True
                 with tl.phase("metric_ft_sync"):
                     self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,

@@ -34,9 +34,7 @@ class BucketingModule(BaseModule):
                  state_names=None, group2ctxs=None, compression_params=None):
         super().__init__(logger=logger)
         assert default_bucket_key is not None
-        if compression_params is not None:
-            raise NotImplementedError("gradient compression is not ported "
-                                      "(ROADMAP.md A11)")
+        self._compression_params = compression_params
         self._default_bucket_key = default_bucket_key
         self._sym_gen = sym_gen
         self._context = context
@@ -160,7 +158,9 @@ class BucketingModule(BaseModule):
                         work_load_list=self._work_load_list,
                         fixed_param_names=self._fixed_param_names,
                         state_names=self._state_names,
-                        group2ctxs=self._group2ctxs, fused=False)
+                        group2ctxs=self._group2ctxs,
+                        compression_params=self._compression_params,
+                        fused=False)
         module.bind(data_shapes, label_shapes, for_training,
                     inputs_need_grad, force_rebind=False,
                     shared_module=None, grad_req=self._grad_req)
@@ -190,7 +190,9 @@ class BucketingModule(BaseModule):
                             work_load_list=self._work_load_list,
                             fixed_param_names=self._fixed_param_names,
                             state_names=self._state_names,
-                            group2ctxs=self._group2ctxs, fused=False)
+                            group2ctxs=self._group2ctxs,
+                            compression_params=self._compression_params,
+                            fused=False)
             module.bind(data_shapes, label_shapes, self._curr_module.
                         for_training, self._curr_module.inputs_need_grad,
                         force_rebind=False, shared_module=self._buckets[

@@ -40,10 +40,12 @@ parameter); sgd without momentum has none. sgld draws its noise from the
 step's own device generator, registered with each captured graph.
 
 Dtype flow (the JAX package's): fp32 master params, optimizer state
-and aux; with a ``compute_dtype`` every fp32 param, aux and input is
-cast to it for the step, the gradients come back in fp32 (through the
-cast), and the fold ``m*old + (1-m)*batch_stat`` is taken in the
-compute dtype and stored in fp32.
+and aux; with a ``compute_dtype`` every fp32 param, aux and data input
+is cast to it for the step, the gradients come back in fp32 (through
+the cast), and the fold ``m*old + (1-m)*batch_stat`` is taken in the
+compute dtype and stored in fp32. Labels keep their dtype: the JAX
+package casts float32 labels too, and bf16 rounds a class index above
+256 (999 becomes 1000, which its gather clamps; a CUDA gather asserts).
 
 The non-finite step guard (``MXTPU_FT_GUARD``, on by default) is part
 of the step: one fp32 scalar, the sum of |g| over every gradient,
@@ -405,6 +407,7 @@ class FusedSymbolStep:
         params = self._p if params is None else params
         arg_vals = [params[n] if n in self._routed
                     else self._cast(params[n]) if n in params
+                    else vals[n] if n in self.label_names
                     else self._cast(vals[n]) for n in self._run_arg_names]
         aux_vals = [self._cast(self._aux[n]) for n in self._run_aux_names]
         return arg_vals, aux_vals

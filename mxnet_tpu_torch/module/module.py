@@ -32,8 +32,17 @@ batch also runs the executor's forward and backward at the pre-update
 params, and the params are synced after the step. ``save_checkpoint`` /
 ``Module.load`` and ``save_optimizer_states`` / ``load_optimizer_states``
 write and read the JAX package's files (the fused step's pickle, or the
-Updater's). Multiple contexts (the device mesh), distributed kvstores,
-``group2ctxs`` and ``state_names`` are not ported and raise.
+Updater's). ``init_optimizer`` takes a kvstore name or a ``KVStore``
+(``kvstore.py``): each parameter is ``init``-ed into the store, and on
+one device the optimizer runs in the module (``update_on_kvstore`` is
+the store's ``is_distributed``, always False here), so the fused step
+stays engaged. Multiple contexts (the device mesh), the ``dist*``
+kvstores, ``group2ctxs`` and ``state_names`` are not ported and raise.
+
+The batches' arrays, ``get_outputs`` and ``get_input_grads`` are
+NDArrays, as in the reference: each wraps the tensor without a copy,
+and the internal paths (the fused step's feed, the metrics) read the
+tensors.
 
 Device: ``context`` is a ``torch.device``, a device string or a list of
 one. Without one the Module runs on ``cuda:0`` and raises when CUDA is
@@ -52,6 +61,7 @@ from ..base import MXNetError, atomic_write
 from ..context import as_device
 from ..io import DataDesc
 from ..model import load_checkpoint
+from ..ndarray.ndarray import NDArray
 from .base_module import BaseModule, _check_input_names
 
 __all__ = ["Module"]
@@ -66,6 +76,11 @@ def _norm_shapes(shapes):
         else:
             out.append((s[0], tuple(s[1])))
     return out
+
+
+def _tensor_of(v):
+    """A batch array's tensor (an NDArray is unwrapped, never copied)."""
+    return v._data if isinstance(v, NDArray) else v
 
 
 def _as_tensor(name, v):
@@ -98,8 +113,8 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None, group2ctxs=None, fused=None,
-                 compute_dtype=None):
+                 state_names=None, group2ctxs=None, compression_params=None,
+                 fused=None, compute_dtype=None):
         super().__init__(logger=logger)
         if isinstance(context, (list, tuple)):
             if len(context) != 1:
@@ -115,6 +130,7 @@ class Module(BaseModule):
                 "ported")
         self._fused_requested = fused
         self._compute_dtype = compute_dtype
+        self._compression_params = compression_params
         self._symbol = symbol
         self._data_names = list(data_names) if data_names is not None \
             else []
@@ -135,6 +151,8 @@ class Module(BaseModule):
         self._aux_params = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._fused = None
         self._feed = None
         self._host_feed = None
@@ -175,9 +193,13 @@ class Module(BaseModule):
             self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
 
     def save_optimizer_states(self, fname):
-        """The fused step's optimizer state (``get_states``' bytes), or
-        the Updater's, through ``base.atomic_write``."""
+        """The fused step's optimizer state (``get_states``' bytes), the
+        store's when the optimizer runs in it, or the Updater's, through
+        ``base.atomic_write``."""
         assert self.optimizer_initialized
+        if self._fused is None and self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with atomic_write(fname) as fout:
             fout.write(self._fused.get_states() if self._fused is not None
                        else self._updater.get_states())
@@ -185,6 +207,9 @@ class Module(BaseModule):
     def load_optimizer_states(self, fname):
         """Load a ``save_optimizer_states`` file (either package's)."""
         assert self.optimizer_initialized
+        if self._fused is None and self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._set_opt_states(f.read())
 
@@ -370,18 +395,22 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """Create the optimizer (``rescale_grad`` = 1/batch unless given)
-        and its Updater, and start the fused step when the configuration
-        allows it: the train-mode rewrite passes run on the bound shapes
-        there."""
+        and its Updater, ``init`` every parameter into the kvstore (a
+        name for ``kvstore.create`` or a ``KVStore``), and start the
+        fused step when the configuration allows it: the train-mode
+        rewrite passes run on the bound shapes there."""
+        from .. import kvstore as kvs
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if kvstore not in (None, "local", "device"):
-            raise NotImplementedError(
-                f"kvstore={kvstore!r} is not ported (one device: None, "
-                "'local' or 'device')")
         batch_size = self._data_shapes[0][1][0] if self._data_shapes else 1
+        kv = None
+        if kvstore:
+            kv = kvs.create(kvstore) if isinstance(kvstore, str) \
+                else kvstore
+            if "dist" in kv.type and "_sync" in kv.type:
+                batch_size *= kv.num_workers
         rescale_grad = 1.0 / max(batch_size, 1)
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
@@ -397,6 +426,15 @@ class Module(BaseModule):
                 rescale_grad)
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = kv is not None and kv.is_distributed
+        if kv is not None:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+            for i, name in enumerate(self._param_names):
+                kv.init(i, self._arg_params[name])
         self._maybe_init_fused()
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
@@ -460,12 +498,13 @@ class Module(BaseModule):
 
     # -- compute --------------------------------------------------------------
     def _batch_feed(self, data_batch):
+        """{input name: tensor} of a batch (NDArrays unwrapped)."""
         feed = {}
         for (name, _), arr in zip(self._data_shapes, data_batch.data):
-            feed[name] = arr
+            feed[name] = _tensor_of(arr)
         if self._label_shapes and data_batch.label:
             for (name, _), arr in zip(self._label_shapes, data_batch.label):
-                feed[name] = arr
+                feed[name] = _tensor_of(arr)
         return feed
 
     def _reshape_for(self, feed):
@@ -563,9 +602,9 @@ class Module(BaseModule):
             # params
             self._sync_params()
 
-    def get_outputs(self, merge_multi_context=True):
-        """The last step's (or forward's) outputs as tensors; between a
-        fused training forward and ``update``, a training forward of the
+    def _output_tensors(self):
+        """The last step's (or forward's) outputs; between a fused
+        training forward and ``update``, a training forward of the
         executor on the current params."""
         assert self.binded and self.params_initialized
         if not self._outputs and self._feed is not None:
@@ -574,12 +613,17 @@ class Module(BaseModule):
             self._outputs = [o._data for o in self._exec.outputs]
         return self._outputs
 
+    def get_outputs(self, merge_multi_context=True):
+        """The outputs as NDArrays around the step's (or forward's)
+        tensors (``_output_tensors``), with no copy."""
+        return [NDArray(t) for t in self._output_tensors()]
+
     def get_input_grads(self, merge_multi_context=True):
         """The gradients of the data inputs (``bind(inputs_need_grad=
-        True)``), as tensors."""
+        True)``): the executor's gradient arrays."""
         assert self.binded and self.params_initialized and \
             self.inputs_need_grad
-        return [self._exec.grad_dict[n]._data for n in self._data_names]
+        return [self._exec.grad_dict[n] for n in self._data_names]
 
     def update_metric(self, eval_metric, labels):
         """Update ``eval_metric`` with ``labels`` and the outputs. After a
@@ -595,7 +639,16 @@ class Module(BaseModule):
                     dict(zip(self._output_names, self._outputs))):
                 return
         eval_metric.update_dict(
-            label_dict, dict(zip(self._output_names, self.get_outputs())))
+            label_dict, dict(zip(self._output_names,
+                                 self._output_tensors())))
+
+    def as_predictor(self, buckets=None, compute_dtype=None, **kwargs):
+        """A ``serving.Predictor`` of this module's symbol and a copy of
+        its current params, on the module's device unless ``device=``
+        says otherwise (the module keeps training)."""
+        from ..serving import Predictor
+        return Predictor.from_module(self, buckets=buckets,
+                                     compute_dtype=compute_dtype, **kwargs)
 
     def install_monitor(self, mon):
         """Attach a Monitor to the executor. In the fused regime the

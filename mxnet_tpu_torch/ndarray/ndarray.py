@@ -469,6 +469,10 @@ def _invoke_op_impl(name, nd_inputs, attrs):
     inputs = [x if isinstance(x, NDArray) else NDArray(_as_tensor(x, dev))
               for x in nd_inputs]
     result = _invoke_fn(lambda *a: opdef.fn(*a, **attrs), inputs)
+    if isinstance(result, tuple) and len(result) == 1:
+        # one output is the NDArray itself, as in the reference
+        # (``split(num_outputs=1)``)
+        result = result[0]
     if out is not None:
         first = result[0] if isinstance(result, tuple) else result
         out._data = first._data

@@ -6,7 +6,10 @@ Attributes, defaults and output arity are the JAX ops'. Convolution,
 FullyConnected and the space-to-depth stem go to ``F.conv2d`` /
 ``torch.matmul``, as the JAX package leaves them to XLA outside any
 Pallas kernel. Each op keeps the dtype of its data input, like the JAX
-ops do.
+ops do, with the JAX ops' promotions where the dtypes mix: a
+convolution runs in its data's dtype and a float32 bias added to a
+bf16 result promotes it to float32, and FullyConnected computes in the
+promoted dtype of its data and weight (``jnp.matmul``'s rule).
 """
 from __future__ import annotations
 
@@ -36,9 +39,10 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                     flatten=True, **kw):
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
         else data
-    out = torch.matmul(x, weight.to(x.dtype).t())
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    out = torch.matmul(x.to(dt), weight.to(dt).t())
     if not no_bias and bias is not None:
-        out = out + bias.to(out.dtype)
+        out = out + bias
     return out
 
 
@@ -56,7 +60,7 @@ def convolution(data, weight, bias=None, kernel=None, stride=None,
                    dilation=_tup(dilate, 2) or (1, 1),
                    groups=int(num_group))
     if not no_bias and bias is not None:
-        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+        out = out + bias.reshape(1, -1, 1, 1)
     return out
 
 
@@ -243,6 +247,23 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     out = (data - mean.reshape(bshape)) * (g * inv).reshape(bshape) \
         + beta.reshape(bshape)
     return out.to(data.dtype), mean, var
+
+
+@register_op("LRN")
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **kw):
+    """Local response normalisation across channels (the JAX package's
+    ``ops/nn.py`` ``lrn``): ``x / (knorm + alpha/nsize * sum of x**2 over
+    the nsize channels centred on x) ** beta``, zeros beyond the edges.
+    Plain PyTorch, differentiable by autograd."""
+    nsize = int(nsize)
+    half = nsize // 2
+    sq = data * data
+    padded = F.pad(sq, (0, 0) * (data.dim() - 2) + (half, half))
+    c = data.shape[1]
+    window = padded[:, 0:c]
+    for i in range(1, nsize):
+        window = window + padded[:, i:i + c]
+    return data / torch.pow(knorm + alpha / nsize * window, beta)
 
 
 @register_op("LayerNorm")

@@ -181,6 +181,21 @@ class Predictor:
         self._bucket_rows = {b: 0 for b in self.buckets}
         self._bucket_pad_rows = {b: 0 for b in self.buckets}
 
+    @classmethod
+    def from_module(cls, module, **kwargs):
+        """A Predictor of a bound, initialized Module: its symbol, copies
+        of its current params (the module may go on training), its data
+        names, its bound per-row data shapes and (unless ``device=``
+        says otherwise) its device."""
+        arg_params, aux_params = module.get_params()
+        kwargs.setdefault("device", getattr(module, "_device", None))
+        kwargs.setdefault("data_names", list(module.data_names))
+        kwargs.setdefault("data_shapes", {
+            n: tuple(s[1:]) for n, s in module.data_shapes})
+        copy = {n: v.detach().clone() for n, v in arg_params.items()}
+        copy_aux = {n: v.detach().clone() for n, v in aux_params.items()}
+        return cls(module.symbol, copy, copy_aux, **kwargs)
+
     # -- parameter staging ----------------------------------------------------
     def _stage_value(self, v, want_shape, name):
         """Shape-check one param/aux value and put it on the device, cast

@@ -25,6 +25,7 @@ OP_INPUTS = {
     "RNN": (["data", "parameters", "state", "state_cell"], []),
     "_rnn_zero_state": (["data"], []),
     "Dropout": (["data"], []),
+    "LRN": (["data"], []),
     "SliceChannel": (["data"], []),
 }
 

@@ -136,8 +136,8 @@ def test_eval_score_uses_sync_path():
     hits = 0
     for b in it:
         mod.forward(b, is_train=False)
-        hits += int((mod.get_outputs()[0].argmax(1).numpy() ==
-                     b.label[0].numpy()).sum())
+        hits += int((mod.get_outputs()[0].asnumpy().argmax(1) ==
+                     b.label[0].asnumpy()).sum())
     assert abs(s - hits / 120) < 1e-9
 
 

@@ -187,7 +187,7 @@ def _port_steps(ts, batches, states, cdt):
                         {k: v.numpy().copy() for k, v in x.items()},
                         {n: s[0].numpy().copy()
                          for n, s in m._fused._state.items()},
-                        m.get_outputs()[0].float().numpy(),
+                        m.get_outputs()[0].asnumpy(),
                         float(m._fused.last_loss)))
         return res
 
@@ -458,9 +458,9 @@ def test_ndarray_iter_matches_jax(handle):
         tb, jb = list(ti), list(ji)
         assert len(tb) == len(jb)
         for a, b in zip(tb, jb):
-            np.testing.assert_array_equal(a.data[0].numpy(),
+            np.testing.assert_array_equal(a.data[0].asnumpy(),
                                           b.data[0].asnumpy())
-            np.testing.assert_array_equal(a.label[0].numpy(),
+            np.testing.assert_array_equal(a.label[0].asnumpy(),
                                           b.label[0].asnumpy())
             assert a.pad == b.pad
         ti.reset()

@@ -64,7 +64,7 @@ def test_predictor_on_int_ids_matches_the_jax_package(tmp_path):
     mod.forward(tmx.io.DataBatch(data=[torch.from_numpy(req["user"]),
                                        torch.from_numpy(req["item"])]),
                 is_train=False)
-    np.testing.assert_allclose(got, mod.get_outputs()[0].numpy(), rtol=0,
+    np.testing.assert_allclose(got, mod.get_outputs()[0].asnumpy(), rtol=0,
                                atol=PROB_TOL)
 
 
