@@ -389,13 +389,47 @@ script exits non-zero and prints no result. Phases:
    ``torch.profiler`` trace of 5 forwards (device ms a forward, busy
    share, top kernels); ``ic_cifar10_benchmark``:
    ``train_cifar10 --benchmark 1``. ``slice16_seconds`` times them.
-20. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
-   ``fused_adam``, ``data_pipeline`` and ``image_classification``
-   launches, D1 with its
+21. Gluon hybridized (slice 17): ``hybridize()`` runs a block as
+   captured programs (``gluon/cached_op.py``), so phases 10-13 run
+   captured too. 21a ``gluon_hybrid``: phase 10's ResNet-50 v1 (fp32,
+   batch 64, the K4 loss, ``GLUON_HP``), two SGD steps captured against
+   the same steps with ``hybridize(False)`` from the same params and
+   batches (deterministic cuDNN): losses, the first step's gradients,
+   weights and running statistics after both within ``S17_LIMITS``, with
+   one forward a tape and with two (two program slots); a fault probe
+   (every call replays slot 0, so the second forward overwrites the
+   first's saved activations) must fail it; then eager and captured
+   steps in turns (ms, img/s, memory), programs, captures, replays and
+   retraces from ``compile_report()``, K4's launches a step, a
+   ``torch.profiler`` trace (device ms, busy share). 21b
+   ``gluon_word_lm``: ``RNNModel`` at bench_lstm.py's medium widths
+   (vocab 33,278, 650, 2 x 650 LSTM, bptt 35, batch 32, fp32) with
+   train.py's loop: at dropout 0 the captured step's loss, gradients and
+   states against eager; at dropout 0.5 tokens/s in turns and L1's
+   launches a step (140); then ``train.py --hybridize`` at its defaults,
+   perplexity within ``WLM_PPL_MARGIN`` of phase 18d's eager port and of
+   the JAX package's CPU figure. 21c ``gluon_dcgan``: the port's dcgan at
+   its defaults (batch 16, nz 100, 64x64, ngf = ndf = 64), the first
+   iteration captured against eager (host noise from the seed), ms an
+   iteration in turns, 20 iterations' losses (finite), and ``train`` at
+   the JAX test's configuration (batch 8, 6 iterations) with ``d_loss``
+   below its bar, 1.3. 21d
+   ``gluon_export``: 21a's net exported with phase 4's seeded parameters
+   (``interop.init_params``); ``SymbolBlock`` over the files
+   against the Gluon forward (``GLUON_FWD_REL_LIMIT``); a bf16
+   ``Predictor`` over them against it (phase 4's served-path checks);
+   the pass sites and K1 / K2 launches a forward; ``save_parameters`` /
+   ``load_parameters`` into the captured block read by its next replay.
+   21e ``gluon_mnist``: ``examples/gluon/mnist.py`` at its defaults,
+   captured, accuracy above 0.9. ``slice17_seconds`` times them.
+22. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
+   ``fused_adam``, ``data_pipeline``, ``image_classification`` and (K1,
+   K2) ``gluon_export`` launches, D1 with its
    decode_serving launches and its ``lm_spec`` launches, ``lstm_cell``
-   with word_lm's (fp32) launches and cuDNN's whole-RNN time,
-   ``lstm_step_fwd`` / ``lstm_step_bwd`` with TrainStep's launches),
-   then the result line.
+   with word_lm's (fp32) launches, cuDNN's whole-RNN time and the
+   ``gluon_word_lm`` launches, ``lstm_step_fwd`` / ``lstm_step_bwd`` with
+   TrainStep's launches, the K4 softmax CE with its ``gluon_hybrid``
+   launches), then the result line.
 
 fp32 convolutions and matrix products run without TF32 throughout
 (phase 1 turns it off), so the Gluon path's fp32 checks hold fp32.
@@ -2290,6 +2324,9 @@ def gluon_phases(mt, torch, np, smi, ops):
     check(not fails, f"gluon training step with the K4 loss: {fails}")
     check(rejected_by, "the gluon step check passes a planted fault")
     del ref_step, ref_again, k4_step, probe_step
+    # the timed steps below run programs captured in cuDNN's default mode,
+    # not the deterministic ones of the check above
+    net.hybridize()
 
     # 13. speed: warm-up steps, then 10 timed, one repeated batch
     def forward_backward():
@@ -6579,6 +6616,7 @@ def slice13_phases(mt, torch, np, smi, gen):
                 f"{ops['float32']['launches']['lstm_cell']} a call; "
                 "bf16 takes the fused step",
         "bucketing": {"launches": bk["l1_launches"]},
+        "word_lm_val_ppl": wlm["val_ppl"],
         "status": "ok"},
         step_entry("lstm_step_fwd", "fwd"),
         step_entry("lstm_step_bwd", "bwd")]
@@ -7519,6 +7557,693 @@ def image_classification_phases(mt, torch, np, smi, phase7_ms=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Gluon (slice 17): hybridize() as captured programs, export and
+# SymbolBlock, parameter files, the Gluon examples
+# ---------------------------------------------------------------------------
+# the device of phase 21 (a CPU rehearsal sets "cpu" and stubs
+# torch.cuda's event, sync and memory calls)
+S17_DEVICE = "cuda:0"
+S17_RUNS = ("eager", "captured", "captured", "eager")
+S17_STEPS = 5             # timed steps (iterations) a run
+S17_TRACE_STEPS = 3
+# captured against eager from the same state, deterministic cuDNN, fp32
+# without TF32: the loss (max |err| over max |loss|), each parameter's
+# gradient (relative L2; a parameter's floor is 1e-6 of the largest
+# gradient's norm, for the conv biases in front of a BatchNorm, whose
+# gradient is rounding noise about 0), the weights and the running
+# statistics after the steps (relative L2). The same program runs either
+# way, so expect ~0 (identical kernels) to ~1e-7 (a fused copy's order);
+# the fault probe (a second forward replayed over the first's saved
+# activations) moves the first call's gradients wholesale.
+S17_LIMITS = {"loss_rel_err": 1e-5, "param_grad_rel_l2_worst": 1e-4,
+              "weight_rel_l2_worst": 1e-5, "aux_rel_l2_worst": 1e-5}
+# bench_lstm.py's medium widths through train.py's loop (21b)
+WLM_MEDIUM = {"vocab": 33278, "emsize": 650, "nhid": 650, "nlayers": 2,
+              "bptt": 35, "batch": 32}
+WLM_S17_BATCHES = 8
+DCGAN_ITERS = 20
+DCGAN_D_LOSS_BAR = 1.3    # the JAX test's bar
+MNIST_ACC_BAR = 0.9       # the JAX test's bar
+
+
+def gluon_state(net, grads=False):
+    """{name: tensor clone} of a Gluon net's parameters (or gradients)."""
+    if grads:
+        return {n: p.grad().data.clone() for n, p in
+                net.collect_params().items() if p.grad_req != "null"}
+    return {n: p.data().data.detach().clone()
+            for n, p in net.collect_params().items()}
+
+
+def set_gluon_state(torch, net, values):
+    """Copy ``values`` into the parameters' storage (captured programs
+    read it in place)."""
+    with torch.no_grad():
+        for n, p in net.collect_params().items():
+            p.data().data.copy_(values[n])
+
+
+def worst_rel_l2(got, want, floor_frac=0.0):
+    """(worst relative L2 over the names, that name, the names whose
+    error passes ``limit``-free floor): a name counts only when its
+    reference norm is above ``floor_frac`` of the largest."""
+    norms = {n: float(w.double().norm()) for n, w in want.items()}
+    floor = floor_frac * max(norms.values())
+    per = {n: float((got[n].double() - w.double()).norm()) /
+           max(norms[n], 1e-30) for n, w in want.items()
+           if norms[n] > 1e3 * floor}
+    name = max(per, key=per.get)
+    return per[name], name
+
+
+def s17_compare(got, want):
+    """Captured against eager: ``(summary, failures)`` for runs of
+    ``(losses, first-step gradients, state after the steps)``."""
+    lg, gg, sg = got
+    lw, gw, sw = want
+    loss = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(lg, lw))
+    grad, grad_name = worst_rel_l2(gg, gw, 1e-6)
+    weights = {n: v for n, v in sw.items() if "running" not in n}
+    aux = {n: v for n, v in sw.items() if "running" in n}
+    w_err, w_name = worst_rel_l2({n: sg[n] for n in weights}, weights)
+    summ = {"loss_rel_err": loss, "param_grad_rel_l2_worst": grad,
+            "worst_grad": grad_name, "weight_rel_l2_worst": w_err,
+            "worst_weight": w_name}
+    if aux:
+        summ["aux_rel_l2_worst"], summ["worst_aux"] = worst_rel_l2(
+            {n: sg[n] for n in aux}, aux)
+    fails = [k for k, lim in S17_LIMITS.items()
+             if k in summ and summ[k] > lim]
+    return summ, fails
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def gluon_programs(mt, name=None):
+    """The compile registry's ``gluon`` rows (of entry point ``name``)
+    and the retrace count of that entry point."""
+    rep = mt.compile_report()
+    rows = [p for p in rep["programs"] if p["kind"] == "gluon"
+            and (name is None or p["name"] == name)]
+    retr = rep["retraces"].get(name, {}).get("count", 0) if name else \
+        sum(v["count"] for k, v in rep["retraces"].items()
+            if k.startswith("gluon:"))
+    return {"programs": len(rows),
+            "captures": sum(p["captures"] for p in rows),
+            "replays": sum(p["replays"] for p in rows),
+            "capture_s": sum(p["capture_s"] for p in rows),
+            "retraces": retr}
+
+
+def gluon_pool_gb(mt, name):
+    """GB of the largest graph pool among entry point ``name``'s programs
+    (a forward and its backward share one pool): the memory a replay
+    uses, which ``max_memory_allocated`` does not see."""
+    rows = [r for r in mt.memory_report()["programs"] if r["name"] == name]
+    return max((r["pool_bytes"] for r in rows), default=0) / 1e9
+
+
+def s17_in_turns(torch, runs):
+    """``runs``: {mode: one step function of i}; each mode's run of
+    ``S17_STEPS`` steps in ``S17_RUNS``' order (host ms with a sync,
+    CUDA-event ms, memory)."""
+    out = []
+    for mode in S17_RUNS:
+        r = timed_runs(torch, runs[mode], S17_STEPS)
+        out.append(dict(r, mode=mode))
+    return {"host_ms": ab_summary(out, "host_ms"),
+            "event_ms": ab_summary(out, "event_ms"),
+            "memory_gb": {m: max(r["max_memory_allocated_gb"] for r in out
+                                 if r["mode"] == m)
+                          for m in ("eager", "captured")}}
+
+
+def hybrid_blocks(block):
+    """Every HybridBlock of a Gluon block's tree."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+    found = [block] if isinstance(block, HybridBlock) else []
+    for child in block._children.values():
+        found += hybrid_blocks(child)
+    return found
+
+
+def switch_captured(net, captured, kept):
+    """Run ``net`` captured or eager from here on, keeping its captured
+    programs across the switch (``hybridize`` drops them): ``kept`` holds
+    the mode and each HybridBlock's programs while the net runs
+    eagerly."""
+    if kept.get("captured") == captured:
+        return
+    kept["captured"] = captured
+    if captured:
+        net.hybridize(True)
+        for b in hybrid_blocks(net):
+            if kept.get(id(b)) is not None:
+                b._cached_op = kept[id(b)]
+    else:
+        for b in hybrid_blocks(net):
+            kept[id(b)] = b._cached_op or kept.get(id(b))
+        net.hybridize(False)
+
+
+def gluon_hybrid_phase(mt, torch, np, smi, ops):
+    """21a: the Gluon ResNet-50 v1 of phase 10 (fp32, batch 64, the K4
+    loss, GLUON_HP), captured against ``hybridize(False)``."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch import profile_training as pt
+    from mxnet_tpu_torch.gluon import cached_op
+    fb = mt.ops.fused_bn_conv
+    gpu = mt.context.as_context(S17_DEVICE)
+    rng = np.random.default_rng(SEED + 17)
+    mt.random.seed(SEED)
+    net = gluon.model_zoo.vision.get_resnet(1, 50, classes=1000)
+    net.initialize(mt.init.Xavier(), ctx=gpu)
+    X = [nd.array(rng.standard_normal((GLUON_BATCH, 3, 224, 224)).astype(
+        np.float32), ctx=gpu) for _ in range(2)]
+    Y = [nd.array(rng.integers(0, 1000, GLUON_BATCH).astype(np.float32),
+                  ctx=gpu) for _ in range(2)]
+    net(X[0])                     # the deferred init (an eager forward)
+    p0 = gluon_state(net)
+    entry = f"gluon:{net.name}"
+
+    def run(mode, calls):
+        """Two SGD steps from ``p0``, ``calls`` forwards under each tape
+        (X[0]; then X[1] too): the losses, the first step's gradients,
+        the parameters after both."""
+        set_gluon_state(torch, net, p0)
+        net.hybridize(mode == "captured")
+        tr = gluon.Trainer(net.collect_params(), "sgd", GLUON_HP)
+        losses, first = [], None
+        for _ in range(2):
+            with autograd.record():
+                loss = None
+                for k in range(calls):
+                    li = nd.softmax_ce(net(X[k]), Y[k])
+                    loss = li if loss is None else loss + li
+            loss.backward()
+            if first is None:
+                first = gluon_state(net, grads=True)
+            losses.append(loss.data.detach().clone())
+            tr.step(GLUON_BATCH)
+        torch.cuda.synchronize()
+        return losses, first, gluon_state(net)
+
+    real_free, real_bwd = cached_op.CachedOp._free_slot, \
+        cached_op._Slot.backward
+
+    def stale_backward(self, lease, grads):
+        lease.generation = self.generation
+        return real_bwd(self, lease, grads)
+
+    with deterministic_cudnn(torch):
+        eager1 = run("eager", 1)
+        cap1 = run("captured", 1)
+        eager2 = run("eager", 2)
+        cap2 = run("captured", 2)
+        # the fault probe: every call replays slot 0, so the second
+        # forward overwrites the first's saved activations before its
+        # backward (the lease check, which raises on this, bypassed)
+        cached_op.CachedOp._free_slot = staticmethod(
+            lambda e: e.slots[0] if e.slots else None)
+        cached_op._Slot.backward = stale_backward
+        try:
+            probe = run("captured", 2)
+        finally:
+            cached_op.CachedOp._free_slot = staticmethod(real_free)
+            cached_op._Slot.backward = real_bwd
+    s1, f1 = s17_compare(cap1, eager1)
+    s2, f2 = s17_compare(cap2, eager2)
+    sp, fp = s17_compare(probe, eager2)
+    slots = [len(e.slots) for e in net._cached_op.entries.values()]
+    emit({"phase": "gluon_hybrid_check", "model": "get_resnet(1, 50), "
+          "Xavier, seed 0", "batch": GLUON_BATCH, "dtype": "float32",
+          "against": "the same two SGD steps with hybridize(False) from "
+                     "the same params and batches, deterministic cuDNN",
+          "one_call": s1, "two_calls_one_tape": s2, "limits": S17_LIMITS,
+          "failures": {"one_call": f1, "two_calls_one_tape": f2},
+          "slots_per_program": slots})
+    emit({"phase": "gluon_hybrid_fault_probe",
+          "fault": "the second forward under one tape replays the first's "
+                   "program slot over its saved activations",
+          "rejected_by": fp, **sp})
+    check(not f1 and not f2, f"captured Gluon step against eager: {f1} "
+          f"{f2}")
+    check(fp, "the captured-step check passes a planted fault")
+    del eager1, cap1, eager2, cap2, probe
+    # speed: one call a step, eager and captured in turns, one trainer;
+    # the programs are captured anew in cuDNN's default mode
+    net.hybridize(False)
+    set_gluon_state(torch, net, p0)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", GLUON_HP)
+    mode_of = {"eager": False, "captured": True}
+    kept = {}
+
+    def step(captured):
+        def one(i):
+            switch_captured(net, captured, kept)
+            with autograd.record():
+                loss = nd.softmax_ce(net(X[i % 2]), Y[i % 2])
+            loss.backward()
+            trainer.step(GLUON_BATCH)
+        return one
+
+    for mode in ("eager", "captured"):
+        for i in range(2):
+            step(mode_of[mode])(i)
+    gc.collect()
+    before = gluon_programs(mt, entry)
+    turns = s17_in_turns(torch, {m: step(c) for m, c in mode_of.items()})
+    after = gluon_programs(mt, entry)
+    fwd, bwd = ops["softmax_ce"], ops["softmax_ce_bwd"]
+    fwd.launches = bwd.launches = 0
+    fb.reset_launch_counts()
+    cap_step = step(True)
+    for i in range(S17_STEPS):
+        cap_step(i)
+    torch.cuda.synchronize()
+    k4 = {"softmax_ce_fwd": fwd.launches, "softmax_ce_bwd": bwd.launches}
+    other = fb.launch_counts()
+    trace = pt.device_trace(cap_step, S17_TRACE_STEPS)
+    busy = pt.busy_summary(trace, S17_TRACE_STEPS)
+    cap_ms = turns["host_ms"]["captured"]["median"]
+    row = {"phase": "gluon_hybrid", "batch": GLUON_BATCH,
+           "order": list(S17_RUNS), "steps_per_run": S17_STEPS,
+           "ms_per_step": turns["host_ms"], "event_ms": turns["event_ms"],
+           "img_per_s": {m: GLUON_BATCH / (turns["host_ms"][m]["median"]
+                                           / 1e3)
+                         for m in ("eager", "captured")},
+           "memory_gb": turns["memory_gb"],
+           "captured_graph_pool_gb": gluon_pool_gb(mt, entry),
+           "memory_note": "max_memory_allocated; a replay's memory is its "
+                          "graph's pool (captured_graph_pool_gb)",
+           "programs": after, "during_turns": {
+               k: after[k] - before[k] for k in ("captures", "replays",
+                                                 "retraces")},
+           "k4_launches": k4, "k4_launches_per_step": {
+               k: v / S17_STEPS for k, v in k4.items()},
+           "other_kernels_launched": other,
+           "trace": {k: busy[k] for k in ("device_busy_share",
+                                          "device_kernel_ms_per_step",
+                                          "traced_wall_ms")},
+           "top_kernels": busy["top_kernels_ms_per_step"][:8],
+           "pr3_eager_ms": 105.7, "card": smi}
+    emit(row)
+    check(after["captures"] >= 3 and after["replays"] > 0,
+          f"the Gluon step's programs: {after}")
+    check(row["during_turns"]["captures"] == 0 and
+          row["during_turns"]["retraces"] == 0,
+          f"the timed steps captured anew: {row['during_turns']}")
+    check(k4 == {"softmax_ce_fwd": S17_STEPS, "softmax_ce_bwd": S17_STEPS},
+          f"K4 launches over {S17_STEPS} captured steps: {k4}")
+    check(sum(other.values()) == 0, f"the Gluon path launched {other}")
+    check(cap_ms > 0 and np.isfinite(cap_ms), "captured step time")
+    return {"net": net, "launches": k4, "steps": S17_STEPS,
+            "ms_per_step": {m: turns["host_ms"][m]["median"]
+                            for m in ("eager", "captured")}}
+
+
+def gluon_word_lm_phase(mt, torch, np, smi, eager_ppl):
+    """21b: RNNModel at bench_lstm.py's medium widths, hybridized, with
+    train.py's loop; then train.py's defaults with --hybridize."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.examples.word_language_model import train
+    from mxnet_tpu_torch.examples.word_language_model.model import RNNModel
+    from mxnet_tpu_torch.ops import lstm_cell as lc
+    c = WLM_MEDIUM
+    gpu = mt.context.as_context(S17_DEVICE)
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, c["vocab"], (c["bptt"] * WLM_S17_BATCHES + 1,
+                                       c["batch"])).astype(np.float32)
+    tokens = c["bptt"] * c["batch"]
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def batch(i):
+        i %= WLM_S17_BATCHES
+        s = i * c["bptt"]
+        return (nd.array(ids[s:s + c["bptt"]], ctx=gpu),
+                nd.array(ids[s + 1:s + 1 + c["bptt"]].reshape(-1), ctx=gpu))
+
+    def build(dropout):
+        mt.random.seed(SEED)
+        m = RNNModel("lstm", c["vocab"], c["emsize"], c["nhid"],
+                     c["nlayers"], dropout)
+        m.initialize(mt.init.Xavier(), ctx=gpu)
+        return m
+
+    # dropout 0: one recorded step, captured against eager
+    m = build(0.0)
+    p0 = gluon_state(m)
+    hid0 = m.begin_state(batch_size=c["batch"], ctx=gpu)
+    res = {}
+    with deterministic_cudnn(torch):
+        for mode in ("eager", "captured"):
+            set_gluon_state(torch, m, p0)
+            m.hybridize(mode == "captured")
+            data, target = batch(0)
+            with autograd.record():
+                out, hid = m(data, train.detach(hid0))
+                loss = ce(out, target)
+            loss.backward()
+            torch.cuda.synchronize()
+            res[mode] = ([loss.data.detach().clone()],
+                         gluon_state(m, grads=True),
+                         {f"state{i}": h.data.detach().clone()
+                          for i, h in enumerate(hid)})
+    summ, fails = s17_compare(res["captured"], res["eager"])
+    emit({"phase": "gluon_word_lm_check", "config": dict(c, dropout=0.0),
+          "against": "the same step with hybridize(False)",
+          **summ, "states_named_as_weights": True, "limits": S17_LIMITS,
+          "failures": fails})
+    check(not fails, f"the captured word-LM step against eager: {fails}")
+    del m, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    # dropout 0.5: train.py's step, eager and captured in turns
+    m = build(0.5)
+    tr = gluon.Trainer(m.collect_params(), "sgd", {"learning_rate": 1.0,
+                                                   "momentum": 0, "wd": 0})
+    hidden = [m.begin_state(batch_size=c["batch"], ctx=gpu)]
+    kept = {}
+
+    def step(captured):
+        def one(i):
+            switch_captured(m, captured, kept)
+            data, target = batch(i)
+            h = train.detach(hidden[0])
+            with autograd.record():
+                out, hidden[0] = m(data, h)
+                loss = ce(out, target)
+            loss.backward()
+            grads = [p.grad() for p in m.collect_params().values()
+                     if p.grad_req != "null"]
+            gluon.utils.clip_global_norm(grads, 0.2 * tokens)
+            tr.step(tokens)
+        return one
+
+    runs = {"eager": step(False), "captured": step(True)}
+    for mode in ("eager", "captured"):
+        for i in range(2):
+            runs[mode](i)
+    turns = s17_in_turns(torch, runs)
+    fb = mt.ops.fused_bn_conv
+    fb.reset_launch_counts()
+    for i in range(S17_STEPS):
+        runs["captured"](i)
+    torch.cuda.synchronize()
+    l1 = lc.lstm_cell_fwd.launches + lc.lstm_cell_bwd.launches
+    progs = gluon_programs(mt)
+    row = {"phase": "gluon_word_lm", "config": dict(c, dropout=0.5),
+           "tokens_per_step": tokens, "order": list(S17_RUNS),
+           "ms_per_step": turns["host_ms"], "event_ms": turns["event_ms"],
+           "tokens_per_s": {k: tokens / (turns["host_ms"][k]["median"]
+                                         / 1e3)
+                            for k in ("eager", "captured")},
+           "memory_gb": turns["memory_gb"], "lstm_cell_launches": l1,
+           "lstm_cell_launches_per_step": l1 / S17_STEPS,
+           "programs": progs, "card": smi}
+    emit(row)
+    want_l1 = 2 * c["bptt"] * c["nlayers"]
+    check(l1 == want_l1 * S17_STEPS, f"L1 launches over {S17_STEPS} "
+          f"captured steps: {l1}, expected {want_l1} a step")
+    del m, tr, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+    # train.py at its defaults, hybridized
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    stats = train.main(["--epochs", "1", "--device", S17_DEVICE,
+                        "--hybridize"])
+    secs = time.perf_counter() - t0
+    val = stats["val_ppl"][0]
+    rel_jax = abs(val - WLM_JAX_VAL_PPL) / WLM_JAX_VAL_PPL
+    rel_eager = abs(val - eager_ppl) / eager_ppl
+    emit({"phase": "gluon_word_lm_train", "config": "train.py defaults "
+          "with --hybridize, one epoch", "val_ppl": val,
+          "eager_port_val_ppl": eager_ppl, "rel_diff_eager": rel_eager,
+          "jax_cpu_val_ppl": WLM_JAX_VAL_PPL, "rel_diff_jax": rel_jax,
+          "margin": WLM_PPL_MARGIN,
+          "tokens_per_s": stats["tokens_per_s"][0],
+          "train_s": stats["train_s"][0], "seconds": secs, "card": smi})
+    check(rel_jax <= WLM_PPL_MARGIN and rel_eager <= WLM_PPL_MARGIN,
+          f"hybridized train.py val ppl {val}: {rel_eager} from the eager "
+          f"port's {eager_ppl}, {rel_jax} from the JAX package's")
+    return {"launches": l1, "steps": S17_STEPS,
+            "tokens_per_s": row["tokens_per_s"]}
+
+
+def gluon_dcgan_phase(mt, torch, np, smi):
+    """21c: the port's dcgan at its defaults, both nets hybridized."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.examples.gluon import dcgan
+    gpu = mt.context.as_context(S17_DEVICE)
+    batch, nz = 16, 100
+    real = next(dcgan.synthetic_batches(batch, 1, gpu))
+    noise = next(dcgan.noise_batches(batch, nz, 1, SEED, gpu))
+    ones, zeros = nd.ones((batch,), ctx=gpu), nd.zeros((batch,), ctx=gpu)
+
+    def setup(hybridize):
+        gen, disc, g_tr, d_tr, loss_fn = dcgan.setup(
+            batch, nz, hybridize=hybridize, device=S17_DEVICE, seed=SEED)
+        disc(gen(noise))          # the deferred inits, in predict mode
+        return gen, disc, g_tr, d_tr, loss_fn
+
+    res = {}
+    with deterministic_cudnn(torch):
+        for mode in ("eager", "captured"):
+            gen, disc, g_tr, d_tr, loss_fn = setup(mode == "captured")
+            d, g = dcgan.iteration(gen, disc, g_tr, d_tr, loss_fn, real,
+                                   noise, ones, zeros)
+            torch.cuda.synchronize()
+            grads = dict(gluon_state(gen, grads=True),
+                         **gluon_state(disc, grads=True))
+            state = dict(gluon_state(gen), **gluon_state(disc))
+            res[mode] = ([d.data.detach().clone(), g.data.detach().clone()],
+                         grads, state)
+    summ, fails = s17_compare(res["captured"], res["eager"])
+    emit({"phase": "gluon_dcgan_check", "batch": batch, "nz": nz,
+          "ngf": 64, "ndf": 64, "against": "the first iteration with "
+          "hybridize(False), the same init, batch and host noise",
+          **summ, "limits": S17_LIMITS, "failures": fails})
+    check(not fails, f"the captured dcgan iteration against eager: "
+          f"{fails}")
+    del res
+    # ms an iteration, eager and captured in turns
+    nets = {m: setup(m == "captured") for m in ("eager", "captured")}
+
+    def it(mode):
+        return lambda i: dcgan.iteration(*nets[mode], real, noise, ones,
+                                         zeros)
+
+    for mode in nets:
+        for i in range(2):
+            it(mode)(i)
+    turns = s17_in_turns(torch, {m: it(m) for m in nets})
+    del nets
+    gc.collect()
+    # DCGAN_ITERS iterations at the defaults, each iteration's d_loss
+    t0 = time.perf_counter()
+    gen, disc, g_tr, d_tr, loss_fn = dcgan.setup(batch, nz,
+                                                 device=S17_DEVICE, seed=SEED)
+    losses = []
+    for r, z in zip(dcgan.synthetic_batches(batch, DCGAN_ITERS, gpu),
+                    dcgan.noise_batches(batch, nz, DCGAN_ITERS, SEED, gpu)):
+        d, g = dcgan.iteration(gen, disc, g_tr, d_tr, loss_fn, r, z, ones,
+                               zeros)
+        losses.append((float(d.mean().asscalar()),
+                       float(g.mean().asscalar())))
+    secs = time.perf_counter() - t0
+    # the JAX test's bar where the JAX test sets it: train() at batch 8
+    # for 6 iterations (tests/test_gluon_examples.py); at the defaults the
+    # last d_loss swings around chance in both packages
+    # (tools/dcgan_d_loss.py)
+    _, _, d8, g8 = dcgan.train(batch_size=8, batches_per_epoch=6,
+                               device=S17_DEVICE, seed=SEED)
+    row = {"phase": "gluon_dcgan", "batch": batch, "iterations": DCGAN_ITERS,
+           "d_loss": [v[0] for v in losses], "g_loss": [v[1] for v in losses],
+           "d_loss_mean": float(np.mean([v[0] for v in losses])),
+           "train_s": secs, "jax_test_config": {
+               "batch": 8, "iterations": 6, "d_loss": d8, "g_loss": g8,
+               "d_loss_bar": DCGAN_D_LOSS_BAR},
+           "order": list(S17_RUNS), "ms_per_iteration": turns["host_ms"],
+           "event_ms": turns["event_ms"], "memory_gb": turns["memory_gb"],
+           "card": smi}
+    emit(row)
+    check(np.isfinite(losses).all(), f"dcgan losses {losses}")
+    check(np.isfinite(d8) and np.isfinite(g8) and d8 < DCGAN_D_LOSS_BAR,
+          f"dcgan at the JAX test's configuration: d_loss {d8}, g_loss "
+          f"{g8}")
+    return {m: turns["host_ms"][m]["median"] for m in ("eager", "captured")}
+
+
+def gluon_export_phase(mt, torch, np, smi, net):
+    """21d: export 21a's net with phase 4's seeded parameters; a
+    SymbolBlock and a bf16 Predictor over the files against the Gluon
+    forward; save / load_parameters into the captured block."""
+    from mxnet_tpu_torch import config, gluon, nd
+    fb = mt.ops.fused_bn_conv
+    gpu = mt.context.as_context(S17_DEVICE)
+    net.hybridize()
+    # phase 4's seeded distribution (interop.init_params): after 21a's
+    # ~40 steps at lr 0.1 on two batches the net gives every input the
+    # same logits, and its Xavier initialization in predict mode nearly
+    # so (logits within 0.5 of each other)
+    args0, aux0 = mt.interop.init_params(
+        net._trace_symbol(), {"data": (GLUON_BATCH, 3, 224, 224)}, SEED)
+    seeded = dict(args0, **aux0)
+    for n, p in net.collect_params().items():
+        p.set_data(nd.array(seeded[n], ctx=gpu))
+    d = tempfile.mkdtemp()
+    try:
+        prefix = os.path.join(d, "resnet50_v1")
+        sym = net.export(prefix)
+        x = np.random.default_rng(SEED + 21).standard_normal(
+            (GLUON_BATCH, 3, 224, 224)).astype(np.float32)
+        xa = nd.array(x, ctx=gpu)
+        ref = net(xa).asnumpy()
+        block = gluon.SymbolBlock(mt.sym.load(prefix + "-symbol.json"),
+                                  mt.sym.var("data"))
+        block.collect_params().load(prefix + "-0000.params", ctx=gpu)
+        block.hybridize()
+        got = block(xa).asnumpy()
+        sb_rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        loaded = nd.load(prefix + "-0000.params")
+        args = {k[4:]: v.asnumpy() for k, v in loaded.items()
+                if k.startswith("arg:")}
+        aux = {k[4:]: v.asnumpy() for k, v in loaded.items()
+               if k.startswith("aux:")}
+        pred = mt.serving.Predictor(sym, args, aux,
+                                    data_shapes={"data": (3, 224, 224)},
+                                    buckets=(GLUON_BATCH,),
+                                    compute_dtype="bfloat16",
+                                    device=S17_DEVICE)
+        sites = pred.report()["pass_sites"]
+        pred.predict(x)
+        torch.cuda.synchronize()
+        fb.reset_launch_counts()
+        served = pred.predict(x)
+        torch.cuda.synchronize()
+        launches = fb.launch_counts()
+        with config.override("MXTPU_PASS_RESIDUAL_FUSION", "0"):
+            plain16 = mt.serving.Predictor(
+                sym, args, aux, data_shapes={"data": (3, 224, 224)},
+                buckets=(GLUON_BATCH,), apply_fusion=False,
+                compute_dtype="bfloat16", device=S17_DEVICE).predict(x)
+
+        def softmax(z):
+            z = z.astype(np.float64) - z.max(axis=1, keepdims=True)
+            e = np.exp(z)
+            return e / e.sum(axis=1, keepdims=True)
+
+        cmp = compare_to_fp32(softmax(ref), softmax(served),
+                              softmax(plain16))
+        fails = served_path_failures(cmp)
+        # parameter files into the captured block
+        before = gluon_programs(mt, f"gluon:{net.name}")
+        f = os.path.join(d, "roundtrip.params")
+        net.save_parameters(f)
+        with torch.no_grad():
+            for p in net.collect_params().values():
+                p.data().data.mul_(0.5)
+        halved = net(xa).asnumpy()
+        net.load_parameters(f)
+        back = net(xa).asnumpy()
+        after = gluon_programs(mt, f"gluon:{net.name}")
+        mb = os.path.getsize(prefix + "-0000.params") / 1e6
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    per_fwd = {"K1": launches["bn_relu_conv_nchw"],
+               "K2": launches["bn_act_prologue"]}
+    row = {"phase": "gluon_export", "params_mb": mb,
+           "symbol_block_rel_err": sb_rel, "limit": GLUON_FWD_REL_LIMIT,
+           "predictor_bf16": dict(cmp, failures=fails),
+           "pass_sites": sites, "launches_per_forward": per_fwd,
+           "k1_routes": fb.route_counts()["bn_relu_conv_nchw"],
+           "roundtrip": {"halved_differs": bool(not np.array_equal(
+               halved, ref)), "reloaded_equal": bool(np.array_equal(
+                   back, ref)), "new_captures": after["captures"]
+               - before["captures"]},
+           "card": smi}
+    emit(row)
+    check(sb_rel <= GLUON_FWD_REL_LIMIT, f"SymbolBlock over the export "
+          f"against the Gluon forward: {sb_rel}")
+    check(not fails, f"the exported graph served in bf16: {fails}")
+    check(cmp["input_part_rms"] > 1e-3, f"the Gluon forward gives every "
+          f"input the same logits: {cmp}")
+    check(row["roundtrip"]["halved_differs"] and
+          row["roundtrip"]["reloaded_equal"] and
+          row["roundtrip"]["new_captures"] == 0,
+          f"load_parameters into the captured block: {row['roundtrip']}")
+    check(per_fwd["K1"] == sites.get("pallas_fusion", 0) and
+          per_fwd["K2"] == sites.get("residual_fusion", 0),
+          f"K1 / K2 launches a forward {per_fwd} against the sites {sites}")
+    return {"launches": per_fwd, "forwards": 1, "sites": sites}
+
+
+def gluon_mnist_phase(mt, torch, np, smi):
+    """21e: examples/gluon/mnist.py at its defaults, captured."""
+    from mxnet_tpu_torch.examples.gluon import mnist
+    mt.random.seed(SEED)
+    before = gluon_programs(mt, "gluon:mlp")
+    t0 = time.perf_counter()
+    _, acc = mnist.train(device=S17_DEVICE)
+    secs = time.perf_counter() - t0
+    after = gluon_programs(mt, "gluon:mlp")
+    row = {"phase": "gluon_mnist", "accuracy": acc, "bar": MNIST_ACC_BAR,
+           "seconds": secs, "steps": 5 * 50,
+           "programs": {k: after[k] - before[k]
+                        for k in ("programs", "captures", "replays")},
+           "card": smi}
+    emit(row)
+    check(acc > MNIST_ACC_BAR, f"gluon mnist accuracy {acc}")
+    check(row["programs"]["captures"] >= 1 and
+          row["programs"]["replays"] >= 200,
+          f"gluon mnist did not run captured: {row['programs']}")
+    return row
+
+
+def gluon_slice17_phases(mt, torch, np, smi, ops, wlm_eager_ppl):
+    """Phase 21 (slice 17); returns the launches on its paths for the
+    kernels line."""
+    t0 = time.perf_counter()
+    lap = {}
+
+    def mark(name):
+        lap[name] = time.perf_counter() - t0 - sum(lap.values())
+
+    hyb = gluon_hybrid_phase(mt, torch, np, smi, ops)
+    mark("gluon_hybrid")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wlm = gluon_word_lm_phase(mt, torch, np, smi, wlm_eager_ppl)
+    mark("gluon_word_lm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcg = gluon_dcgan_phase(mt, torch, np, smi)
+    mark("gluon_dcgan")
+    exp = gluon_export_phase(mt, torch, np, smi, hyb.pop("net"))
+    mark("gluon_export")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gluon_mnist_phase(mt, torch, np, smi)
+    mark("gluon_mnist")
+    emit({"phase": "slice17_seconds", "seconds": time.perf_counter() - t0,
+          "per_phase": lap, "gluon_programs": gluon_programs(mt)})
+    return {"k4": hyb, "lstm_cell": wlm, "dcgan_ms": dcg, "export": exp}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7861,6 +8586,23 @@ def main():
     # 19a.-19d. the image-classification examples (slice 16) ------------------
     ic = image_classification_phases(
         mt, torch, np, smi, ab_row["host_ms_per_step"]["captured"]["median"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21a.-21e. Gluon hybridized: captured programs, export, the examples
+    # (slice 17) ---------------------------------------------------------------
+    s17 = gluon_slice17_phases(mt, torch, np, smi, ops,
+                               l1_entries[0].pop("word_lm_val_ppl"))
+    l1_entries[0]["gluon_word_lm"] = {
+        "launches": s17["lstm_cell"]["launches"],
+        "per_step": s17["lstm_cell"]["launches"] / s17["lstm_cell"]["steps"],
+        "path": "RNNModel hybridized at bench_lstm.py's medium widths, "
+                "batch 32, fp32, captured steps (counts set to 0 just "
+                "before them)"}
+    s17_export = {"launches": s17["export"]["launches"],
+                  "per": "one forward of the exported Gluon ResNet-50 v1 "
+                         "through a bf16 Predictor (counts set to 0 just "
+                         "before it)", "pass_sites": s17["export"]["sites"]}
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
@@ -7916,13 +8658,19 @@ def main():
                        r["sites_per_step"] * r["wmma_ms"] for r in k1_sites),
                    "core": "mxnet_tpu_torch/kernels/csrc/"
                            "bn_gemm_wgmma.cuh",
-                   "image_classification": ic["K1"]}),
+                   "image_classification": ic["K1"],
+                   "gluon_export": dict(s17_export,
+                                        launches=s17_export["launches"]
+                                        ["K1"])}),
         train_agg("K2", "bn_prologue",
                   "mxnet_tpu_torch/kernels/bn_prologue_triton.py",
                   f"{pf}:250 (_make_prologue_kernel; pallas_call :390)",
                   "triton", "bn_act_prologue",
                   {"serving": serving_agg("bn_prologue"),
-                   "image_classification": ic["K2"]}),
+                   "image_classification": ic["K2"],
+                   "gluon_export": dict(s17_export,
+                                        launches=s17_export["launches"]
+                                        ["K2"])}),
         {"name": "bn_relu_matmul", "route": "cuda",
          "source": "mxnet_tpu_torch/kernels/csrc/bn_relu_matmul.cu",
          "replaces": f"{pf}:219 (_make_kernel; pallas_call :280 in "
@@ -7952,7 +8700,13 @@ def main():
                   "jnp there)", "triton", "bn_backward_dx",
                   {"image_classification": ic["B2"]}),
     ] + [
-        k4_entry(k4_rows, name, route, launches, per)
+        dict(k4_entry(k4_rows, name, route, launches, per),
+             **({"gluon_hybrid": {
+                 "launches": s17["k4"]["launches"][name],
+                 "steps": s17["k4"]["steps"],
+                 "path": "the captured Gluon ResNet-50 v1 step (21a), "
+                         "counts set to 0 just before it"}}
+                if name.startswith("softmax_ce") else {}))
         for name, route, launches, per in (
             ("softmax_ce_fwd", "cuda", gluon_launches["softmax_ce_fwd"],
              "path shape"),

@@ -44,6 +44,7 @@ serialized, so every process captures its programs anew.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import weakref
@@ -161,7 +162,7 @@ class CapturedProgram:
         return self.graph is not None
 
     def capture(self, fn, capture_error_mode="global", generators=(),
-                arguments=()):
+                arguments=(), stream=None):
         """Capture ``fn()`` on the current device. A capture that fails
         raises (the error of ``torch.cuda.graph``); the launch counters
         are left as they were. ``generators``: explicit CUDA generators
@@ -169,18 +170,30 @@ class CapturedProgram:
         draws anew). ``arguments``: the tensors the program reads in
         place besides ``static`` (parameters, optimizer state), counted
         in its memory row, which is taken after the capture has
-        ended."""
+        ended. ``stream``: the stream to capture on (a new one when
+        None); a backward captured after its forward must use the
+        forward's, where autograd recorded the forward's kernels."""
         from ..ops import fused_bn_conv
         from ..telemetry import memory as _tmem
-        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        stream = stream if stream is not None else torch.cuda.Stream()
         for g in generators:
             graph.register_generator_state(g)
         before = _tmem.pool_reading(self.pool)
         t0 = time.perf_counter()
-        with fused_bn_conv.capture_tally(stream) as delta, \
-                torch.cuda.graph(graph, pool=self.pool, stream=stream,
-                                 capture_error_mode=capture_error_mode):
-            out = fn()
+        # no automatic garbage collection inside the capture: one that
+        # frees another program's graph (cudaGraphExecDestroy, its pool's
+        # memory) would invalidate this capture
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with fused_bn_conv.capture_tally(stream) as delta, \
+                    torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                     capture_error_mode=capture_error_mode):
+                out = fn()
+        finally:
+            if gc_was_on:
+                gc.enable()
         secs = time.perf_counter() - t0
         self.pool_before = before
         self.pool_after = _tmem.pool_reading(graph.pool())

@@ -5,7 +5,9 @@ example/gluon/word_language_model/train.py).
 Each batch runs ``model(data, hidden)`` under ``autograd.record()``
 with the hidden state detached from the previous batch, the softmax
 cross entropy, ``backward``, ``clip_global_norm`` over every gradient
-and ``Trainer.step`` (SGD). The LSTM's steps run L1 on the card.
+and ``Trainer.step`` (SGD). The LSTM's steps run L1 on the card. With
+``--hybridize`` the model's blocks (embedding, dropout, LSTM, decoder)
+run as captured CUDA graphs.
 
 With no dataset (``--data``) a Markov-chain corpus is generated, the
 JAX example's for the same arguments. Everything runs on ``--device``
@@ -49,6 +51,8 @@ def parse_args(argv=None):
                         help="stop each epoch after this many batches "
                              "(0: the whole epoch)")
     parser.add_argument("--device", type=str, default="cuda:0")
+    parser.add_argument("--hybridize", action="store_true",
+                        help="run the model's blocks as captured programs")
     return parser.parse_args(argv)
 
 
@@ -111,6 +115,8 @@ def main(argv=None):
     model = RNNModel(args.model, vocab_size, args.emsize, args.nhid,
                      args.nlayers, args.dropout, args.tied)
     model.initialize(mx.init.Xavier(), ctx=ctx)
+    if args.hybridize:
+        model.hybridize()
     trainer = gluon.Trainer(model.collect_params(), "sgd",
                             {"learning_rate": args.lr, "momentum": 0,
                              "wd": 0})

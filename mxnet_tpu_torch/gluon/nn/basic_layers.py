@@ -1,13 +1,16 @@
 """Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): Sequential, HybridSequential,
-Dense, Dropout, BatchNorm, Embedding and Flatten.
+Dense, Dropout, BatchNorm, InstanceNorm, LayerNorm, Embedding, Flatten,
+Lambda, HybridLambda, HybridConcurrent, Concurrent and Identity. Every
+HybridBlock here also runs with ``F = sym`` (export).
 
 BatchNorm in training mode normalises with the batch statistics (mean
 and biased variance, as the JAX op's ``jnp.var``) and folds them into
 the running statistics in place, outside the graph:
 ``running = running * momentum + batch * (1 - momentum)``, the JAX
 package's formula, through ``block.stateful_write`` (inside a staged
-forward the write is returned instead of applied).
+forward the write is returned instead of applied; a symbolic forward
+writes nothing).
 """
 from __future__ import annotations
 
@@ -15,11 +18,13 @@ import numpy as np
 import torch
 
 from ... import autograd
+from ...ndarray.ndarray import NDArray
 from ..block import Block, HybridBlock, stateful_write
 from .activations import Activation
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "Embedding", "Flatten"]
+           "InstanceNorm", "LayerNorm", "Embedding", "Flatten", "Lambda",
+           "HybridLambda", "HybridConcurrent", "Concurrent", "Identity"]
 
 
 class Sequential(Block):
@@ -178,7 +183,8 @@ class BatchNorm(HybridBlock):
         out, batch_mean, batch_var = F.BatchNorm(
             x, gamma, beta, running_mean, running_var, training=training,
             **self._kwargs)
-        if training and not self._kwargs["use_global_stats"]:
+        if training and not self._kwargs["use_global_stats"] and \
+                isinstance(x, NDArray):
             m = self._momentum
             with torch.no_grad():
                 for p, run, batch in ((self.running_mean, running_mean,
@@ -194,6 +200,68 @@ class BatchNorm(HybridBlock):
         return (f"{self.__class__.__name__}(axis={self._axis}, "
                 f"eps={self._kwargs['eps']}, momentum={self._momentum}, "
                 f"in_channels={in_channels})")
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization over the spatial dims of each sample and
+    channel (reference: basic_layers.py:415)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        c = x.shape[self._axis]
+        self.gamma._infer_shape((c,))
+        self.beta._infer_shape((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis != 1:
+            x = x.swapaxes(1, self._axis)
+        out = F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        return out if self._axis == 1 else out.swapaxes(1, self._axis)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis`` (reference:
+    basic_layers.py:497)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        c = x.shape[self._axis]
+        self.gamma._infer_shape((c,))
+        self.beta._infer_shape((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
 
 
 class Embedding(HybridBlock):
@@ -231,3 +299,82 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return self.__class__.__name__
+
+
+class HybridConcurrent(HybridBlock):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis`` (reference: gluon/contrib/nn/basic_layers.py)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def hybrid_forward(self, F, x):
+        out = [block(x) for block in self._children.values()]
+        return F.concat(*out, dim=self.axis)
+
+
+class Concurrent(HybridConcurrent):
+    """``HybridConcurrent`` under the reference's non-hybrid name."""
+
+
+class Identity(HybridBlock):
+    """Returns its input (reference: gluon/contrib/nn Identity)."""
+
+    def hybrid_forward(self, F, x):
+        return x
+
+
+def _named_function(function, owner):
+    """``(name, function of F and the inputs)`` of a Lambda's
+    ``function``: a callable, or the name of an ``nd`` function."""
+    if isinstance(function, str):
+        from ... import ndarray as nd
+        if not hasattr(nd, function):
+            raise ValueError(f"Function name {function} is not found in "
+                             "ndarray namespace")
+        return function, (lambda F, *args: getattr(F, function)(*args))
+    if callable(function):
+        return function.__name__, None
+    raise ValueError(f"Unrecognized function in {owner}: {function} of "
+                     f"type {type(function)}")
+
+
+class Lambda(Block):
+    """Wraps a function of NDArrays as a Block (reference:
+    basic_layers.py:647)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name, by_name = _named_function(function, "lambda")
+        if by_name is None:
+            self._func_impl = function
+        else:
+            from ... import ndarray as nd
+            self._func_impl = getattr(nd, function)
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}({self._func_name})"
+
+
+class HybridLambda(HybridBlock):
+    """Wraps a function ``f(F, *inputs)`` as a HybridBlock (reference:
+    basic_layers.py:694)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name, by_name = _named_function(function, "lambda")
+        self._func = function if by_name is None else by_name
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}({self._func_name})"

@@ -7,7 +7,9 @@ leaf that requires grad (for ``grad_req`` "write" or "add"); the
 optimizer updates it in place. Shapes with 0s are completed at the first
 forward (deferred init). Initial values come from the initializer's
 name rules, drawn from the device's explicit generator
-(``mxnet_tpu_torch.random``). ``save``/``load`` are not ported yet.
+(``mxnet_tpu_torch.random``). ``ParameterDict.save`` / ``load`` read and
+write the ``.params`` format of ``ndarray/param_file.py`` (the JAX
+package's files load here and the port's there).
 """
 from __future__ import annotations
 
@@ -379,10 +381,45 @@ class ParameterDict:
         for v in self.values():
             setattr(v, name, value)
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("ParameterDict.save: the .params format "
-                                  "is not ported yet")
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to a ``.params`` file (the format of
+        ``ndarray/param_file.py``, the JAX package's), named without
+        ``strip_prefix`` (reference: parameter.py:713)."""
+        from .. import ndarray as nd
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    f"Prefix '{strip_prefix}' is to be stripped before "
+                    f"saving, but Parameter's name '{param.name}' does not "
+                    f"start with '{strip_prefix}'")
+            arg_dict[param.name[len(strip_prefix):]] = param._check_and_get()
+        nd.save(filename, arg_dict)
 
-    def load(self, *args, **kwargs):
-        raise NotImplementedError("ParameterDict.load: the .params format "
-                                  "is not ported yet")
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Read a ``.params`` file: names get ``restore_prefix`` in front
+        and lose a Module file's ``arg:`` / ``aux:`` marker; each value is
+        copied into its parameter's storage, or is the initial value of
+        a parameter not initialized yet, on ``ctx`` when given
+        (reference: parameter.py:740)."""
+        from .. import ndarray as nd
+        from .block import set_param
+        arg_dict = nd.load(filename)
+        if restore_prefix:
+            arg_dict = {restore_prefix + k: v for k, v in arg_dict.items()}
+        arg_dict = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                    for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise IOError(f"Parameter '{name}' is missing in file "
+                                  f"'{filename}'")
+        for name, v in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise IOError(
+                        f"Parameter '{name}' loaded from file '{filename}' "
+                        "is not present in ParameterDict")
+                continue
+            set_param(self._params[name], v, ctx)

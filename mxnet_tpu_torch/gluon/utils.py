@@ -1,12 +1,18 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
-``split_data``, ``split_and_load`` and ``clip_global_norm``."""
+``split_data``, ``split_and_load``, ``clip_global_norm``, ``check_sha1``
+and ``download`` (which raises: the port fetches nothing over the
+network)."""
 from __future__ import annotations
+
+import hashlib
 
 import torch
 
 from .. import ndarray as nd
+from ..base import MXNetError
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -55,3 +61,25 @@ def clip_global_norm(arrays, max_norm):
             for a in arrays:
                 a._data.mul_(scale)
     return total_norm
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the file's SHA-1 hex digest is ``sha1_hash`` (reference:
+    utils.py:136)."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        while True:
+            data = f.read(1048576)
+            if not data:
+                break
+            sha1.update(data)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None):
+    """Raises: the port has no network access and fetches nothing
+    (reference: utils.py:157). Place the file at its path yourself; the
+    readers that need one (``data.vision``) take local files."""
+    raise MXNetError(
+        f"gluon.utils.download({url!r}): the port does not download over "
+        "the network; place the file locally and pass its path")

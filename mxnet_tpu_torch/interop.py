@@ -99,7 +99,13 @@ def gluon_params_from_jax(params, net, device):
     match exactly; a shape the port's net already knows must match, and
     an unknown one (deferred init) is taken from the array. A parameter
     not initialized yet is created on ``device``; an initialized one is
-    overwritten where it lies."""
+    overwritten where it lies (in place, so a hybridized block's
+    captured programs read the new values). Every layer keeps the JAX
+    package's layout, so values carry over as they are: a transposed
+    convolution's weight is ``(in_channels, channels / groups,
+    *kernel)`` in both, ``PReLU``'s ``alpha`` is ``(1,)``, and the
+    ``InstanceNorm`` / ``LayerNorm`` ``gamma`` and ``beta`` are per
+    channel."""
     from .context import as_context
     from .ndarray.ndarray import NDArray
     ctx = as_context(device)

@@ -1,9 +1,10 @@
-"""Neural-network ops of the ResNet serving and training paths
-(counterpart of ``mxnet_tpu/ops/nn.py``), as plain PyTorch on NCHW
-tensors, differentiable by autograd.
+"""Neural-network ops of the ResNet serving and training paths and of
+the Gluon layers (counterpart of ``mxnet_tpu/ops/nn.py``), as plain
+PyTorch on NC* tensors, differentiable by autograd.
 
-Attributes, defaults and output arity are the JAX ops'. Convolution,
-FullyConnected and the space-to-depth stem go to ``F.conv2d`` /
+Attributes, defaults and output arity are the JAX ops'. Convolution and
+Deconvolution (1-, 2- and 3-D), FullyConnected and the space-to-depth
+stem go to ``F.conv{1,2,3}d`` / ``F.conv_transpose{1,2,3}d`` /
 ``torch.matmul``, as the JAX package leaves them to XLA outside any
 Pallas kernel. Each op keeps the dtype of its data input, like the JAX
 ops do, with the JAX ops' promotions where the dtypes mix: a
@@ -34,6 +35,30 @@ def _need_4d(op, data):
                          f"(got shape {tuple(data.shape)})")
 
 
+# the convolutions and pools of 1, 2 and 3 spatial dims, NC* layouts
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+_LAYOUTS = {1: "NCW", 2: "NCHW", 3: "NCDHW"}
+
+
+def _spatial(op, data, layout=None):
+    """The count of spatial dims of NC* ``data`` (1 to 3)."""
+    sdims = data.dim() - 2
+    if sdims not in _CONV:
+        raise MXNetError(f"{op}: data of 3 to 5 dims (NCW, NCHW, NCDHW), "
+                         f"got shape {tuple(data.shape)}")
+    if layout not in (None, _LAYOUTS[sdims]):
+        raise MXNetError(f"{op}: layout {layout!r} is not supported")
+    return sdims
+
+
+def _bias_add(out, bias, sdims):
+    return out + bias.reshape((1, -1) + (1,) * sdims)
+
+
 @register_op("FullyConnected")
 def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                     flatten=True, **kw):
@@ -51,16 +76,64 @@ def convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
                 no_bias=False, cudnn_tune=None, cudnn_off=False,
                 workspace=None, layout=None, **kw):
-    _need_4d("Convolution", data)
-    if layout not in (None, "NCHW"):
-        raise MXNetError(f"Convolution: layout {layout!r} is not supported")
-    out = F.conv2d(data, weight.to(data.dtype), None,
-                   stride=_tup(stride, 2) or (1, 1),
-                   padding=_tup(pad, 2) or (0, 0),
-                   dilation=_tup(dilate, 2) or (1, 1),
+    n = _spatial("Convolution", data, layout)
+    out = _CONV[n](data, weight.to(data.dtype), None,
+                   stride=_tup(stride, n) or (1,) * n,
+                   padding=_tup(pad, n) or (0,) * n,
+                   dilation=_tup(dilate, n) or (1,) * n,
                    groups=int(num_group))
     if not no_bias and bias is not None:
-        out = out + bias.reshape(1, -1, 1, 1)
+        out = _bias_add(out, bias, n)
+    return out
+
+
+def deconv_geometry(in_shape, kernel, stride, dilate, pad, adj,
+                    target_shape=None):
+    """``(pad, adj)`` of a Deconvolution over the spatial ``in_shape``.
+    With a ``target_shape`` (all dims > 0) the output takes that size and
+    the pads and adjustments come from it, as the reference's
+    ``DeconvolutionParam::InferPad`` computes them: total = stride *
+    (in - 1) + dilated kernel - target, adj = total % 2, pad = (total +
+    1) // 2."""
+    if not target_shape or not all(int(t) > 0 for t in target_shape):
+        return pad, adj
+    pads, adjs = [], []
+    for x, k, s, d, t in zip(in_shape, kernel, stride, dilate,
+                             target_shape):
+        total = s * (x - 1) + d * (k - 1) + 1 - int(t)
+        if total < 0:
+            raise MXNetError(f"Deconvolution: target_shape {target_shape} "
+                             f"is larger than the kernel can reach")
+        adjs.append(total % 2)
+        pads.append((total + 1) // 2)
+    return tuple(pads), tuple(adjs)
+
+
+@register_op("Deconvolution")
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_filter=None, num_group=1, no_bias=True, workspace=None,
+                  cudnn_tune=None, cudnn_off=False, layout=None, **kw):
+    """Transposed convolution (reference: src/operator/nn/
+    deconvolution.cc). The weight keeps MXNet's ``(Cin, Cout / groups,
+    *kernel)`` layout, which is ``F.conv_transpose*d``'s own; the output
+    size is ``(in - 1) * stride - 2 * pad + dilate * (kernel - 1) + adj
+    + 1`` (the JAX op's gradient-of-convolution form gives the same).
+    ``target_shape`` sets pad and adj as the reference does
+    (``deconv_geometry``)."""
+    n = _spatial("Deconvolution", data, layout)
+    stride = _tup(stride, n) or (1,) * n
+    dilate = _tup(dilate, n) or (1,) * n
+    kernel = _tup(kernel, n) or tuple(weight.shape[2:])
+    pad, adj = deconv_geometry(tuple(data.shape[2:]), kernel, stride,
+                               dilate, _tup(pad, n) or (0,) * n,
+                               _tup(adj, n) or (0,) * n,
+                               _tup(target_shape, n))
+    out = _CONV_T[n](data, weight.to(data.dtype), None, stride=stride,
+                     padding=pad, output_padding=adj, groups=int(num_group),
+                     dilation=dilate)
+    if not no_bias and bias is not None:
+        out = _bias_add(out, bias, n)
     return out
 
 
@@ -99,37 +172,41 @@ def conv_s2d_stem(data, weight, **kw):
 @register_op("Pooling")
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
-            cudnn_off=False, count_include_pad=True, **kw):
-    _need_4d("Pooling", data)
+            cudnn_off=False, count_include_pad=True, layout=None, **kw):
+    n = _spatial("Pooling", data, layout)
     if global_pool:
+        dims = tuple(range(2, 2 + n))
         if pool_type == "max":
-            return torch.amax(data, dim=(2, 3), keepdim=True)
+            return torch.amax(data, dim=dims, keepdim=True)
         if pool_type == "sum":
-            return torch.sum(data, dim=(2, 3), keepdim=True)
-        return torch.mean(data, dim=(2, 3), keepdim=True)
+            return torch.sum(data, dim=dims, keepdim=True)
+        return torch.mean(data, dim=dims, keepdim=True)
     if pooling_convention not in ("valid", "full"):
         raise MXNetError(f"Pooling: pooling_convention="
                          f"{pooling_convention!r} is not supported")
-    kernel = _tup(kernel, 2)
-    stride = _tup(stride, 2) or (1, 1)
-    pad = _tup(pad, 2) or (0, 0)
+    kernel = _tup(kernel, n)
+    stride = _tup(stride, n) or (1,) * n
+    pad = _tup(pad, n) or (0,) * n
     if pool_type not in ("max", "avg", "sum"):
         raise MXNetError(f"Pooling: pool_type {pool_type!r} is not "
                          "supported")
     if pooling_convention == "full":
-        return _pool_full(data, kernel, pool_type, stride, pad,
+        return _pool_full(data, n, kernel, pool_type, stride, pad,
                           count_include_pad)
+    window = 1
+    for k in kernel:
+        window *= k
     if pool_type == "max":
         # padding counts as -inf, as the JAX op's reduce_window init does
-        return F.max_pool2d(data, kernel, stride, pad)
+        return _MAX_POOL[n](data, kernel, stride, pad)
     if pool_type == "avg":
-        return F.avg_pool2d(data, kernel, stride, pad,
+        return _AVG_POOL[n](data, kernel, stride, pad,
                             count_include_pad=bool(count_include_pad))
-    return F.avg_pool2d(data, kernel, stride, pad,
-                        count_include_pad=True) * (kernel[0] * kernel[1])
+    return _AVG_POOL[n](data, kernel, stride, pad,
+                        count_include_pad=True) * window
 
 
-def _pool_full(data, kernel, pool_type, stride, pad, count_include_pad):
+def _pool_full(data, n, kernel, pool_type, stride, pad, count_include_pad):
     """Pooling with ``pooling_convention="full"`` (ceil-mode output
     size), as the JAX op computes it: each spatial axis is padded by
     ``pad`` in front and behind by what ``ceil((x + 2p - k) / s) + 1``
@@ -145,17 +222,19 @@ def _pool_full(data, kernel, pool_type, stride, pad, count_include_pad):
     if pool_type == "max":
         fill = float("-inf") if data.is_floating_point() \
             else torch.iinfo(data.dtype).min
-        return F.max_pool2d(F.pad(data, pads, value=fill), kernel, stride)
-    avg = F.avg_pool2d(F.pad(data, pads), kernel, stride)
+        return _MAX_POOL[n](F.pad(data, pads, value=fill), kernel, stride)
+    window = 1
+    for k in kernel:
+        window *= k
+    avg = _AVG_POOL[n](F.pad(data, pads), kernel, stride)
     if pool_type == "avg" and count_include_pad:
         return avg
-    summed = avg * (kernel[0] * kernel[1])
+    summed = avg * window
     if pool_type == "sum":
         return summed
     ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
                       device=data.device)
-    counts = F.avg_pool2d(F.pad(ones, pads), kernel, stride) \
-        * (kernel[0] * kernel[1])
+    counts = _AVG_POOL[n](F.pad(ones, pads), kernel, stride) * window
     return summed / counts
 
 
@@ -167,6 +246,34 @@ _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
 @register_op("Activation")
 def activation(data, act_type="relu", **kw):
     return _ACTIVATIONS[act_type](data)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register_op("LeakyReLU")
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, **kw):
+    """leaky / elu / prelu / selu / rrelu (reference:
+    src/operator/leaky_relu-inl.h), the JAX op's math: prelu's ``gamma``
+    is per channel (axis 1) when 1-D; rrelu takes the mean of its slope
+    bounds, the reference's inference slope, in every mode."""
+    pos = data > 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(pos, data, g.to(data.dtype) * data)
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(pos, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "rrelu":
+        s = (lower_bound + upper_bound) / 2.0
+        return torch.where(pos, data, s * data)
+    raise MXNetError(f"LeakyReLU: unknown act_type {act_type!r}")
 
 
 @register_op("SoftmaxOutput", aliases=["Softmax"])
@@ -281,6 +388,18 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     if output_mean_var:
         return out, mean.squeeze(ax), var.squeeze(ax)
     return out
+
+
+@register_op("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3, **kw):
+    """Normalise each sample's channel over its spatial dims with the
+    population variance (reference: src/operator/instance_norm-inl.h),
+    then scale by ``gamma`` and shift by ``beta`` per channel."""
+    red = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=red, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
 
 
 # the additive mask of the JAX package's ring attention

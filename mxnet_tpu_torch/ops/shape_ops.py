@@ -193,3 +193,31 @@ def sparse_segment_sum(data, segment_ids, num_segments=None, **kw):
     n = int(num_segments) if num_segments is not None \
         else int(data.shape[0])
     return segment_rows(data, segment_ids, n)
+
+
+@register_op("Pad", aliases=["pad"])
+def pad(data, mode="constant", pad_width=(), constant_value=0.0, **kw):
+    """Pad every axis by the (before, after) pairs of the flat
+    ``pad_width`` (reference: src/operator/pad.cc), in ``constant``,
+    ``edge`` or ``reflect`` mode, as the JAX op's ``jnp.pad``. ``edge``
+    and ``reflect`` pad the 1 to 3 trailing axes of 3- to 5-D data (the
+    leading pairs must be 0, as the reference requires)."""
+    pw = [int(v) for v in pad_width]
+    if len(pw) != 2 * data.dim():
+        raise ValueError(f"Pad: pad_width needs 2 entries per axis of "
+                         f"{tuple(data.shape)}, got {tuple(pw)}")
+    if mode not in ("constant", "edge", "reflect"):
+        raise ValueError(f"Pad: unknown mode {mode!r}")
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(data.dim())]
+    if mode == "constant":
+        flat = [v for p in reversed(pairs) for v in p]
+        return F.pad(data, flat, mode="constant", value=constant_value)
+    lead = max(data.dim() - 3, 2) if data.dim() >= 3 else data.dim()
+    if data.dim() not in (3, 4, 5) or any(pairs[i] != (0, 0)
+                                          for i in range(lead)):
+        raise ValueError(f"Pad: {mode} mode pads the trailing 1-3 axes of "
+                         f"3-5-D data; got {tuple(pw)} for "
+                         f"{tuple(data.shape)}")
+    flat = [v for p in reversed(pairs[lead:]) for v in p]
+    return F.pad(data, flat, mode="replicate" if mode == "edge"
+                 else "reflect")

@@ -4,9 +4,10 @@
 
 Builds the imperative path of ``__graft_entry__.entry()``'s model on the
 port: ``get_resnet(1, 50, classes=1000)``, Xavier from seed 0 on
-``cuda:0``, hybridized, ``Trainer("sgd", lr 0.1, momentum 0.9, wd
-1e-4)``, ``SoftmaxCrossEntropyLoss``, fp32 with TF32 off; warms it with
-3 steps over one batch, then prints JSON lines:
+``cuda:0``, hybridized (its forward and backward run as captured CUDA
+graphs, ``gluon/cached_op.py``), ``Trainer("sgd", lr 0.1, momentum 0.9,
+wd 1e-4)``, ``SoftmaxCrossEntropyLoss``, fp32 with TF32 off; warms it
+with 3 steps over one batch, then prints JSON lines:
 
 - ``card``: the card's name and power limit (nvidia-smi);
 - ``split``: host-clock ms per step of its three parts, each ended by a

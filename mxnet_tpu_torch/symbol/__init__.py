@@ -88,6 +88,11 @@ def _make_sym_func(opdef):
                     resolved[n] = nxt
         opname = NameManager.current.get(name, opdef.name.lower())
         no_bias = kwargs.get("no_bias", False)
+        if opdef.name == "LeakyReLU" and \
+                kwargs.get("act_type", "leaky") != "prelu":
+            # gamma is an input of prelu alone (reference: leaky_relu-inl.h
+            # ListArguments)
+            omitted.add("gamma")
         full = []
         for n in arg_names + aux_names:
             if n in resolved:

@@ -6,9 +6,11 @@ op's (argument input names, auxiliary input names). Auxiliary inputs
 OP_INPUTS = {
     "FullyConnected": (["data", "weight", "bias"], []),
     "Convolution": (["data", "weight", "bias"], []),
+    "Deconvolution": (["data", "weight", "bias"], []),
     "conv_s2d_stem": (["data", "weight"], []),
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
     "LayerNorm": (["data", "gamma", "beta"], []),
+    "InstanceNorm": (["data", "gamma", "beta"], []),
     "Embedding": (["data", "weight"], []),
     "_contrib_SparseEmbedding": (["data", "weight"], []),
     "SoftmaxOutput": (["data", "label"], []),
@@ -19,6 +21,7 @@ OP_INPUTS = {
     "SVMOutput": (["data", "label"], []),
     "CausalSelfAttention": (["data"], []),
     "Activation": (["data"], []),
+    "LeakyReLU": (["data", "gamma"], []),
     "Pooling": (["data"], []),
     "Flatten": (["data"], []),
     "broadcast_add": (["lhs", "rhs"], []),
