@@ -422,7 +422,37 @@ script exits non-zero and prints no result. Phases:
    ``load_parameters`` into the captured block read by its next replay.
    21e ``gluon_mnist``: ``examples/gluon/mnist.py`` at its defaults,
    captured, accuracy above 0.9. ``slice17_seconds`` times them.
-22. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
+22. the op set (slice 19), ``ops/sweep.py``'s cases: 22a ``ops_sweep``:
+   each of the slice's 206 op names on the card and on the CPU from the
+   same seeded inputs, forward in fp32 (exact for the shape, index,
+   sorting, creation and logical ops, rtol 1e-5 for arithmetic, 1e-4 for
+   the special functions and linalg) and, for the elementwise and shape
+   families, in bf16 (2e-2), gradients under one integer cotangent at
+   ten times the forward tolerance; the samplers' shapes and dtypes and
+   fresh draws; how many ran, the worst error per family, the names that
+   failed (none, or the phase fails). 22b ``ops_capture``: the
+   padded-sequence symbol (``sweep.padded_sequence_symbol``: take,
+   SequenceMask with lengths, batch_dot, SoftmaxActivation,
+   L2Normalization, slice, tile, linalg_gemm2, topk, smooth_l1, MakeLoss,
+   a BlockGrad branch) at T 35, N 32 bound on the card: the first step's
+   outputs and gradients against the CPU's (1e-4), its forward and
+   backward programs captured and each replay against the eager body
+   from the same state (1e-6: the embedding gradient's atomic adds), then
+   steps of ``Module(fused=False)`` and ``Module(fused=True)`` with finite
+   losses. 22c ``ops_timing``: CUDA-event ms of ``topk(k=5)`` and ``sort``
+   over the LSTM LM's logits (17,920 x 33,278 fp32; ``torch.topk`` /
+   ``torch.sort`` beside them), ``SequenceMask`` at (35, 512, 650),
+   ``batch_dot`` at GPT-2 small's attention in bf16, bilinear
+   ``UpSampling`` x2 and ``L2Normalization`` at (32, 512, 38, 38),
+   ``linalg_potrf`` / ``linalg_trsm`` over (256, 64, 64), every sampler
+   at 2^24 draws with its mean and variance within 5 standard errors
+   (``ops_sampler_moments``), each beside its bytes bound and the card.
+   22d ``ops_c11``: a bound Dropout (forward and backward captured), the
+   fused step's Dropout and one sampler of each kind in a captured
+   inference bind draw anew at each replay, repeat under the same seed
+   in a second run, and equal the eager run; ``linalg_syevd`` inside a
+   capture raises, naming itself, and the card stays usable.
+23. the kernels line (K1/K2/B1/B2 also with their ``fit``, ``executor``,
    ``fused_adam``, ``data_pipeline``, ``image_classification`` and (K1,
    K2) ``gluon_export`` launches, D1 with its
    decode_serving launches and its ``lm_spec`` launches, ``lstm_cell``
@@ -8244,6 +8274,582 @@ def gluon_slice17_phases(mt, torch, np, smi, ops, wlm_eager_ppl):
     return {"k4": hyb, "lstm_cell": wlm, "dcgan_ms": dcg, "export": exp}
 
 
+# ---------------------------------------------------------------------------
+# 22. the op set (slice 19): every new op name on the card against the
+# CPU, a captured bound symbol of them, their times at the sizes users run
+# them, and the repaired random draws of captured programs (C-11)
+# ---------------------------------------------------------------------------
+# bf16 sweep tolerance: ~2.5 bf16 ulps (CPU and CUDA each round their
+# fp32 arithmetic to bf16; reductions accumulate in another order)
+OPS_BF16_TOL = 2e-2
+OPS_SWEEP_BF16 = ("math", "index")
+# 22b: one padded-sequence batch and the symbol's widths
+OPS_SEQ = {"T": 35, "N": 32, "vocab": 1000, "embed": 64, "hidden": 64,
+           "classes": 10}
+OPS_TRAIN_STEPS = 5
+OPS_SAMPLER_DRAWS = 2 ** 24
+# the card the phase runs on ("cpu" runs its code paths on the CPU, where
+# the capture checks fail, as they must without a card)
+OPS_DEVICE = "cuda:0"
+
+
+def ops_errors(np, got, want):
+    """Largest |got - want| / (1 + |want|) over the outputs (0 for none;
+    NaN where they agree is no error)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = np.asarray(g, np.float64)
+        w = np.asarray(w, np.float64)
+        if g.shape != w.shape:
+            return float("inf")
+        both_nan = np.isnan(g) & np.isnan(w)
+        d = np.where(both_nan, 0.0, np.abs(g - w) / (1.0 + np.abs(w)))
+        if d.size:
+            worst = max(worst, float(np.nan_to_num(d, nan=np.inf).max()))
+    return worst
+
+
+def ops_close(np, got, want, tol):
+    """Element by element within ``tol`` (0: exact); NaN matches NaN."""
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False
+        if not np.allclose(g.astype(np.float64), w.astype(np.float64),
+                           rtol=tol, atol=tol, equal_nan=True):
+            return False
+    return True
+
+
+def ops_sweep_phase(mt, torch, np):
+    """22a: each of the slice's 206 names on CUDA and on the CPU from the
+    same seeded inputs (``ops/sweep.py``): forward in fp32 and, for the
+    elementwise and shape families, in bf16; the gradient under the same
+    integer cotangent where the op is differentiable, at ten times the
+    forward tolerance. Samplers: the CPU call's shape and dtype, and
+    fresh draws on the card (their distributions: 22c)."""
+    from mxnet_tpu_torch.ops import sweep
+    from mxnet_tpu_torch.ops.registry import get_op
+    ran, failed = [], []
+    worst = {f: {"fp32": 0.0, "bf16": 0.0, "grad": 0.0}
+             for f in sweep.FAMILIES}
+    done_cases = set()
+
+    def one(name, case):
+        fam = case.family
+        c = sweep.Case(name, fam, case.make, case.attrs, case.tol,
+                       case.grad, case.check, case.tag)
+        ins = c.inputs()
+        seed = 1234 if c.grad_positions(ins) else None
+        go, gg = sweep.run_port(c, ins, OPS_DEVICE, cot_seed=seed)
+        co, cg = sweep.run_port(c, ins, "cpu", cot_seed=seed)
+        torch.cuda.synchronize()
+        tol = c.tol
+        if c.check == "syevd":
+            go = [np.abs(go[0]), go[1]]
+            co = [np.abs(co[0]), co[1]]
+        cast_ok = True
+        if c.check and c.check.startswith("mp:"):
+            # the cast weight within one ulp of its dtype; the rest at tol
+            cast_ok = ops_close(np, go[:1], co[:1], 2.0 ** -7)
+            go, co = go[1:], co[1:]
+        worst[fam]["fp32"] = max(worst[fam]["fp32"], ops_errors(np, go, co))
+        ok = cast_ok and ops_close(np, go, co, tol)
+        if gg is not None:
+            worst[fam]["grad"] = max(worst[fam]["grad"],
+                                     ops_errors(np, gg, cg))
+            ok = ok and ops_close(np, gg, cg, 10 * tol)
+        if fam in OPS_SWEEP_BF16 and not c.check:
+            bo, _ = sweep.run_port(c, ins, OPS_DEVICE, dtype="bfloat16")
+            bc, _ = sweep.run_port(c, ins, "cpu", dtype="bfloat16")
+            worst[fam]["bf16"] = max(worst[fam]["bf16"],
+                                     ops_errors(np, bo, bc))
+            ok = ok and ops_close(np, bo, bc,
+                                  0.0 if tol == 0.0 else OPS_BF16_TOL)
+        return ok
+
+    for name in sweep.NEW_NAMES:
+        canon = get_op(name).name
+        try:
+            if canon in sweep.SAMPLERS:
+                ok = ops_sampler_smoke(mt, torch, name)
+            else:
+                cases = sweep.cases_of(name)
+                todo = [cs for cs in cases if cs.id not in done_cases] \
+                    or cases[:1]
+                ok = True
+                for cs in todo:
+                    done_cases.add(cs.id)
+                    ok = one(name, cs) and ok
+        except Exception as e:   # noqa: BLE001 (named in the failures)
+            ok = False
+            name = f"{name}: {type(e).__name__}: {str(e)[:160]}"
+        (ran if ok else failed).append(name)
+    row = {"phase": "ops_sweep", "names": len(sweep.NEW_NAMES),
+           "ran": len(ran) + len(failed), "passed": len(ran),
+           "cases": len(done_cases), "worst_rel_err": worst,
+           "tolerances": {"exact": 0.0, "arith": sweep.ARITH,
+                          "special": sweep.SPECIAL, "bf16": OPS_BF16_TOL,
+                          "grad": "10x forward"},
+           "failed": failed}
+    emit(row)
+    check(not failed and len(ran) == 206, f"ops_sweep: {failed}")
+    return row
+
+
+def ops_sampler_args(torch, name, device, n):
+    """(tensor inputs, attrs) of a sampler call of ``n`` draws a row."""
+    from mxnet_tpu_torch.ops import sweep
+    from mxnet_tpu_torch.ops.registry import get_op
+    canon = get_op(name).name
+    attrs, kind = sweep.SAMPLERS[canon]
+    if canon.startswith("_random_") or canon == "_sample_unique_zipfian":
+        return [], dict(attrs, shape=(n,), device=device)
+    if canon == "_sample_multinomial":
+        return [torch.tensor([sweep.MULTINOMIAL_PROBS], device=device)], \
+            {"shape": n}
+    if canon == "_shuffle":
+        return [torch.arange(n, dtype=torch.float32, device=device)], {}
+    return [torch.tensor(c, dtype=torch.float32, device=device)
+            for c in sweep.SAMPLER_PARAMS[kind]], {"shape": (n,)}
+
+
+def ops_sampler_smoke(mt, torch, name):
+    """A sampler on the card: the CPU call's shape and dtype, and two
+    calls that draw differently."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    fn = get_op(name).fn
+    ins, attrs = ops_sampler_args(torch, name, OPS_DEVICE, 64)
+    cins, cattrs = ops_sampler_args(torch, name, "cpu", 64)
+    a, b = fn(*ins, **attrs), fn(*ins, **attrs)
+    c = fn(*cins, **cattrs)
+    return tuple(a.shape) == tuple(c.shape) and a.dtype == c.dtype \
+        and a.device == torch.device(OPS_DEVICE) and not torch.equal(a, b)
+
+
+def ops_seq_feed(np, sym):
+    """The padded batch and seeded parameters of 22b's symbol as
+    {name: numpy}, and each argument's grad_req."""
+    T, N = OPS_SEQ["T"], OPS_SEQ["N"]
+    rs = np.random.RandomState(SEED + 19)
+    vals = {"data": rs.randint(0, OPS_SEQ["vocab"], (T, N))
+            .astype(np.float32),
+            "seq_len": rs.randint(1, T + 1, (N,)).astype(np.float32),
+            "softmax_label": rs.randint(0, OPS_SEQ["classes"], (N,))
+            .astype(np.float32)}
+    vals["seq_len"][0] = T
+    shapes = {k: v.shape for k, v in vals.items()}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    for name, shp in zip(sym.list_arguments(), arg_shapes):
+        if name not in vals:
+            vals[name] = (0.2 * rs.standard_normal(shp)).astype(np.float32)
+    reqs = {n: ("write" if n.endswith(("weight", "bias")) else "null")
+            for n in sym.list_arguments()}
+    return vals, reqs
+
+
+def ops_bind(mt, sym, vals, reqs, ctx):
+    """``sym`` bound on ``ctx`` to the numpy ``vals``, gradient arrays
+    for the ``write`` arguments."""
+    return sym.bind(ctx=ctx, args={k: mt.nd.array(v, ctx=ctx)
+                                   for k, v in vals.items()},
+                    args_grad={k: mt.nd.zeros(vals[k].shape, ctx=ctx)
+                               for k, r in reqs.items() if r == "write"},
+                    grad_req=reqs)
+
+
+def ops_step(exe, reqs):
+    """One training forward and backward: (outputs, gradients) as
+    numpy."""
+    outs = [o.asnumpy() for o in exe.forward(is_train=True)]
+    exe.backward()
+    grads = [exe.grad_dict[n].asnumpy() for n, r in sorted(reqs.items())
+             if r == "write"]
+    return outs, grads
+
+
+def ops_program_counts(programs):
+    """(programs, captures, replays) of some ``CapturedProgram``s, from
+    their compile-registry records."""
+    progs = [p for p in programs if p.captured]
+    return (len(progs), sum(p.record.captures for p in progs),
+            sum(p.record.replays for p in progs))
+
+
+def ops_capture_phase(mt, torch, np, smi):
+    """22b: the padded-sequence symbol (``ops/sweep.py``: SequenceMask with
+    lengths, take, batch_dot, SoftmaxActivation, L2Normalization, slice,
+    tile, linalg_gemm2, topk, smooth_l1, MakeLoss, a BlockGrad branch)
+    bound on the card: the first step's outputs and gradients against the
+    same symbol on the CPU (rtol 1e-4); its forward and backward
+    captured, each replay against the eager body from the same state
+    (``captured = False``); then a few steps of ``Module(fused=False)``
+    and ``Module(fused=True)`` with finite losses."""
+    from mxnet_tpu_torch.name import NameManager
+    from mxnet_tpu_torch.ops import sweep
+    t0 = time.perf_counter()
+    with NameManager():
+        sym = sweep.padded_sequence_symbol(
+            mt.sym, vocab=OPS_SEQ["vocab"], embed=OPS_SEQ["embed"],
+            hidden=OPS_SEQ["hidden"], classes=OPS_SEQ["classes"])
+    vals, reqs = ops_seq_feed(np, sym)
+    gpu = ops_bind(mt, sym, vals, reqs, OPS_DEVICE)
+    cpu = ops_bind(mt, sym, vals, reqs, "cpu")
+    first_out, first_grad = ops_step(gpu, reqs)
+    c_out, c_grad = ops_step(cpu, reqs)
+    first_err = ops_errors(np, first_out + first_grad, c_out + c_grad)
+    first_ok = ops_close(np, first_out + first_grad, c_out + c_grad, 1e-4)
+    replay_err = 0.0
+    for _ in range(3):          # capture, then replays
+        r_out, r_grad = ops_step(gpu, reqs)
+        gpu.captured = False
+        e_out, e_grad = ops_step(gpu, reqs)
+        gpu.captured = True
+        replay_err = max(replay_err,
+                         ops_errors(np, r_out + r_grad, e_out + e_grad))
+    progs, captures, replays = ops_program_counts(
+        gpu._progs.captured.values())
+    # replays against the eager body: equal but for the order of the
+    # embedding gradient's atomic adds (1e-6)
+    replay_ok = replay_err <= 1e-6
+    trained = {}
+    T, N = OPS_SEQ["T"], OPS_SEQ["N"]
+    batch = mt.io.DataBatch(
+        data=[mt.nd.array(vals["data"], ctx=OPS_DEVICE),
+              mt.nd.array(vals["seq_len"], ctx=OPS_DEVICE)],
+        label=[mt.nd.array(vals["softmax_label"], ctx=OPS_DEVICE)])
+    lab = vals["softmax_label"].astype(np.int64)
+    for fused in (False, True):
+        mod = mt.mod.Module(sym, data_names=("data", "seq_len"),
+                            label_names=("softmax_label",),
+                            context=OPS_DEVICE, fused=fused)
+        mod.bind(data_shapes=[("data", (T, N)), ("seq_len", (N,))],
+                 label_shapes=[("softmax_label", (N,))])
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=OPS_DEVICE)
+                                    for k, v in vals.items()
+                                    if reqs.get(k) == "write"})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.5})
+        losses = []
+        for _ in range(OPS_TRAIN_STEPS):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            # the step's outputs (at the params before its update)
+            p = mod.get_outputs()[0].asnumpy()
+            losses.append(float(-np.log(p[np.arange(N), lab]).mean()))
+        trained["fused" if fused else "unfused"] = losses
+    finite = all(np.isfinite(v) for ls in trained.values() for v in ls)
+    row = {"phase": "ops_capture", "shape": OPS_SEQ,
+           "first_step_max_rel_err_vs_cpu": first_err,
+           "first_step_tol": 1e-4, "replay_vs_eager_max_rel_err":
+           replay_err, "programs": progs, "captures": captures,
+           "replays": replays, "losses": trained,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    check(first_ok, f"ops_capture: first step vs CPU {first_err}")
+    check(replay_ok, f"ops_capture: replay vs eager {replay_err}")
+    check(captures >= 2 and replays >= 6,
+          f"ops_capture: {captures} captures, {replays} replays")
+    check(finite, f"ops_capture: losses {trained}")
+    return row
+
+
+def ops_moments_ok(x, dist):
+    """Mean and variance of the draws ``x`` (a CUDA tensor) within 5
+    standard errors of ``dist``'s (a scipy distribution)."""
+    n = x.numel()
+    xd = x.double()
+    mean, var = float(xd.mean()), float(xd.var(unbiased=False))
+    m, v, k = (float(t) for t in dist.stats(moments="mvk"))
+    se_m, se_v = (v / n) ** 0.5, v * ((k + 2.0) / n) ** 0.5
+    return {"mean": mean, "want_mean": m, "var": var, "want_var": v,
+            "ok": abs(mean - m) < 5 * se_m and abs(var - v) < 5 * se_v}
+
+
+def ops_timing_phase(mt, torch, np, smi):
+    """22c: times (CUDA events) of the slice's ops at the sizes users run
+    them, each beside its bytes bound and, where there is one, the
+    PyTorch call it resembles (a yardstick). A record, not a claim."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.ops import sweep
+    gen = torch.Generator(device=OPS_DEVICE)
+    gen.manual_seed(SEED + 22)
+    rows = []
+
+    def rec(name, shape, dtype, fn, nbytes, library=None, reps=5, inner=5):
+        ms = time_ms(fn, reps=reps, inner=inner, warmup=2)
+        lib = time_ms(library, reps=reps, inner=inner, warmup=2) \
+            if library is not None else None
+        row = {"op": name, "shape": shape, "dtype": dtype, "ms": ms,
+               "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+               "library_ms": lib}
+        rows.append(row)
+        emit(dict({"phase": "ops_timing"}, **row, card=smi))
+
+    # topk and sort over the LSTM LM's logits (bench_lstm.py medium)
+    logits = torch.randn(17920, 33278, device=OPS_DEVICE, generator=gen)
+    topk = get_op("topk").fn
+    sort = get_op("sort").fn
+    n = logits.numel() * 4
+    got = topk(logits, k=5, ret_typ="both")
+    ref = torch.topk(logits, 5)
+    check(torch.equal(got[0], ref.values), "topk values at LM size")
+    rec("topk", [17920, 33278], "float32",
+        lambda: topk(logits, k=5, ret_typ="both"), n,
+        lambda: torch.topk(logits, 5), reps=3, inner=2)
+    rec("sort", [17920, 33278], "float32", lambda: sort(logits),
+        2 * n, lambda: torch.sort(logits, dim=-1), reps=3, inner=2)
+    del logits, got, ref
+    torch.cuda.empty_cache()
+    # SequenceMask at the LM's (T, N, H)
+    x = torch.randn(35, 512, 650, device=OPS_DEVICE, generator=gen)
+    lens = torch.randint(1, 36, (512,), device=OPS_DEVICE,
+                         generator=gen).float()
+    sm = get_op("SequenceMask").fn
+    rec("SequenceMask", [35, 512, 650], "float32",
+        lambda: sm(x, lens, use_sequence_length=True), 2 * x.numel() * 4)
+    # batch_dot at GPT-2 small's attention
+    a = torch.randn(96, 1024, 64, device=OPS_DEVICE, generator=gen) \
+        .to(torch.bfloat16)
+    b = torch.randn(96, 64, 1024, device=OPS_DEVICE, generator=gen) \
+        .to(torch.bfloat16)
+    bd = get_op("batch_dot").fn
+    rec("batch_dot", [[96, 1024, 64], [96, 64, 1024]], "bfloat16",
+        lambda: bd(a, b), (a.numel() + b.numel() + 96 * 1024 * 1024) * 2)
+    # UpSampling (bilinear x2) and L2Normalization (channel): SSD's widths
+    x = torch.randn(32, 512, 38, 38, device=OPS_DEVICE, generator=gen)
+    w = torch.from_numpy(sweep.bilinear_weight(c=512)).to(OPS_DEVICE)
+    up = get_op("UpSampling").fn
+    rec("UpSampling", [32, 512, 38, 38], "float32",
+        lambda: up(x, w, scale=2, sample_type="bilinear", num_filter=512),
+        x.numel() * 4 * 5)
+    l2 = get_op("L2Normalization").fn
+    rec("L2Normalization", [32, 512, 38, 38], "float32",
+        lambda: l2(x, mode="channel"), 2 * x.numel() * 4)
+    del x
+    # potrf and trsm over a batch of 64 x 64
+    m = torch.randn(256, 64, 64, device=OPS_DEVICE, generator=gen)
+    spd = m @ m.transpose(-1, -2) + 64 * torch.eye(64, device=OPS_DEVICE)
+    potrf = get_op("linalg_potrf").fn
+    trsm = get_op("linalg_trsm").fn
+    L = potrf(spd)
+    check(torch.allclose(L @ L.transpose(-1, -2), spd, rtol=1e-4,
+                         atol=1e-2), "potrf reconstructs")
+    rec("linalg_potrf", [256, 64, 64], "float32", lambda: potrf(spd),
+        2 * spd.numel() * 4)
+    rec("linalg_trsm", [256, 64, 64], "float32", lambda: trsm(L, m),
+        3 * m.numel() * 4)
+    # each sampler at 2^24 draws, moments checked
+    moments = {}
+    for name in sorted(sweep.SAMPLERS):
+        fn = get_op(name).fn
+        dists = sweep.sampler_dists(name)
+        ins, attrs = ops_sampler_args(
+            torch, name, OPS_DEVICE, OPS_SAMPLER_DRAWS // max(len(dists), 1))
+        out = fn(*ins, **attrs)
+        torch.cuda.synchronize()
+        if name == "_shuffle":
+            ok = torch.equal(torch.sort(out).values, ins[0])
+            moments[name] = {"is_permutation": ok}
+        else:
+            draws = out.reshape(len(dists), -1)
+            res = [ops_moments_ok(draws[i], d)
+                   for i, d in enumerate(dists)]
+            ok = all(r["ok"] for r in res)
+            moments[name] = res
+        check(ok, f"{name} moments at 2^24: {moments[name]}")
+        rec(name, [OPS_SAMPLER_DRAWS], str(out.dtype).replace("torch.", ""),
+            lambda: fn(*ins, **attrs), out.numel() * out.element_size(),
+            reps=3, inner=3)
+    emit({"phase": "ops_sampler_moments", "draws": OPS_SAMPLER_DRAWS,
+          "rows": moments, "card": smi})
+    return rows
+
+
+def ops_draws(exe, steps, train):
+    """The outputs of ``steps`` runs of ``exe`` (with backward when
+    ``train``) as numpy lists."""
+    got = []
+    for _ in range(steps):
+        outs = exe.forward(is_train=train)
+        if train:
+            exe.backward()
+        got.append([o.asnumpy() for o in outs])
+    return got
+
+
+def ops_c11_phase(mt, torch, np, smi):
+    """22d (C-11): Dropout and one sampler of each kind inside bound,
+    captured programs draw anew on each replay, repeat under the same
+    seed in a second run, and draw what the eager run of the same
+    program draws; an op a capture cannot take raises naming itself."""
+    from mxnet_tpu_torch.name import NameManager
+    from mxnet_tpu_torch.ops import sweep
+    row = {"phase": "ops_c11", "card": smi}
+    # Dropout in a trained bind: forward and backward, captured
+    with NameManager():
+        data = mt.sym.var("data")
+        fc = mt.sym.FullyConnected(data, num_hidden=256, name="fc")
+        drop = mt.sym.LinearRegressionOutput(
+            mt.sym.Dropout(fc, p=0.5, name="drop"), name="out")
+    rs = np.random.RandomState(SEED + 11)
+    feed = {"data": rs.standard_normal((64, 128)).astype(np.float32),
+            "fc_weight": 0.05 * rs.standard_normal((256, 128))
+            .astype(np.float32),
+            "fc_bias": np.zeros(256, np.float32),
+            "out_label": rs.standard_normal((64, 256)).astype(np.float32)}
+
+    def dropout_run(captured):
+        exe = drop.simple_bind(ctx=OPS_DEVICE, grad_req="write",
+                               data=(64, 128))
+        exe.captured = captured
+        for n, a in exe.arg_dict.items():
+            a[:] = mt.nd.array(feed[n], ctx=OPS_DEVICE)
+        mt.random.seed(7)
+        outs = ops_draws(exe, 5, True)
+        return [o[0] == 0 for o in outs], exe
+
+    masks, exe = dropout_run(True)
+    distinct = len({m.tobytes() for m in masks})
+    again, _ = dropout_run(True)
+    eager, _ = dropout_run(False)
+    _, d_caps, d_reps = ops_program_counts(exe._progs.captured.values())
+    row["dropout"] = {
+        "steps": 5, "distinct_masks": distinct,
+        "kept_share": float(np.mean([1 - m.mean() for m in masks])),
+        "second_run_equal": all(np.array_equal(a, b)
+                                for a, b in zip(masks, again)),
+        "eager_equal": all(np.array_equal(a, b)
+                           for a, b in zip(masks, eager)),
+        "captures": d_caps, "replays": d_reps}
+    # Dropout inside the fused training step (Module(fused=True)): its
+    # graph registers the device's generator too
+    mod = mt.mod.Module(drop, data_names=("data",),
+                        label_names=("out_label",), context=OPS_DEVICE,
+                        fused=True)
+    mod.bind(data_shapes=[("data", (64, 128))],
+             label_shapes=[("out_label", (64, 256))])
+    mod.init_params(arg_params={k: mt.nd.array(feed[k], ctx=OPS_DEVICE)
+                                for k in ("fc_weight", "fc_bias")})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01})
+    batch = mt.io.DataBatch(
+        data=[mt.nd.array(feed["data"], ctx=OPS_DEVICE)],
+        label=[mt.nd.array(feed["out_label"], ctx=OPS_DEVICE)])
+    fused_masks = []
+    for _ in range(5):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        fused_masks.append(mod.get_outputs()[0].asnumpy() == 0)
+    _, f_caps, f_reps = ops_program_counts(mod._fused._programs.values())
+    row["fused_dropout"] = {
+        "steps": 5,
+        "distinct_masks": len({m.tobytes() for m in fused_masks}),
+        "captures": f_caps, "replays": f_reps}
+    # one sampler of each kind in one bound program (inference bind)
+    with NameManager():
+        heads = []
+        for name in sorted(sweep.SAMPLERS):
+            ins, attrs = ops_sampler_args(torch, name, "cpu", 256)
+            attrs.pop("device", None)
+            sins = [mt.sym.var(f"{name}_in{i}") for i in range(len(ins))]
+            heads.append(getattr(mt.sym, name)(*sins, name=f"s{name}",
+                                               **attrs))
+        group = mt.sym.Group(heads)
+    feeds = {}
+    for name in sorted(sweep.SAMPLERS):
+        ins, _ = ops_sampler_args(torch, name, "cpu", 256)
+        for i, t in enumerate(ins):
+            feeds[f"{name}_in{i}"] = t.numpy()
+
+    def sampler_run(captured):
+        exe = group.bind(ctx=OPS_DEVICE,
+                         args={k: mt.nd.array(v, ctx=OPS_DEVICE)
+                               for k, v in feeds.items()}, grad_req="null")
+        exe.captured = captured
+        mt.random.seed(13)
+        return ops_draws(exe, 4, False)
+
+    runs = sampler_run(True)
+    runs2 = sampler_run(True)
+    runs_eager = sampler_run(False)
+    fresh = {}
+    for k, name in enumerate(sorted(sweep.SAMPLERS)):
+        outs = [r[k] for r in runs]
+        fresh[name] = all(not np.array_equal(outs[i], outs[i + 1])
+                          for i in range(len(outs) - 1))
+    row["samplers"] = {
+        "fresh_each_replay": fresh,
+        "second_run_equal": all(np.array_equal(a, b)
+                                for r1, r2 in zip(runs, runs2)
+                                for a, b in zip(r1, r2)),
+        "eager_equal": all(np.array_equal(a, b)
+                           for r1, r2 in zip(runs, runs_eager)
+                           for a, b in zip(r1, r2))}
+    # an op a capture cannot take: linalg_syevd raises, naming itself
+    with NameManager():
+        eig = mt.sym.linalg_syevd(mt.sym.var("a"), name="eig")
+        ev = mt.sym.Group([eig[0], eig[1]])
+    spd = rs.standard_normal((4, 8, 8)).astype(np.float32)
+    spd = spd @ spd.transpose(0, 2, 1) + 8 * np.eye(8, dtype=np.float32)
+    exe = ev.bind(ctx=OPS_DEVICE,
+                  args={"a": mt.nd.array(spd, ctx=OPS_DEVICE)},
+                  grad_req="null")
+    exe.forward()                       # the eager warm-up runs it
+    try:
+        exe.forward()                   # the capture must refuse it
+        raised = None
+    except mt.MXNetError as e:
+        raised = str(e)
+    alive = float(torch.ones(4, device=OPS_DEVICE).sum()) == 4.0
+    exe.captured = False
+    w_eager = exe.forward()[1].asnumpy()
+    row["uncapturable"] = {"op": "linalg_syevd", "raised": raised,
+                           "eager_eigenvalues_ok": bool(np.allclose(
+                               w_eager, np.linalg.eigvalsh(spd), rtol=1e-4,
+                               atol=1e-3)), "cuda_alive": alive}
+    emit(row)
+    d, s = row["dropout"], row["samplers"]
+    check(d["distinct_masks"] == 5 and d["second_run_equal"]
+          and d["eager_equal"] and d["captures"] >= 2,
+          f"ops_c11 dropout: {d}")
+    f = row["fused_dropout"]
+    check(f["distinct_masks"] == 5 and f["captures"] >= 1,
+          f"ops_c11 fused dropout: {f}")
+    check(all(s["fresh_each_replay"].values()) and s["second_run_equal"]
+          and s["eager_equal"], f"ops_c11 samplers: {s}")
+    check(raised is not None and "linalg_syevd" in raised and alive
+          and row["uncapturable"]["eager_eigenvalues_ok"],
+          f"ops_c11 uncapturable: {row['uncapturable']}")
+    return row
+
+
+def op_set_phases(mt, torch, np, smi):
+    """Phase 22 (slice 19): 22a-22d, timed."""
+    t0 = time.perf_counter()
+    lap = {}
+
+    def mark(name):
+        lap[name] = time.perf_counter() - t0 - sum(lap.values())
+
+    ops_sweep_phase(mt, torch, np)
+    mark("ops_sweep")
+    ops_capture_phase(mt, torch, np, smi)
+    mark("ops_capture")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops_timing_phase(mt, torch, np, smi)
+    mark("ops_timing")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops_c11_phase(mt, torch, np, smi)
+    mark("ops_c11")
+    emit({"phase": "slice19_seconds", "seconds": time.perf_counter() - t0,
+          "per_phase": lap})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8603,6 +9209,11 @@ def main():
                   "per": "one forward of the exported Gluon ResNet-50 v1 "
                          "through a bf16 Predictor (counts set to 0 just "
                          "before it)", "pass_sites": s17["export"]["sites"]}
+
+    # 22a.-22d. the op set (slice 19) -----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    op_set_phases(mt, torch, np, smi)
 
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):

@@ -86,6 +86,11 @@ from . import parallel, rnn
 from . import profiler
 from .telemetry import memory_report
 from .serving import serving_report
+from . import attribute
+from .attribute import AttrScope
+from .symbol import Symbol
+from .executor import Executor
+from .io import DataBatch, DataIter
 
 __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "default_device", "ops", "dtype",
@@ -98,6 +103,7 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "gradient_compression", "CheckpointManager",
            "telemetry", "sparse", "recordio", "data", "data_report",
            "parallel", "rnn", "profiler", "memory_report",
-           "serving_report"]
+           "serving_report", "attribute", "AttrScope", "Symbol",
+           "Executor", "DataBatch", "DataIter"]
 
 config._autostart_profiler()

@@ -36,12 +36,16 @@ gets in another floating dtype than its array's (a bf16 batch into a
 float32 bind; float64 excepted, which JAX makes float32) replaces the
 array by a copy in that dtype, as the JAX package's executor computes in
 the dtype it is fed; the program's signature changes with it, so the
-program is captured anew. A capture that fails raises. Captures run in
-``capture_error_mode="thread_local"``, so that a ``DataPipeline``'s
-stager thread may pin and copy the next batch meanwhile (the global
-mode would let its calls invalidate the capture). ``captured =
-False`` runs the same programs eagerly (an A/B on one tree); the CPU
-always does.
+program is captured anew. A capture that fails raises. Each capture
+registers the device's explicit generator (``random.generator(device)``:
+``use_generator``'s, inside it), which the graph's samplers and Dropout
+draw from, so each replay draws anew, ``random.seed`` reproduces a run,
+and the eager and captured runs of one seeded program draw the same
+numbers. Captures run in ``capture_error_mode="thread_local"``, so that
+a ``DataPipeline``'s stager thread may pin and copy the next batch
+meanwhile (the global mode would let its calls invalidate the capture).
+``captured = False`` runs the same programs eagerly (an A/B on one
+tree); the CPU always does.
 
 A Monitor (``set_monitor_callback``) sees the outputs, or with
 ``monitor_all`` every op output from an interpreted walk of the original
@@ -52,6 +56,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import random as _random
 from .base import MXNetError
 from .ops import nn as _nn
 from .ops.registry import parse_attr
@@ -373,7 +378,8 @@ class Executor:
                 prog.static[n].copy_(v)
             try:
                 prog.capture(lambda: self._body(kind, prog.static),
-                             capture_error_mode="thread_local")
+                             capture_error_mode="thread_local",
+                             generators=(_random.generator(self._device),))
             except Exception as e:
                 raise MXNetError(f"capturing the executor program "
                                  f"{key.name} as a CUDA graph failed: "

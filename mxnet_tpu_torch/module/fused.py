@@ -37,7 +37,8 @@ The optimizer is any rule of ``parallel/functional_opt.py``. Each
 state leaf is parameter-shaped (one flat buffer laid out as the masters)
 or 0-dim (nadam's ``m_schedule``: one buffer with an element per
 parameter); sgd without momentum has none. sgld draws its noise from the
-step's own device generator, registered with each captured graph.
+step's own device generator, the graph's Dropout and samplers from the
+device's (``random.generator``); each captured graph registers both.
 
 Dtype flow (the JAX package's): fp32 master params, optimizer state
 and aux; with a ``compute_dtype`` every fp32 param, aux and data input
@@ -773,11 +774,14 @@ class FusedSymbolStep:
         prog.static = {n: torch.empty(v.shape, dtype=v.dtype,
                                       device=self.device)
                        for n, v in vals.items()}
+        from .. import random as _random
+        gens = (_random.generator(self.device),)
+        if self._gen is not None:
+            gens += (self._gen,)
         try:
             prog.capture(lambda: self._body(prog.static),
                          capture_error_mode=self.capture_error_mode,
-                         generators=(self._gen,) if self._gen is not None
-                         else (), arguments=self._state_tensors())
+                         generators=gens, arguments=self._state_tensors())
         except Exception as e:
             raise MXNetError(f"capturing the fused step "
                              f"{prog.key.name} as a CUDA graph failed: "

@@ -18,10 +18,10 @@ from ..context import as_context
 from ..dtype import resolve_dtype
 from ..ops.registry import _OPS
 from ..symbol.op_info import op_input_names
-from .ndarray import NDArray, array, empty, waitall, _invoke_op
+from .ndarray import NDArray, array, empty, waitall, _invoke_fn, _invoke_op
 
 __all__ = ["NDArray", "array", "empty", "waitall", "zeros", "ones", "full",
-           "arange", "save", "load", "random"]
+           "arange", "moveaxis", "onehot_encode", "save", "load", "random"]
 
 
 def _make_op_func(opdef):
@@ -55,6 +55,9 @@ def _make_op_func(opdef):
             dev = as_context(ctx).device
             nd_args = [NDArray(torch.as_tensor(np.asarray(a), device=dev))
                        for a in nd_args]
+            if not nd_args:
+                # a creation op or sampler: it builds on the context
+                kwargs["device"] = dev
         return _invoke_op(opdef.name, nd_args, kwargs)
 
     fn.__name__ = opdef.name
@@ -100,6 +103,20 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     if repeat != 1:
         t = t.repeat_interleave(repeat)
     return NDArray(t)
+
+
+def moveaxis(data, source, destination):
+    """``data`` with axis ``source`` moved to ``destination``."""
+    return _invoke_fn(lambda d: torch.movedim(d, source, destination),
+                      [data])
+
+
+def onehot_encode(indices, out):
+    """Writes the one-hot rows of ``indices`` (depth ``out.shape[1]``)
+    into ``out`` and returns it."""
+    res = _invoke_op("one_hot", [indices], {"depth": out.shape[1]})
+    out._data = res._data.to(out._data.dtype)
+    return out
 
 
 # -- serialization. Two formats by extension, as in the JAX package:

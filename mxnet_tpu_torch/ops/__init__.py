@@ -1,12 +1,16 @@
-"""The port's operator set: the ops a ResNet symbol needs in serving
-and training, the two fused ops the rewrite passes substitute, and the
-elementwise, shape and reduction ops behind NDArray and Gluon, the
-regression and SVM output heads, the optimizer update ops; and the
-decode-attention kernel's wrapper of the decode serving programs."""
+"""The port's operator set, under the JAX package's module names: the
+nn layers and heads, the elementwise, shape, reduction, creation and
+ordering, linear-algebra and sampling ops, the optimizer updates, the
+surface utilities, the two fused ops the rewrite passes substitute, and
+the decode-attention kernel's wrapper of the decode serving programs.
+The contrib, image, quantization and sparse-storage ops of the JAX
+package are not here yet (ROADMAP A5)."""
 from .registry import get_op, has_op, register_op, parse_attr
 from . import nn, elemwise, shape_ops, reduce, fused_bn_conv
 from . import decode_attention, optimizer_ops
+from . import creation, linalg, random_ops, surface
 
 __all__ = ["get_op", "has_op", "register_op", "parse_attr",
            "nn", "elemwise", "shape_ops", "reduce", "fused_bn_conv",
-           "decode_attention", "optimizer_ops"]
+           "decode_attention", "optimizer_ops", "creation", "linalg",
+           "random_ops", "surface"]

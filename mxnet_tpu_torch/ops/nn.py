@@ -679,3 +679,146 @@ def rnn(data, parameters, state, state_cell=None, state_size=None,
             return xs, torch.stack(h_out), torch.stack(c_out)
         return xs, torch.stack(h_out)
     return xs
+
+
+# ---------------------------------------------------------------------------
+# the legacy output and spatial ops (the JAX package's ops/nn.py:264-693)
+# ---------------------------------------------------------------------------
+@register_op("SoftmaxActivation")
+def softmax_activation(data, mode="instance", **kw):
+    """Softmax over the channel axis (``channel``) or over each
+    instance's flattened values."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+@register_op("softmax_cross_entropy")
+def softmax_cross_entropy(data, label, **kw):
+    """The summed cross-entropy of the rows of ``data`` against the class
+    ``label``s."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -torch.sum(torch.gather(logp, -1,
+                                   label.to(torch.int64)[:, None]))
+
+
+@register_op("UpSampling")
+def upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=None, **kw):
+    """``nearest``: each pixel repeated ``scale`` times along H and W
+    (with several inputs and ``concat``, each upsampled and joined on
+    the channels). ``bilinear``: the depthwise deconvolution of the data
+    by the weight input (kernel 2s - s % 2, stride s, pad s // 2, as the
+    JAX package's)."""
+    scale = int(scale)
+    data = args[0]
+
+    def near(a):
+        return a.repeat_interleave(scale, dim=2) \
+            .repeat_interleave(scale, dim=3)
+
+    if sample_type == "nearest":
+        if int(num_args) > 1 and multi_input_mode == "concat":
+            return torch.cat([near(a) for a in args], dim=1)
+        return near(data)
+    c = data.shape[1]
+    return deconvolution(data, args[1], None, kernel=(2 * scale - scale % 2,)
+                         * 2, stride=(scale,) * 2, pad=(scale // 2,) * 2,
+                         num_filter=c, num_group=c, no_bias=True)
+
+
+@register_op("ROIPooling")
+def roi_pooling(data, rois, pooled_size=(1, 1), spatial_scale=1.0, **kw):
+    """Max over each ROI's (ph, pw) bins (reference: roi_pooling.cc).
+    ROI corners scale by ``spatial_scale`` and round half to even
+    (``jnp.round``, unlike the ``round`` op); an empty bin gives 0. The
+    max runs over W, then H, each over masked rows (no gather out of
+    range; the batch index clamps, as JAX's gather)."""
+    ph, pw = _tup(pooled_size, 2)
+    n, _, h, w = data.shape
+    corner = torch.round(rois[:, 1:5] * spatial_scale).to(torch.int64)
+    x1, y1, x2, y2 = corner.unbind(1)
+    rh = torch.clamp_min(y2 - y1 + 1, 1)
+    rw = torch.clamp_min(x2 - x1 + 1, 1)
+    bidx = rois[:, 0].to(torch.int64).clamp(0, n - 1)
+    img = torch.index_select(data, 0, bidx)                  # (R, C, H, W)
+
+    def bins(start, size, p, extent):
+        i = torch.arange(p, device=data.device)
+        lo = start[:, None] + (i[None, :] * size[:, None]) // p
+        hi = start[:, None] + ((i[None, :] + 1) * size[:, None] + p - 1) // p
+        pos = torch.arange(extent, device=data.device)
+        return (pos >= lo[..., None]) & (pos < hi[..., None])  # (R, p, E)
+
+    neg = torch.full((), float("-inf"), dtype=data.dtype, device=data.device)
+    wmask = bins(x1, rw, pw, w)[:, None, None]               # R,1,1,pw,W
+    rowmax = torch.where(wmask, img[:, :, :, None, :], neg).amax(-1)
+    hmask = bins(y1, rh, ph, h)[:, None, :, :, None]         # R,1,ph,H,1
+    out = torch.where(hmask, rowmax[:, :, None], neg).amax(-2)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+@register_op("GridGenerator", no_grad=True)
+def grid_generator(data, transform_type="affine", target_shape=(0, 0), **kw):
+    """The (N, 2, H, W) sampling grid in [-1, 1]: ``affine`` maps the
+    target's (x, y, 1) through each (2, 3) ``data``; ``warp`` adds the
+    flow ``data`` to the identity grid."""
+    from .creation import linspace
+    h, w = (int(t) for t in target_shape)
+    ys = linspace(start=-1.0, stop=1.0, num=h, device=data.device)
+    xs = linspace(start=-1.0, stop=1.0, num=w, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    if transform_type == "affine":
+        base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                            torch.ones_like(gx).reshape(-1)])
+        out = torch.einsum("nij,jk->nik", data.reshape(-1, 2, 3),
+                           base.to(data.dtype))
+        return out.reshape(-1, 2, h, w)
+    return data + torch.stack([gx, gy])[None].to(data.dtype)
+
+
+@register_op("BilinearSampler")
+def bilinear_sampler(data, grid, **kw):
+    """Bilinear samples of ``data`` at ``grid`` ((N, 2, H', W') in
+    [-1, 1], corners aligned), a corner outside the image counting 0
+    (reference: bilinear_sampler.cc). The corners are gathered at
+    clamped positions and masked, as the JAX package's."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2
+    gy = (grid[:, 1] + 1) * (h - 1) / 2
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    wx1, wy1 = gx - x0, gy - y0
+    wx0, wy0 = 1 - wx1, 1 - wy1
+    flat = data.reshape(n, c, h * w)
+
+    def sample(xi, yi):
+        xc = xi.to(torch.int64).clamp(0, w - 1)
+        yc = yi.to(torch.int64).clamp(0, h - 1)
+        valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        lin = (yc * w + xc).reshape(n, 1, -1).expand(n, c, -1)
+        vals = torch.gather(flat, 2, lin).reshape((n, c) + tuple(xi.shape[1:]))
+        return vals * valid[:, None].to(data.dtype)
+
+    return (sample(x0, y0) * (wy0 * wx0)[:, None]
+            + sample(x0 + 1, y0) * (wy0 * wx1)[:, None]
+            + sample(x0, y0 + 1) * (wy1 * wx0)[:, None]
+            + sample(x0 + 1, y0 + 1) * (wy1 * wx1)[:, None])
+
+
+@register_op("SpatialTransformer")
+def spatial_transformer(data, loc, target_shape=(0, 0),
+                        transform_type="affine", sampler_type="bilinear",
+                        cudnn_off=False, **kw):
+    """The sampler over the grid of ``loc`` (gradients reach ``loc``
+    through the grid, though ``GridGenerator`` as an op records none)."""
+    return bilinear_sampler(data, grid_generator(loc, transform_type,
+                                                 target_shape))
+
+
+# the v0.x operator names: the same ops (reference: batch_norm_v1.cc,
+# convolution_v1.cc, pooling_v1.cc)
+from .registry import alias as _alias  # noqa: E402
+_alias("BatchNorm", "BatchNorm_v1")
+_alias("Convolution", "Convolution_v1")
+_alias("Pooling", "Pooling_v1")

@@ -97,3 +97,61 @@ def pick(data, index, axis=-1, keepdims=False, mode="clip", **kw):
     idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
     picked = torch.gather(data, axis, idx.unsqueeze(axis))
     return picked if keepdims else picked.squeeze(axis)
+
+
+def _prod(data, dim, keepdim):
+    """The product over the axes ``dim``: moved last and flattened into
+    one, since ``torch.prod`` takes one axis. Its gradient is finite
+    where inputs are zero, as ``jax.grad``'s."""
+    n = data.dim()
+    d = tuple(sorted(dim))
+    moved = torch.movedim(data, d, tuple(range(n - len(d), n)))
+    out = moved.reshape(tuple(moved.shape[:n - len(d)]) + (-1,)).prod(-1)
+    if keepdim:
+        out = out.reshape(tuple(1 if i in d else s
+                                for i, s in enumerate(data.shape)))
+    want = _SUM_DTYPES.get(data.dtype)
+    return out if want is None else out.to(want)
+
+
+def _nanprod(data, dim, keepdim):
+    return _prod(torch.where(torch.isnan(data), torch.ones_like(data), data),
+                 dim, keepdim)
+
+
+register_op("prod")(_reduce(_prod))
+register_op("nansum")(_reduce(torch.nansum))
+register_op("nanprod")(_reduce(_nanprod))
+
+
+@register_op("argmax_channel", no_grad=True)
+def argmax_channel(data, **kw):
+    """The argmax over axis 1, as float indices."""
+    return torch.argmax(data, dim=1).to(torch.float32)
+
+
+# the broadcasting "expand" ops (with the reductions in the reference);
+# each result is materialized, so later in-place writes see one element
+# per location, as a JAX array's value
+@register_op("broadcast_to")
+def broadcast_to(data, shape=None, **kw):
+    """``data`` broadcast to ``shape``; a 0 in ``shape`` keeps that
+    dimension."""
+    tgt = tuple(int(s) if int(s) != 0 else d
+                for s, d in zip(shape, data.shape))
+    return data.expand(tgt).contiguous()
+
+
+@register_op("broadcast_axis", aliases=["broadcast_axes"])
+def broadcast_axis(data, axis=(), size=(), **kw):
+    if isinstance(axis, int):
+        axis, size = (axis,), (size,)
+    tgt = list(data.shape)
+    for a, s in zip(axis, size):
+        tgt[a % data.dim()] = int(s)
+    return data.expand(tuple(tgt)).contiguous()
+
+
+@register_op("broadcast_like")
+def broadcast_like(lhs, rhs, **kw):
+    return lhs.expand(tuple(rhs.shape)).contiguous()

@@ -2,7 +2,10 @@
 
 Each op is a plain function over torch tensors, ``fn(*tensors, **attrs)
 -> tensor | tuple``, registered under its MXNet name. The symbol layer
-builds graph nodes from the same table.
+builds graph nodes from the same table. An op registered ``no_grad``
+(the index outputs, the samplers, the creation ops and the update ops)
+records no gradient: the ``nd`` dispatch runs it outside autograd, as
+the JAX package's does.
 """
 from __future__ import annotations
 
@@ -14,20 +17,21 @@ _OPS = {}
 
 
 class OpDef:
-    __slots__ = ("name", "fn", "aliases", "num_outputs")
+    __slots__ = ("name", "fn", "aliases", "no_grad", "num_outputs")
 
-    def __init__(self, name, fn, aliases=(), num_outputs=1):
+    def __init__(self, name, fn, aliases=(), no_grad=False, num_outputs=1):
         self.name = name
         self.fn = fn
         self.aliases = tuple(aliases)
+        self.no_grad = no_grad
         self.num_outputs = num_outputs
 
 
-def register_op(name, aliases=(), num_outputs=1):
+def register_op(name, aliases=(), no_grad=False, num_outputs=1):
     """Register an operator implementation under its MXNet name(s)."""
 
     def _reg(fn):
-        opdef = OpDef(name, fn, aliases, num_outputs)
+        opdef = OpDef(name, fn, aliases, no_grad, num_outputs)
         _OPS[name] = opdef
         for a in aliases:
             _OPS[a] = opdef

@@ -221,3 +221,301 @@ def pad(data, mode="constant", pad_width=(), constant_value=0.0, **kw):
     flat = [v for p in reversed(pairs[lead:]) for v in p]
     return F.pad(data, flat, mode="replicate" if mode == "edge"
                  else "reflect")
+
+
+# ---------------------------------------------------------------------------
+# slicing, indexing, tiling and the sequence ops (the JAX package's
+# ops/shape_ops.py:85-330). Index inputs arrive as floats and truncate
+# toward zero. No index reaches a gather or scatter out of range: the
+# JAX package's out-of-range results (clamped, wrapped, NaN-filled or
+# dropped, per op) are rebuilt around in-range indices, since an
+# out-of-range CUDA gather is a device assert (ROADMAP C-ref-3).
+# ---------------------------------------------------------------------------
+def _index(indices):
+    return indices.to(torch.int64)
+
+
+def _slice_one(data, axis, b, e, s):
+    """``data`` sliced along ``axis`` by Python's ``slice(b, e, s)``; a
+    negative step reverses, which torch's basic indexing does not
+    take."""
+    n = data.shape[axis]
+    start, stop, step = slice(b, e, s).indices(n)
+    if step > 0:
+        sl = [slice(None)] * data.dim()
+        sl[axis] = slice(start, stop, step)
+        return data[tuple(sl)]
+    count = len(range(start, stop, step))
+    if count == 0:
+        return data.narrow(axis, 0, 0)
+    last = start + (count - 1) * step
+    part = data.narrow(axis, last, start - last + 1).flip(axis)
+    sl = [slice(None)] * data.dim()
+    sl[axis] = slice(None, None, -step)
+    return part[tuple(sl)]
+
+
+@register_op("slice", aliases=["crop"])
+def slice_op(data, begin=(), end=(), step=(), **kw):
+    """``data[b0:e0:s0, b1:e1:s1, ...]`` for the leading axes (reference:
+    matrix_op.cc Slice); entries may be None, steps negative."""
+    step = step or (None,) * len(begin)
+    out = data
+    for ax, (b, e, s) in enumerate(zip(begin, end, step)):
+        out = _slice_one(out, ax, b, e, s)
+    return out
+
+
+@register_op("slice_like")
+def slice_like(data, shape_like, axes=(), **kw):
+    axes = tuple(axes) if axes else tuple(range(shape_like.dim()))
+    sl = [slice(None)] * data.dim()
+    for a in axes:
+        sl[a % data.dim()] = slice(0, shape_like.shape[a % shape_like.dim()])
+    return data[tuple(sl)]
+
+
+def _nan_fill(rows, valid):
+    """``rows`` where ``valid`` (broadcast over trailing dims), NaN
+    elsewhere (``jnp.take``'s fill mode)."""
+    v = valid.reshape(valid.shape + (1,) * (rows.dim() - valid.dim()))
+    return torch.where(v, rows, torch.full((), float("nan"),
+                                           dtype=rows.dtype,
+                                           device=rows.device))
+
+
+@register_op("take")
+def take(a, indices, axis=0, mode="clip", **kw):
+    """Slices of ``a`` along ``axis`` at ``indices`` (reference:
+    indexing_op.cc take): ``clip`` clamps (a negative index takes the
+    first slice), ``wrap`` takes the index modulo the size; any other
+    mode has ``jnp.take``'s fill semantics: indices in [-n, -1] wrap,
+    the rest give NaN."""
+    axis = axis % a.dim()
+    n = a.shape[axis]
+    idx = _index(indices)
+    if mode == "clip":
+        valid = None
+        idx = idx.clamp(0, n - 1)
+    elif mode == "wrap":
+        valid = None
+        idx = idx.remainder(n)
+    else:
+        idx = torch.where(idx < 0, idx + n, idx)
+        valid = (idx >= 0) & (idx < n)
+        idx = torch.where(valid, idx, torch.zeros_like(idx))
+    out = torch.index_select(a, axis, idx.reshape(-1))
+    out = out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+    if valid is None:
+        return out
+    return _nan_fill(out, valid.reshape((1,) * axis + tuple(valid.shape)))
+
+
+@register_op("batch_take")
+def batch_take(a, indices, **kw):
+    """``a[i, indices[i]]`` per row, with ``take_along_axis``'s fill
+    semantics (indices in [-n, -1] wrap, the rest give NaN)."""
+    n = a.shape[1]
+    idx = _index(indices).reshape(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    lead = (-1, 1) + (1,) * (a.dim() - 2)
+    out = torch.gather(a, 1, idx.reshape(lead).expand(
+        (a.shape[0], 1) + tuple(a.shape[2:])))[:, 0]
+    return _nan_fill(out, valid)
+
+
+def _nd_index(indices, shape):
+    """The (M, ...) index rows of gather_nd / scatter_nd as int64, each
+    row's negative entries wrapped once; with a mask of the in-range
+    positions."""
+    idx = _index(indices)
+    rows, valid = [], None
+    for k in range(idx.shape[0]):
+        r = idx[k]
+        r = torch.where(r < 0, r + shape[k], r)
+        ok = (r >= 0) & (r < shape[k])
+        valid = ok if valid is None else valid & ok
+        rows.append(r)
+    return rows, valid
+
+
+@register_op("gather_nd")
+def gather_nd(data, indices, **kw):
+    """``data[indices[0], indices[1], ...]``: negative entries wrap once,
+    then every entry is clamped into range (JAX's gather); the gradient
+    reaches only the rows that were in range (its transpose, a scatter,
+    drops the others)."""
+    rows, valid = _nd_index(indices, data.shape)
+    rows = [r.clamp(0, data.shape[k] - 1) for k, r in enumerate(rows)]
+    out = data[tuple(rows)]
+    v = valid.reshape(valid.shape + (1,) * (out.dim() - valid.dim()))
+    return torch.where(v, out, out.detach())
+
+
+def _scatter_into(base, rows, valid, values):
+    """``base`` with ``values`` set at the index rows; updates at
+    out-of-range rows are dropped (JAX's scatter). Every write lands in
+    range: the dropped ones go to one spare slot past the end."""
+    m = len(rows)
+    lead = base.shape[:m]
+    flat = base.reshape((-1,) + tuple(base.shape[m:]))
+    lin = torch.zeros_like(rows[0])
+    for k, r in enumerate(rows):
+        lin = lin * lead[k] + r.clamp(0, lead[k] - 1)
+    lin = torch.where(valid, lin, torch.full_like(lin, flat.shape[0]))
+    spare = torch.zeros((1,) + tuple(flat.shape[1:]), dtype=flat.dtype,
+                        device=flat.device)
+    vals = values.reshape((-1,) + tuple(flat.shape[1:])).to(flat.dtype)
+    out = torch.cat([flat, spare]).index_put((lin.reshape(-1),), vals)
+    return out[:-1].reshape(base.shape)
+
+
+@register_op("scatter_nd")
+def scatter_nd(data, indices, shape=None, **kw):
+    """Zeros of ``shape`` with ``data`` set at ``indices``; duplicate
+    indices are undefined, as in MXNet and the JAX package."""
+    shape = tuple(int(s) for s in shape)
+    rows, valid = _nd_index(indices, shape)
+    base = torch.zeros(shape, dtype=data.dtype, device=data.device)
+    return _scatter_into(base, rows, valid, data)
+
+
+@register_op("tile")
+def tile(data, reps=(), **kw):
+    return torch.tile(data, tuple(int(r) for r in reps))
+
+
+@register_op("repeat")
+def repeat(data, repeats=1, axis=None, **kw):
+    """Each element ``repeats`` times along ``axis`` (None: the
+    flattened array), as ``jnp.repeat``."""
+    return torch.repeat_interleave(data, int(repeats), dim=axis)
+
+
+@register_op("reverse", aliases=["flip"])
+def reverse(data, axis=(), **kw):
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(data, axis)
+
+
+# the JAX package asks for int64, which JAX without x64 gives as int32:
+# the port returns int32 as the JAX package does (ROADMAP C-ref-9)
+@register_op("shape_array", no_grad=True)
+def shape_array(data, **kw):
+    out = torch.zeros(data.dim(), dtype=torch.int32, device=data.device)
+    for i, d in enumerate(data.shape):
+        out[i] = d
+    return out
+
+
+@register_op("size_array", no_grad=True)
+def size_array(data, **kw):
+    return torch.full((1,), data.numel(), dtype=torch.int32,
+                      device=data.device)
+
+
+@register_op("diag")
+def diag(data, k=0, **kw):
+    """The k-th diagonal of a matrix, the matrix of a vector's, or for
+    more dims the diagonal of the first two axes moved last, as
+    ``jnp.diag`` / ``jnp.diagonal``."""
+    if data.dim() <= 2:
+        return torch.diag(data, int(k))
+    return torch.diagonal(data, offset=int(k), dim1=0, dim2=1)
+
+
+@register_op("depth_to_space")
+def depth_to_space(data, block_size=1, **kw):
+    n, c, h, w = data.shape
+    b = int(block_size)
+    x = data.reshape(n, b, b, c // (b * b), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register_op("space_to_depth")
+def space_to_depth(data, block_size=1, **kw):
+    n, c, h, w = data.shape
+    b = int(block_size)
+    x = data.reshape(n, c, h // b, b, w // b, b)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register_op("batch_dot")
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    a = lhs.transpose(-1, -2) if transpose_a else lhs
+    b = rhs.transpose(-1, -2) if transpose_b else rhs
+    return torch.matmul(a, b)
+
+
+@register_op("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance", **kw):
+    """``data / sqrt(sum(data²) + eps)`` over every axis but the first
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``) (reference: l2_normalization.cc)."""
+    if mode == "instance":
+        ax = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        ax = (1,)
+    else:
+        ax = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=ax,
+                                       keepdim=True) + eps)
+
+
+@register_op("sequence_mask", aliases=["SequenceMask"])
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0, **kw):
+    """Steps at or past each sequence's length set to ``value``
+    (reference: sequence_mask.cc); data is (T, N, ...) for axis 0, (N,
+    T, ...) for axis 1."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    pos = torch.arange(data.shape[axis], device=data.device)
+    lens = sequence_length.to(torch.int32)
+    if axis == 0:
+        mask = pos[:, None] < lens[None, :]
+    else:
+        mask = pos[None, :] < lens[:, None]
+    mask = mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.full((), value, dtype=data.dtype,
+                                              device=data.device))
+
+
+@register_op("sequence_last", aliases=["SequenceLast"])
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0, **kw):
+    """Each sequence's last valid step, with ``take_along_axis``'s fill
+    semantics for a length out of [1, T] (0 wraps to the last step,
+    the rest give NaN)."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    moved = torch.movedim(data, axis, 0)
+    t = moved.shape[0]
+    last = _index(sequence_length) - 1
+    last = torch.where(last < 0, last + t, last)
+    valid = (last >= 0) & (last < t)
+    last = torch.where(valid, last, torch.zeros_like(last))
+    idx = last.reshape((1, -1) + (1,) * (moved.dim() - 2)) \
+        .expand((1,) + tuple(moved.shape[1:]))
+    return _nan_fill(torch.gather(moved, 0, idx).squeeze(0), valid)
+
+
+@register_op("sequence_reverse", aliases=["SequenceReverse"])
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0, **kw):
+    """Each sequence's first ``length`` steps reversed, the padding left
+    in place (data (T, N, ...))."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    t = data.shape[0]
+    lens = sequence_length.to(torch.int64)
+    pos = torch.arange(t, device=data.device)[:, None]
+    rev = torch.where(pos < lens[None, :], lens[None, :] - 1 - pos, pos)
+    rev = torch.where(rev < 0, rev + t, rev).clamp(0, t - 1)
+    idx = rev.reshape(rev.shape + (1,) * (data.dim() - 2)) \
+        .expand(data.shape)
+    return torch.gather(data, 0, idx)

@@ -50,7 +50,10 @@ def _symbol_op(op_name, sym_inputs, attrs, name=None, attr=None):
 # data-like inputs are never auto-created as variables; passing None for
 # one of them means "genuinely omitted". Weight-like inputs (bias, gamma,
 # ...) auto-create even when passed as None.
-_NEVER_AUTO_CREATE = frozenset(("data", "lhs", "rhs", "state_cell"))
+_NEVER_AUTO_CREATE = frozenset((
+    "data", "lhs", "rhs", "indices", "index", "a", "condition", "x", "y",
+    "rois", "grid", "loc", "sequence_length", "data_lengths",
+    "label_lengths", "state_cell"))
 
 
 def _make_sym_func(opdef):
@@ -124,3 +127,11 @@ _mod = sys.modules[__name__]
 for _name in list(_OPS):
     if not hasattr(_mod, _name):
         setattr(_mod, _name, _make_sym_func(_OPS[_name]))
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    return getattr(_mod, "_zeros")(shape=shape, dtype=dtype, **kwargs)
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return getattr(_mod, "_ones")(shape=shape, dtype=dtype, **kwargs)

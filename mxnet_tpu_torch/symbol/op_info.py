@@ -1,7 +1,8 @@
 """Per-op input signatures for the symbolic layer (counterpart of
 ``mxnet_tpu/symbol/op_info.py``, limited to the port's op set): each
-op's (argument input names, auxiliary input names). Auxiliary inputs
-(BatchNorm's moving statistics) are inputs that are not arguments."""
+op's (argument input names, auxiliary input names); None names a
+variadic op. Auxiliary inputs (BatchNorm's moving statistics) are inputs
+that are not arguments. Ops not listed take positional inputs."""
 
 OP_INPUTS = {
     "FullyConnected": (["data", "weight", "bias"], []),
@@ -30,6 +31,43 @@ OP_INPUTS = {
     "Dropout": (["data"], []),
     "LRN": (["data"], []),
     "SliceChannel": (["data"], []),
+    "BatchNorm_v1": (["data", "gamma", "beta"],
+                     ["moving_mean", "moving_var"]),
+    "softmax_cross_entropy": (["data", "label"], []),
+    "Pooling_v1": (["data"], []),
+    "Reshape": (["data"], []),
+    "Concat": (None, []),
+    "add_n": (None, []),
+    "ElementWiseSum": (None, []),
+    "UpSampling": (None, []),
+    "dot": (["lhs", "rhs"], []),
+    "batch_dot": (["lhs", "rhs"], []),
+    "broadcast_sub": (["lhs", "rhs"], []),
+    "broadcast_mul": (["lhs", "rhs"], []),
+    "broadcast_div": (["lhs", "rhs"], []),
+    "elemwise_add": (["lhs", "rhs"], []),
+    "elemwise_sub": (["lhs", "rhs"], []),
+    "elemwise_mul": (["lhs", "rhs"], []),
+    "elemwise_div": (["lhs", "rhs"], []),
+    "CTCLoss": (["data", "label", "data_lengths", "label_lengths"], []),
+    "SequenceMask": (["data", "sequence_length"], []),
+    "SequenceLast": (["data", "sequence_length"], []),
+    "SequenceReverse": (["data", "sequence_length"], []),
+    "ROIPooling": (["data", "rois"], []),
+    "BilinearSampler": (["data", "grid"], []),
+    "SpatialTransformer": (["data", "loc"], []),
+    "GridGenerator": (["data"], []),
+    "L2Normalization": (["data"], []),
+    "where": (["condition", "x", "y"], []),
+    "Cast": (["data"], []),
+    "BlockGrad": (["data"], []),
+    "MakeLoss": (["data"], []),
+    "slice": (["data"], []),
+    "take": (["a", "indices"], []),
+    "one_hot": (["indices"], []),
+    "pick": (["data", "index"], []),
+    "gather_nd": (["data", "indices"], []),
+    "scatter_nd": (["data", "indices"], []),
 }
 
 

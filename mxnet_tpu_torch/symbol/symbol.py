@@ -30,7 +30,8 @@ __all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load"]
 _node_uid = itertools.count()
 # ops whose result depends on the walk's mode: batch statistics (the BN
 # ops, whose running statistics the walk folds) and dropout
-_BN_OPS = ("BatchNorm", "_FusedBNReLUConv", "_FusedBNReLUConvK")
+_BN_OPS = ("BatchNorm", "BatchNorm_v1", "_FusedBNReLUConv",
+           "_FusedBNReLUConvK")
 _TRAINING_AWARE = _BN_OPS + ("Dropout", "RNN")
 
 
@@ -261,6 +262,10 @@ class Symbol:
     def _output_symbols(self):
         return list(self._group) if self._group is not None else [self]
 
+    def attr(self, key):
+        """This node's user attribute ``key`` (None when unset)."""
+        return self._node.user_attrs.get(key)
+
     def attr_dict(self):
         """{node_name: attrs} of the user attributes over the graph
         (``__lr_mult__``, ``__wd_mult__``, ...)."""
@@ -269,13 +274,16 @@ class Symbol:
 
     # -- evaluation ----------------------------------------------------------
     @staticmethod
-    def _apply_node_op(node, ins, training=False):
+    def _apply_node_op(node, ins, training=False, device=None):
         """Dispatch one op node on its input values; returns (outputs
-        tuple, the attributes the op was called with)."""
+        tuple, the attributes the op was called with). An op with no
+        input (a creation op or sampler) builds on ``device``."""
         opdef = get_op(node.op)
         attrs = node.op_attrs()
         if node.op in _TRAINING_AWARE:
             attrs = dict(attrs, training=training)
+        if not node.inputs and device is not None:
+            attrs = dict(attrs, device=device)
         innames = node.attrs.get("__input_names__")
         if innames:
             res = opdef.fn(**dict(zip(parse_attr(innames), ins)), **attrs)
@@ -323,6 +331,8 @@ class Symbol:
         outputs by output name (the Monitor's interpreted walk)."""
         cache = dict(preset) if preset else {}
         aux_updates = {}
+        device = next((v.device for v in arg_arrays.values()
+                       if isinstance(v, torch.Tensor)), None)
 
         def node_out(node, idx):
             key = (id(node), idx)
@@ -335,7 +345,7 @@ class Symbol:
                 cache[key] = arg_arrays[node.name]
                 return cache[key]
             ins = [node_out(p, i) for p, i in node.inputs]
-            outs, attrs = Symbol._apply_node_op(node, ins, training)
+            outs, attrs = Symbol._apply_node_op(node, ins, training, device)
             for i, o in enumerate(outs):
                 cache[(id(node), i)] = o
                 if internals is not None:
@@ -356,6 +366,33 @@ class Symbol:
         cache.clear()
         return outputs, aux_updates, captured
 
+    def eval_dict(self, arg_dict):
+        """The outputs, as NDArrays, for NDArray inputs by name (recorded
+        by autograd as one computation while it records)."""
+        from ..ndarray.ndarray import _invoke_fn
+        names = [n for n in self.list_arguments() +
+                 self.list_auxiliary_states() if n in arg_dict]
+
+        def fn(*arrays):
+            return tuple(self.eval_arrays(dict(zip(names, arrays))))
+
+        res = _invoke_fn(fn, [arg_dict[n] for n in names])
+        return list(res) if isinstance(res, tuple) else [res]
+
+    def grad(self, wrt):
+        raise NotImplementedError(
+            "Symbol.grad was removed in the reference too; bind with "
+            "args_grad and call backward")
+
+    def debug_str(self):
+        """One line per node: ``op(inputs) -> name``, as the JAX
+        package's."""
+        lines = []
+        for n in self._topo_nodes():
+            ins = ", ".join(f"{p.name}[{i}]" for p, i in n.inputs)
+            lines.append(f"{n.op or 'Variable'}({ins}) -> {n.name}")
+        return "\n".join(lines)
+
     def eval_arrays(self, arg_arrays, preset=None):
         """Evaluate the outputs in eval mode (moving statistics) — see
         ``eval_arrays_ex``."""
@@ -365,6 +402,14 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the known input
         shapes, positional in ``list_arguments`` order or by name."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape`` that leaves an unresolved shape None instead of
+        raising."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         aux_names = self.list_auxiliary_states()
         known = {n: tuple(s) for n, s in zip(arg_names, args)
@@ -376,7 +421,7 @@ class Symbol:
         aux_shapes = [shapes.get(n) for n in aux_names]
         out_shapes = [node_out_shapes.get((id(s._node), s._out_index))
                       for s in self._output_symbols()]
-        if any(s is None for s in arg_shapes + out_shapes):
+        if not partial and any(s is None for s in arg_shapes + out_shapes):
             missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
             raise MXNetError(
                 f"infer_shape incomplete; unknown: {missing}. Provide input "
@@ -418,7 +463,8 @@ class Symbol:
             metas = [torch.empty(s, dtype=torch.float32, device="meta")
                      for s in in_shapes]
             try:
-                outs, _ = Symbol._apply_node_op(node, metas)
+                outs, _ = Symbol._apply_node_op(node, metas,
+                                                device="meta")
             except (RuntimeError, ValueError, TypeError, IndexError,
                     KeyError, MXNetError):
                 return  # unresolved, as the JAX walk leaves it
@@ -540,17 +586,22 @@ def _hint_param_shapes(node, in_shapes, attrs):
         if not attrs.get("flatten", True):
             in_units = data_shape[-1]
         want = {"weight": (num_hidden, in_units), "bias": (num_hidden,)}
-    elif node.op == "Convolution":
+    elif node.op in ("Convolution", "Deconvolution"):
         kernel = attrs.get("kernel")
         kernel = tuple(kernel) if isinstance(kernel, (tuple, list)) \
             else (kernel,)
         num_filter = int(attrs.get("num_filter"))
         num_group = int(attrs.get("num_group", 1))
-        want = {"weight": (num_filter, data_shape[1] // num_group) + kernel,
-                "bias": (num_filter,)}
-    elif node.op in ("BatchNorm", "LayerNorm"):
+        if node.op == "Convolution":
+            want = {"weight": (num_filter, data_shape[1] // num_group)
+                    + kernel, "bias": (num_filter,)}
+        else:
+            want = {"weight": (data_shape[1], num_filter // num_group)
+                    + kernel, "bias": (num_filter,)}
+    elif node.op in ("BatchNorm", "BatchNorm_v1", "LayerNorm",
+                     "InstanceNorm"):
         c = data_shape[int(attrs.get("axis",
-                                     1 if node.op == "BatchNorm" else -1))]
+                                     -1 if node.op == "LayerNorm" else 1))]
         want = {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
                 "moving_var": (c,)}
     elif node.op in ("Embedding", "_contrib_SparseEmbedding"):
