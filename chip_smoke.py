@@ -8321,15 +8321,17 @@ def ops_close(np, got, want, tol):
     return True
 
 
-def ops_sweep_phase(mt, torch, np):
+def ops_sweep_phase(mt, torch, np, names=None, phase="ops_sweep"):
     """22a: each of the slice's 206 names on CUDA and on the CPU from the
     same seeded inputs (``ops/sweep.py``): forward in fp32 and, for the
     elementwise and shape families, in bf16; the gradient under the same
     integer cotangent where the op is differentiable, at ten times the
     forward tolerance. Samplers: the CPU call's shape and dtype, and
-    fresh draws on the card (their distributions: 22c)."""
+    fresh draws on the card (their distributions: 22c). ``names`` (23b:
+    the 32 contrib names) runs another list the same way."""
     from mxnet_tpu_torch.ops import sweep
     from mxnet_tpu_torch.ops.registry import get_op
+    names = sweep.NEW_NAMES if names is None else names
     ran, failed = [], []
     worst = {f: {"fp32": 0.0, "bf16": 0.0, "grad": 0.0}
              for f in sweep.FAMILIES}
@@ -8368,7 +8370,7 @@ def ops_sweep_phase(mt, torch, np):
                                   0.0 if tol == 0.0 else OPS_BF16_TOL)
         return ok
 
-    for name in sweep.NEW_NAMES:
+    for name in names:
         canon = get_op(name).name
         try:
             if canon in sweep.SAMPLERS:
@@ -8385,7 +8387,7 @@ def ops_sweep_phase(mt, torch, np):
             ok = False
             name = f"{name}: {type(e).__name__}: {str(e)[:160]}"
         (ran if ok else failed).append(name)
-    row = {"phase": "ops_sweep", "names": len(sweep.NEW_NAMES),
+    row = {"phase": phase, "names": len(names),
            "ran": len(ran) + len(failed), "passed": len(ran),
            "cases": len(done_cases), "worst_rel_err": worst,
            "tolerances": {"exact": 0.0, "arith": sweep.ARITH,
@@ -8393,7 +8395,7 @@ def ops_sweep_phase(mt, torch, np):
                           "grad": "10x forward"},
            "failed": failed}
     emit(row)
-    check(not failed and len(ran) == 206, f"ops_sweep: {failed}")
+    check(not failed and len(ran) == len(names), f"{phase}: {failed}")
     return row
 
 
@@ -8850,6 +8852,488 @@ def op_set_phases(mt, torch, np, smi):
           "per_phase": lap})
 
 
+# ---------------------------------------------------------------------------
+# 23. SSD detection (slice 20): N1 and M1 against their plain versions, the
+# 32 contrib names on the card, captured box graphs, the SSD example on the
+# card, the box and vision ops at the sizes their users run them
+# ---------------------------------------------------------------------------
+# the card the phase runs on ("cpu" runs its code paths on the CPU, where
+# the kernels' checks compare the plain versions with themselves)
+SSD_DEVICE = "cuda:0"
+# 23a: N1 (images, boxes, threshold, force_suppress); M1 (B, N, M)
+SSD_N1_CASES = ((32, 8732, 0.45, False), (1, 6000, 0.7, True))
+SSD_M1_CASE = (4, 8732, 50)
+SSD_CLASSES = 21
+# fp32 operations of one IoU in N1's order (4 max/min, 6 subtractions
+# and clamps, 3 products, an addition, a subtraction, a division; the
+# compares left out): N1's bound counts the IoUs of each kept box with
+# the boxes after it
+SSD_IOU_OPS = 12
+# 23c: one feature map of SSD300's first scale, a batch of 8, VOC's 21
+# classes, 10 ground-truth slots
+SSD_GRAPH = {"B": 8, "map": 38, "sizes": (0.1, 0.141), "ratios": (1.0, 2.0,
+                                                                   0.5),
+             "classes": 21, "L": 10}
+# 23e: the users' sizes (SSD300 on VOC; Faster R-CNN and R-FCN at 600 x
+# 800 with stride 16; a res5 DCN layer; FlowNetC's correlation)
+SSD_TIMING = {"anchors": 8732, "batch": 32, "classes": 21, "L": 50,
+              "nms_topk": 400, "proposal": (1, 12, 38, 50),
+              "rois": 300, "psroi_dim": 21, "psroi_pooled": 7,
+              "dcn": (1, 512, 38, 50, 512), "corr": (8, 256, 48, 64)}
+
+
+def ssd_wrappers(mt):
+    """Every kernel wrapper's launches since the last reset, by name."""
+    fb = mt.ops.fused_bn_conv
+    out = dict(fb.launch_counts())
+    out.update({n: f.launches for n, f in fb._OTHER_WRAPPERS.items()})
+    return out
+
+
+def ssd_sorted_boxes(torch, gen, b, n):
+    """``b`` images of ``n`` boxes in [0, 1] taken as score-sorted: sides
+    0.02-0.3, a tenth of them copies (box and class) of an earlier box,
+    21 classes, 90% valid."""
+    dev = SSD_DEVICE
+    xy = torch.rand(b, n, 2, device=dev, generator=gen) * 0.8
+    wh = 0.02 + torch.rand(b, n, 2, device=dev, generator=gen) * 0.28
+    boxes = torch.cat([xy, xy + wh], -1)
+    ids = torch.randint(0, SSD_CLASSES, (b, n), device=dev,
+                        generator=gen).float()
+    src = (torch.rand(b, n, device=dev, generator=gen)
+           * torch.arange(n, device=dev)).long()
+    dup = torch.rand(b, n, device=dev, generator=gen) < 0.1
+    boxes = torch.where(dup[..., None],
+                        torch.gather(boxes, 1, src[..., None].expand(b, n, 4)),
+                        boxes)
+    ids = torch.where(dup, torch.gather(ids, 1, src), ids)
+    valid = torch.rand(b, n, device=dev, generator=gen) < 0.9
+    return boxes.contiguous(), ids.contiguous(), valid
+
+
+def n1_split(torch, fn, calls=3):
+    """Device ms a call of each of N1's two kernels (torch.profiler over
+    ``calls`` calls; {} where the profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if SSD_DEVICE.startswith("cuda")
+                                     else [])
+    with profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or 0
+        for k in ("nms_mask", "nms_sweep"):
+            if k in e.key and t:
+                out[k] = t / 1e3 / calls
+    return out
+
+
+def n1_case(mt, torch, gen, b, n, thresh, force, smi):
+    """N1 against its plain version on the same boxes: keep bits equal
+    (mismatches counted), times, and the bound: the bytes of the inputs
+    and the keep mask, or the IoUs each kept box needs, the larger."""
+    nms = mt.ops.nms
+    boxes, ids, valid = ssd_sorted_boxes(torch, gen, b, n)
+    args = (boxes, ids, valid, thresh, force)
+    keep = nms.greedy_nms_keep(*args)
+    plain = nms.greedy_nms_keep_plain(*args)
+    torch.cuda.synchronize()
+    mism = int((keep != plain).sum())
+    kept_rows = torch.nonzero(plain)[:, 1]
+    pairs = int((n - 1 - kept_rows).sum())
+    nbytes = b * n * (16 + 4 + 1 + 1)
+    bms, by = bound_ms(nbytes, pairs * SSD_IOU_OPS, "float32")
+    ms = time_ms(lambda: nms.greedy_nms_keep(*args), reps=5, inner=3,
+                 warmup=1)
+    plain_ms = time_ms(lambda: nms.greedy_nms_keep_plain(*args), reps=5,
+                       inner=1, warmup=1)
+    split = n1_split(torch, lambda: nms.greedy_nms_keep(*args))
+    row = {"phase": "n1_case", "images": b, "boxes": n, "thresh": thresh,
+           "force_suppress": force, "kept": int(plain.sum()),
+           "duplicates_valid": int(valid.sum()), "mismatches": mism,
+           "max_abs_err": float(mism > 0), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "iou_pairs_needed": pairs,
+           "mask_mb": b * n * (-(-n // 64)) * 8 / 1e6,
+           "device_ms_by_kernel": split, "card": smi}
+    emit(row)
+    check(mism == 0, f"N1 at ({b}, {n}): {mism} keep bits differ")
+    return row
+
+
+def m1_case(mt, torch, np, gen, smi):
+    """M1 against its plain version on SSD300's anchors against 50 ground
+    truths a batch item (scores with ties), descending at 0.5: matches
+    equal, times, and the bound: the bytes of the entries the walk needs
+    (up to the last match) and the outputs."""
+    nms = mt.ops.nms
+    b, n, m = SSD_M1_CASE
+    scores = torch.round(torch.rand(b, n * m, device=SSD_DEVICE,
+                                    generator=gen) * 100) / 100
+    order = torch.sort(scores, dim=1, stable=True).indices.flip(1) \
+        .contiguous()
+    k = n * m
+    args = (scores, order, n, m, k, 0.5, False)
+    row_k, col_k = nms.bipartite_match(*args)
+    row_p, col_p = nms.bipartite_match_plain(*args)
+    torch.cuda.synchronize()
+    mism = int((row_k != row_p).sum() + (col_k != col_p).sum())
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(k, device=SSD_DEVICE).expand(b, k))
+    ri = torch.arange(n, device=SSD_DEVICE).expand(b, n)
+    flat = ri * m + row_p.clamp_min(0).long()
+    pos = torch.where(row_p >= 0, torch.gather(inv, 1, flat), -1)
+    full = (row_p >= 0).sum(1) == min(n, m)
+    need = torch.where(full, pos.amax(1) + 1, k)
+    nbytes = int(need.sum()) * 12 + b * (n + m) * 4
+    bms, by = bound_ms(nbytes, 0, "float32")
+    ms = time_ms(lambda: nms.bipartite_match(*args), reps=5, inner=5,
+                 warmup=1)
+    plain_ms = time_ms(lambda: nms.bipartite_match_plain(*args), reps=5,
+                       inner=1, warmup=1)
+    row = {"phase": "m1_case", "shape": [b, n, m], "k": k,
+           "matches": int((row_p >= 0).sum()),
+           "entries_needed": need.tolist(), "mismatches": mism,
+           "max_abs_err": float((row_k - row_p).abs().max()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "card": smi}
+    emit(row)
+    check(mism == 0, f"M1 at {SSD_M1_CASE}: {mism} matches differ")
+    return row
+
+
+def ssd_kernel_phase(mt, torch, np, smi):
+    """23a: N1 and M1 on the card against their plain versions at the
+    users' sizes, ties included; each wrapper raises on what it does not
+    take."""
+    gen = torch.Generator(device=SSD_DEVICE)
+    gen.manual_seed(SEED + 23)
+    n1 = [n1_case(mt, torch, gen, *c, smi) for c in SSD_N1_CASES]
+    m1 = m1_case(mt, torch, np, gen, smi)
+    if SSD_DEVICE.startswith("cuda"):
+        nms = mt.ops.nms
+        z = torch.zeros(1, 8, 4, device=SSD_DEVICE, dtype=torch.float64)
+        try:
+            nms.greedy_nms_keep(z, z[..., 0], z[..., 0] > 0, 0.5, False)
+            raise AssertionError("N1 accepted float64 on CUDA")
+        except mt.MXNetError as e:
+            emit({"phase": "n1_raises_on_unsupported_dtype", "error": str(e)})
+    return n1, m1
+
+
+def ssd_graph_symbol(S):
+    """MultiBoxPrior over a feature map, MultiBoxDetection and box_nms of
+    the detections, MultiBoxTarget with mining, and the greedy matching
+    of the ground truths to the anchors (box_iou -> bipartite_matching)."""
+    g = SSD_GRAPH
+    data, cls_prob = S.var("data"), S.var("cls_prob")
+    loc_pred, label = S.var("loc_pred"), S.var("label")
+    anchor = S.MultiBoxPrior(data, sizes=g["sizes"], ratios=g["ratios"],
+                             name="prior")
+    det = S.MultiBoxDetection(cls_prob, loc_pred, anchor, nms_threshold=0.45,
+                              threshold=0.01, nms_topk=400, name="det")
+    nms = S.box_nms(det, overlap_thresh=0.3, id_index=0, score_index=1,
+                    coord_start=2, force_suppress=True, name="nms")
+    tgt = S.MultiBoxTarget(anchor, label, cls_prob, overlap_threshold=0.5,
+                           negative_mining_ratio=3.0,
+                           negative_mining_thresh=0.5, name="tgt")
+    gt = S.slice_axis(label, axis=2, begin=1, end=5, name="gt")
+    iou = S.box_iou(gt, anchor, name="iou")
+    match = S.bipartite_matching(iou, threshold=0.5, name="match")
+    return S.Group([det, nms, tgt[0], tgt[1], tgt[2], match[0], match[1]])
+
+
+def ssd_graph_feed(np):
+    g = SSD_GRAPH
+    b, hw, c, l = g["B"], g["map"], g["classes"], g["L"]
+    a = hw * hw * (len(g["sizes"]) + len(g["ratios"]) - 1)
+    rs = np.random.RandomState(SEED + 230)
+    logits = rs.standard_normal((b, c, a)).astype(np.float32) * 2
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    label = np.full((b, l, 5), -1.0, np.float32)
+    for i in range(b):
+        k = rs.randint(1, l + 1)
+        xy = rs.uniform(0, 0.7, (k, 2))
+        wh = rs.uniform(0.05, 0.3, (k, 2))
+        label[i, :k, 0] = rs.randint(0, c - 1, k)
+        label[i, :k, 1:] = np.concatenate([xy, xy + wh], 1)
+    return {"data": np.zeros((b, 16, hw, hw), np.float32),
+            "cls_prob": (e / e.sum(1, keepdims=True)).astype(np.float32),
+            "loc_pred": (0.2 * rs.standard_normal((b, a * 4)))
+            .astype(np.float32),
+            "label": label}
+
+
+def ssd_capture_phase(mt, torch, np, smi):
+    """23c: the box graph bound with ``simple_bind`` on the card and on
+    the CPU: the card's first forward against the CPU's (1e-4), then its
+    forward captured, each replay against the eager body
+    (``captured = False``). Counts set to 0 just before the card's runs."""
+    from mxnet_tpu_torch.name import NameManager
+    t0 = time.perf_counter()
+    with NameManager():
+        sym = ssd_graph_symbol(mt.sym)
+    vals = ssd_graph_feed(np)
+    shapes = {k: v.shape for k, v in vals.items()}
+
+    def bind(ctx):
+        exe = sym.simple_bind(ctx=ctx, grad_req="null", **shapes)
+        for k, v in vals.items():
+            exe.arg_dict[k][:] = mt.nd.array(v, ctx=ctx)
+        return exe
+
+    cpu = bind("cpu")
+    c_out = [o.asnumpy() for o in cpu.forward(is_train=False)]
+    gpu = bind(SSD_DEVICE)
+    mt.ops.fused_bn_conv.reset_launch_counts()
+    first = [o.asnumpy() for o in gpu.forward(is_train=False)]
+    first_err = ops_errors(np, first, c_out)
+    first_ok = ops_close(np, first, c_out, 1e-4)
+    replay_err, exact = 0.0, True
+    mode = gpu.captured
+    for _ in range(3):          # capture, then replays
+        r_out = [o.asnumpy() for o in gpu.forward(is_train=False)]
+        gpu.captured = False
+        e_out = [o.asnumpy() for o in gpu.forward(is_train=False)]
+        gpu.captured = mode
+        replay_err = max(replay_err, ops_errors(np, r_out, e_out))
+        exact = exact and all(np.array_equal(r, e)
+                              for r, e in zip(r_out, e_out))
+    torch.cuda.synchronize()
+    launches = ssd_wrappers(mt)
+    progs, captures, replays = ops_program_counts(
+        gpu._progs.captured.values())
+    kept = int((first[0][..., 0] >= 0).sum())
+    matched = int((first[5] >= 0).sum())
+    row = {"phase": "ssd_capture", "shape": SSD_GRAPH,
+           "first_forward_max_rel_err_vs_cpu": first_err,
+           "replay_vs_eager_max_rel_err": replay_err,
+           "replay_equals_eager": exact, "programs": progs,
+           "captures": captures, "replays": replays,
+           "detections_kept": kept, "gt_matched": matched,
+           "launches": {k: v for k, v in launches.items() if v},
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    print(f"ssd_capture: {captures} captures, {replays} replays", flush=True)
+    check(first_ok, f"ssd_capture: first forward vs CPU {first_err}")
+    check(exact, f"ssd_capture: replays differ from eager {replay_err}")
+    check(captures >= 1 and replays >= 3,
+          f"ssd_capture: {captures} captures, {replays} replays")
+    check(kept > 0 and matched > 0, "ssd_capture: nothing detected or "
+                                    "matched")
+    check(launches.get("greedy_nms_keep", 0) >= 2 * 7
+          and launches.get("bipartite_match", 0) >= 7,
+          f"ssd_capture: launches {launches}")
+    return row
+
+
+def ssd_train_phase(mt, torch, smi):
+    """23d: the SSD example's ``train()`` at its defaults on the card,
+    counts set to 0 just before it: the final evaluation's mean IoU and
+    class accuracy (the JAX test's thresholds), ms a step (host clock,
+    the three evaluations included), each kernel's launches."""
+    from mxnet_tpu_torch.examples.ssd import train as ssd
+    logs = []
+    mt.ops.fused_bn_conv.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iou, acc = ssd.train(device=SSD_DEVICE, log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssd_wrappers(mt)
+    steps = 3 * 60
+    row = {"phase": "ssd_train", "epochs": 3, "steps": steps, "batch": 16,
+           "mean_iou": iou, "class_accuracy": acc,
+           "ms_per_step": wall / steps * 1e3, "seconds": wall,
+           "launches": launches, "log": logs, "card": smi}
+    emit(row)
+    check(iou > 0.5 and acc > 0.8, f"ssd_train: IoU {iou}, accuracy {acc}")
+    check(launches["greedy_nms_keep"] >= 3,
+          f"ssd_train: N1 launched {launches['greedy_nms_keep']} times")
+    return row
+
+
+def ssd_timing_phase(mt, torch, np, smi):
+    """23e: times (CUDA events, median of 5) of the box and vision ops at
+    their users' sizes, each beside its bytes (or operations) bound; the
+    ops that run N1 also with its plain version in its place. A record,
+    not a claim."""
+    from mxnet_tpu_torch.ops import contrib, nms
+    from mxnet_tpu_torch.ops.registry import get_op
+    T = SSD_TIMING
+    dev = SSD_DEVICE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 231)
+    rows = []
+
+    def rec(name, shape, fn, nbytes, flops=0, plain=None, reps=5, inner=3,
+            **extra):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = time_ms(fn, reps=reps, inner=inner, warmup=1)
+        peak = torch.cuda.max_memory_allocated() - base
+        plain_ms = None
+        if plain is not None:
+            real = contrib.greedy_nms_keep
+            contrib.greedy_nms_keep = nms.greedy_nms_keep_plain
+            try:
+                plain_ms = time_ms(fn, reps=reps, inner=1, warmup=1)
+            finally:
+                contrib.greedy_nms_keep = real
+        bms, by = bound_ms(nbytes, flops, "float32")
+        row = dict({"op": name, "shape": shape, "dtype": "float32",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None,
+                    "peak_extra_mb": peak / 1e6}, **extra)
+        rows.append(row)
+        emit(dict({"phase": "ssd_timing"}, **row, card=smi))
+
+    a, b, c, l = T["anchors"], T["batch"], T["classes"], T["L"]
+    xy = torch.rand(a, 2, device=dev, generator=gen) * 0.9
+    anchor = torch.cat([xy, xy + 0.02 + torch.rand(
+        a, 2, device=dev, generator=gen) * 0.5], 1)[None]
+    label = torch.full((b, l, 5), -1.0, device=dev)
+    nobj = 6
+    lxy = torch.rand(b, nobj, 2, device=dev, generator=gen) * 0.7
+    label[:, :nobj, 1:] = torch.cat([lxy, lxy + 0.05 + torch.rand(
+        b, nobj, 2, device=dev, generator=gen) * 0.25], -1)
+    label[:, :nobj, 0] = torch.randint(0, c - 1, (b, nobj), device=dev,
+                                       generator=gen).float()
+    logits = torch.randn(b, c, a, device=dev, generator=gen)
+    mbt = get_op("MultiBoxTarget").fn
+    out_bytes = b * a * 9 * 4
+    rec("MultiBoxTarget", [[1, a, 4], [b, l, 5], [b, c, a]],
+        lambda: mbt(anchor, label, logits, negative_mining_ratio=3.0),
+        anchor.numel() * 4 + label.numel() * 4 + logits.numel() * 4
+        + out_bytes)
+    prob = torch.softmax(logits, dim=1)
+    loc = 0.2 * torch.randn(b, a * 4, device=dev, generator=gen)
+    mbd = get_op("MultiBoxDetection").fn
+    rec("MultiBoxDetection", [[b, c, a], [b, a * 4], [1, a, 4]],
+        lambda: mbd(prob, loc, anchor, nms_threshold=0.45,
+                    nms_topk=T["nms_topk"]),
+        prob.numel() * 4 + loc.numel() * 4 + anchor.numel() * 4
+        + b * a * 6 * 4, plain=True, nms_topk=T["nms_topk"])
+    del logits, prob, loc, label
+    # Proposal: Faster R-CNN's RPN at 600 x 800, stride 16
+    pb, pa, ph, pw = T["proposal"]
+    rpn = torch.randn(pb, 2, pa, ph, pw, device=dev, generator=gen)
+    cls_prob = torch.softmax(rpn, dim=1).reshape(pb, 2 * pa, ph, pw)
+    deltas = 0.1 * torch.randn(pb, 4 * pa, ph, pw, device=dev, generator=gen)
+    info = torch.zeros(pb, 3, device=dev)
+    info[:, 0], info[:, 1], info[:, 2] = 600.0, 800.0, 1.0
+    prop = get_op("Proposal").fn
+    rec("Proposal", [[pb, 2 * pa, ph, pw], [pb, 4 * pa, ph, pw]],
+        lambda: prop(cls_prob, deltas, info),
+        (cls_prob.numel() + deltas.numel()) * 4 + pb * 300 * 5 * 4,
+        plain=True, pre=6000, post=300)
+    # PSROIPooling: R-FCN's score maps (21 classes x 7 x 7), 300 rois
+    d, p, r = T["psroi_dim"], T["psroi_pooled"], T["rois"]
+    data = torch.randn(1, d * p * p, ph, pw, device=dev, generator=gen)
+    rx = torch.rand(r, 2, device=dev, generator=gen) * torch.tensor(
+        [600.0, 400.0], device=dev)
+    rois = torch.cat([torch.zeros(r, 1, device=dev), rx,
+                      rx + 32 + torch.rand(r, 2, device=dev,
+                                           generator=gen) * 160], 1)
+    psroi = get_op("PSROIPooling").fn
+    rec("PSROIPooling", [[1, d * p * p, ph, pw], [r, 5]],
+        lambda: psroi(data, rois, spatial_scale=1 / 16, output_dim=d,
+                      pooled_size=p),
+        data.numel() * 4 + rois.numel() * 4 + r * d * p * p * 4)
+    del data
+    # DeformableConvolution: a res5 DCN layer, 3 x 3, 512 filters
+    n, ci, h, w, f = T["dcn"]
+    x = torch.randn(n, ci, h, w, device=dev, generator=gen)
+    off = torch.randn(n, 18, h, w, device=dev, generator=gen)
+    wt = 0.02 * torch.randn(f, ci, 3, 3, device=dev, generator=gen)
+    dcn = get_op("DeformableConvolution").fn
+    rec("DeformableConvolution", [[n, ci, h, w], [n, 18, h, w],
+                                  [f, ci, 3, 3]],
+        lambda: dcn(x, off, wt, kernel=(3, 3), pad=(1, 1), num_filter=f,
+                    no_bias=True),
+        (x.numel() + off.numel() + wt.numel() + n * f * h * w) * 4,
+        2 * n * f * ci * 9 * h * w,
+        columns_mb=n * ci * 9 * h * w * 4 / 1e6)
+    del x, off, wt
+    # Correlation: FlowNetC, max displacement 20, stride2 2, pad 20
+    cn, cc, chh, cw = T["corr"]
+    x1 = torch.randn(cn, cc, chh, cw, device=dev, generator=gen)
+    x2 = torch.randn(cn, cc, chh, cw, device=dev, generator=gen)
+    corr = get_op("Correlation").fn
+    g = 2 * (20 // 2) + 1
+    rec("Correlation", [[cn, cc, chh, cw]] * 2,
+        lambda: corr(x1, x2, max_displacement=20, stride2=2, pad_size=20),
+        (2 * x1.numel() + cn * g * g * chh * cw) * 4,
+        2 * cn * g * g * chh * cw * cc, reps=3, inner=2)
+    del x1, x2
+    return rows
+
+
+def ssd_phases(mt, torch, np, smi):
+    """Phase 23 (slice 20): 23a-23e, timed; the N1 and M1 entries of the
+    kernels line."""
+    from mxnet_tpu_torch.ops import sweep
+    t0 = time.perf_counter()
+    lap = {}
+
+    def mark(name):
+        lap[name] = time.perf_counter() - t0 - sum(lap.values())
+
+    n1, m1 = ssd_kernel_phase(mt, torch, np, smi)
+    mark("ssd_kernels")
+    ops_sweep_phase(mt, torch, np, sweep.CONTRIB_NAMES, "ssd_sweep")
+    mark("ssd_sweep")
+    cap = ssd_capture_phase(mt, torch, np, smi)
+    mark("ssd_capture")
+    train = ssd_train_phase(mt, torch, smi)
+    mark("ssd_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_timing_phase(mt, torch, np, smi)
+    mark("ssd_timing")
+    emit({"phase": "slice20_seconds", "seconds": time.perf_counter() - t0,
+          "per_phase": lap})
+    src = "mxnet_tpu_torch/kernels/csrc/greedy_nms.cu"
+    paths = {"ssd_capture": "the box graph of 23c bound by simple_bind, "
+                            "captured (counts set to 0 just before it)",
+             "ssd_train": "examples/ssd/train.py train() at its defaults "
+                          "(counts set to 0 just before it)"}
+
+    def entry(name, wrapper, replaces, rows, per):
+        main = rows[0]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": cap["launches"].get(wrapper, 0)
+                + train["launches"].get(wrapper, 0),
+                "launches_by_path": {
+                    "ssd_capture": cap["launches"].get(wrapper, 0),
+                    "ssd_train": train["launches"].get(wrapper, 0)},
+                "paths": paths,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "mismatches": sum(r["mismatches"] for r in rows),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None, "dtype": "float32", "per": per,
+                "cases": [{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "mismatches")}
+                          for r in rows], "status": "ok"}
+
+    return [
+        entry("greedy_nms_keep (N1)", "greedy_nms_keep",
+              "mxnet_tpu/ops/contrib.py:326-329 (the lax.fori_loop of "
+              "_greedy_nms_keep :314; no pallas_call)", n1,
+              "one call over 32 images of 8,732 boxes, class-aware at "
+              "0.45"),
+        entry("bipartite_match (M1)", "bipartite_match",
+              "mxnet_tpu/ops/surface.py:455-468 (the lax.fori_loop of "
+              "bipartite_matching :437; no pallas_call)", [m1],
+              "one call over 4 score matrices of 8,732 x 50, descending "
+              "at 0.5"),
+    ]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9215,6 +9699,11 @@ def main():
     torch.cuda.empty_cache()
     op_set_phases(mt, torch, np, smi)
 
+    # 23a.-23e. SSD detection: N1, M1, the contrib ops (slice 20) --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    s20_entries = ssd_phases(mt, torch, np, smi)
+
     # 8. the kernels line, then the result ------------------------------------
     def serving_agg(name):
         rows = per_fwd[name].values()
@@ -9329,7 +9818,7 @@ def main():
              "large elementwise"),
             ("user_scale3_triton", "triton",
              k4_path_launches["user_scale3_triton"], "large elementwise"))
-    ] + [d1_entry] + l1_entries, "card": smi,
+    ] + [d1_entry] + l1_entries + s20_entries, "card": smi,
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,192 @@
+"""Single-shot detection (SSD) training example (the port's counterpart
+of ``examples/ssd/train.py``; reference: example/ssd/train.py,
+symbol/symbol_builder.py): a small two-scale SSD over synthetic "find
+the colored square" data — conv backbone, per-scale class and box heads,
+``MultiBoxPrior`` anchors, ``MultiBoxTarget`` training targets with
+hard-negative mining, and ``MultiBoxDetection`` with greedy NMS at
+evaluation (N1 on the card).
+
+Everything runs on ``--device`` (``cuda:0`` by default, ``cpu`` for a
+run without a card); the batches are drawn with numpy from the seed.
+
+Run: python -m mxnet_tpu_torch.examples.ssd.train
+     python -m mxnet_tpu_torch.examples.ssd.train --device cpu
+"""
+import argparse
+
+import numpy as np
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import nd
+from mxnet_tpu_torch.gluon import HybridBlock, nn
+
+
+NUM_CLASSES = 2        # square classes (background handled separately)
+IMG_SIZE = 32
+
+
+def make_batch(batch_size, rng, ctx=None):
+    """Images with one axis-aligned colored square; label rows
+    [cls, xmin, ymin, xmax, ymax] normalized to [0,1]."""
+    imgs = rng.rand(batch_size, 3, IMG_SIZE, IMG_SIZE).astype(np.float32) * 0.1
+    labels = np.full((batch_size, 1, 5), -1.0, np.float32)
+    for i in range(batch_size):
+        cls = rng.randint(NUM_CLASSES)
+        size = rng.randint(10, 20)
+        x0 = rng.randint(0, IMG_SIZE - size)
+        y0 = rng.randint(0, IMG_SIZE - size)
+        imgs[i, cls, y0:y0 + size, x0:x0 + size] = 1.0
+        labels[i, 0] = [cls, x0 / IMG_SIZE, y0 / IMG_SIZE,
+                        (x0 + size) / IMG_SIZE, (y0 + size) / IMG_SIZE]
+    return nd.array(imgs, ctx=ctx), nd.array(labels, ctx=ctx)
+
+
+class TinySSD(HybridBlock):
+    """Two-scale SSD head (reference: example/ssd/symbol/symbol_builder.py
+    get_symbol_train — backbone + multi-scale cls/loc conv heads)."""
+
+    SIZES = [(0.3, 0.45), (0.6, 0.8)]
+    RATIOS = (1.0, 2.0, 0.5)
+    K = 4  # anchors per location: len(sizes) - 1 + len(ratios)
+
+    def __init__(self, num_classes=NUM_CLASSES, **kwargs):
+        super().__init__(**kwargs)
+        self.num_classes = num_classes
+        with self.name_scope():
+            self.stem = nn.HybridSequential()
+            for filters in (16, 32):
+                self.stem.add(nn.Conv2D(filters, 3, padding=1),
+                              nn.BatchNorm(), nn.Activation("relu"),
+                              nn.MaxPool2D(2))
+            self.down = nn.HybridSequential()
+            self.down.add(nn.Conv2D(64, 3, padding=1), nn.BatchNorm(),
+                          nn.Activation("relu"), nn.MaxPool2D(2))
+            self.cls_heads = []
+            self.loc_heads = []
+            for i in range(2):
+                c = nn.Conv2D(self.K * (num_classes + 1), 3, padding=1)
+                l = nn.Conv2D(self.K * 4, 3, padding=1)
+                setattr(self, f"cls{i}", c)
+                setattr(self, f"loc{i}", l)
+                self.cls_heads.append(c)
+                self.loc_heads.append(l)
+
+    def forward(self, x):
+        feats = [self.stem(x)]
+        feats.append(self.down(feats[0]))
+        cls_preds, loc_preds, anchors = [], [], []
+        for i, f in enumerate(feats):
+            cp = self.cls_heads[i](f)      # (B, K*(C+1), H, W)
+            lp = self.loc_heads[i](f)      # (B, K*4, H, W)
+            b = cp.shape[0]
+            hw = cp.shape[2] * cp.shape[3]
+            cls_preds.append(
+                cp.transpose((0, 2, 3, 1)).reshape(
+                    (b, hw * self.K, self.num_classes + 1)))
+            loc_preds.append(
+                lp.transpose((0, 2, 3, 1)).reshape((b, hw * self.K * 4)))
+            anchors.append(nd.MultiBoxPrior(
+                f, sizes=self.SIZES[i], ratios=self.RATIOS))
+        cls_pred = nd.concat(*cls_preds, dim=1)       # (B, A, C+1)
+        loc_pred = nd.concat(*loc_preds, dim=1)       # (B, A*4)
+        anchor = nd.concat(*anchors, dim=1)           # (1, A, 4)
+        return cls_pred, loc_pred, anchor
+
+
+def ssd_losses(cls_pred, loc_pred, cls_target, loc_target, loc_mask):
+    """Masked softmax CE (ignore_label=-1) + smooth-L1 on positives
+    (reference: MultiBoxTarget outputs feeding SoftmaxOutput + smooth_l1
+    in symbol_builder.py)."""
+    logp = cls_pred.log_softmax(axis=-1)
+    valid = (cls_target >= 0).astype("float32")
+    tgt = cls_target.clip(0, None)
+    ce = -nd.pick(logp, tgt, axis=-1) * valid
+    cls_loss = ce.sum() / valid.sum().clip(1.0, None)
+    diff = (loc_pred - loc_target) * loc_mask
+    ad = diff.abs()
+    smooth = nd.where(ad < 1.0, 0.5 * diff * diff, ad - 0.5)
+    loc_loss = smooth.sum() / loc_mask.sum().clip(1.0, None)
+    return cls_loss + loc_loss, cls_loss, loc_loss
+
+
+def evaluate(net, rng, n=32, ctx=None):
+    """Mean IoU of the top detection vs ground truth + class accuracy."""
+    imgs, labels = make_batch(n, rng, ctx)
+    cls_pred, loc_pred, anchor = net(imgs)
+    cls_prob = cls_pred.softmax(axis=-1).transpose((0, 2, 1))
+    dets = nd.MultiBoxDetection(cls_prob, loc_pred, anchor,
+                                nms_threshold=0.45, threshold=0.01)
+    dets = dets.asnumpy()
+    gt = labels.asnumpy()
+    ious, correct = [], 0
+    for i in range(n):
+        rows = dets[i]
+        rows = rows[rows[:, 0] >= 0]
+        if not len(rows):
+            ious.append(0.0)
+            continue
+        best = rows[np.argmax(rows[:, 1])]
+        g = gt[i, 0]
+        ix0, iy0 = max(best[2], g[1]), max(best[3], g[2])
+        ix1, iy1 = min(best[4], g[3]), min(best[5], g[4])
+        inter = max(ix1 - ix0, 0) * max(iy1 - iy0, 0)
+        area = ((best[4] - best[2]) * (best[5] - best[3])
+                + (g[3] - g[1]) * (g[4] - g[2]) - inter)
+        ious.append(inter / max(area, 1e-9))
+        correct += int(best[0] == g[0])
+    return float(np.mean(ious)), correct / n
+
+
+def train(num_epoch=3, batch_size=16, steps_per_epoch=60, lr=0.05,
+          seed=0, log=print, device="cuda:0"):
+    """Train from the seed; returns (mean IoU, class accuracy) of the
+    last epoch's evaluation."""
+    ctx = mx.context.as_context(device)
+    rng = np.random.RandomState(seed)
+    mx.random.seed(seed)
+    net = TinySSD()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": lr, "momentum": 0.9})
+    mean_iou, cls_acc = 0.0, 0.0
+    for epoch in range(num_epoch):
+        total, total_cls, total_loc = 0.0, 0.0, 0.0
+        for _ in range(steps_per_epoch):
+            imgs, labels = make_batch(batch_size, rng, ctx)
+            with mx.autograd.record():
+                cls_pred, loc_pred, anchor = net(imgs)
+                # MultiBoxTarget wants (B, C+1, A) predictions for mining
+                cls_pred_t = cls_pred.transpose((0, 2, 1))
+                loc_t, loc_m, cls_t = nd.MultiBoxTarget(
+                    anchor, labels, cls_pred_t,
+                    overlap_threshold=0.5, negative_mining_ratio=3.0,
+                    negative_mining_thresh=0.5)
+                loss, cls_l, loc_l = ssd_losses(cls_pred, loc_pred,
+                                                cls_t, loc_t, loc_m)
+            loss.backward()
+            trainer.step(1)
+            total += float(loss.asscalar())
+            total_cls += float(cls_l.asscalar())
+            total_loc += float(loc_l.asscalar())
+        mean_iou, cls_acc = evaluate(net, rng, ctx=ctx)
+        log(f"epoch {epoch}: loss={total / steps_per_epoch:.4f} "
+            f"(cls={total_cls / steps_per_epoch:.4f} "
+            f"loc={total_loc / steps_per_epoch:.4f}) "
+            f"val_iou={mean_iou:.3f} val_cls_acc={cls_acc:.3f}")
+    return mean_iou, cls_acc
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="tiny SSD on synthetic data")
+    parser.add_argument("--num-epoch", type=int, default=3)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--steps-per-epoch", type=int, default=60)
+    parser.add_argument("--lr", type=float, default=0.05)
+    parser.add_argument("--device", type=str, default="cuda:0")
+    args = parser.parse_args(argv)
+    return train(args.num_epoch, args.batch_size, args.steps_per_epoch,
+                 args.lr, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

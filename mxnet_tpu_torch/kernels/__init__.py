@@ -14,7 +14,12 @@
 - ``decode_attention_triton.py`` (Triton): D1, the masked decode /
   verify attention over the f32 or int8 KV-cache of decode serving
   (jnp in the JAX package, ``serving/decode/model.py``).
+- ``csrc/greedy_nms.cu`` (CUDA C++, ``sm_90a``): N1, the greedy NMS keep
+  mask of the box ops, and M1, greedy bipartite matching (the two
+  ``lax.fori_loop``s of ``ops/contrib.py`` and ``ops/surface.py`` in the
+  JAX package).
 
 Their wrappers, plain versions and launch counters are in
-``ops/fused_bn_conv.py`` (D1's in ``ops/decode_attention.py``).
+``ops/fused_bn_conv.py`` (D1's in ``ops/decode_attention.py``, N1's and
+M1's in ``ops/nms.py``).
 """

@@ -28,7 +28,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("bn_relu_conv1x1", "bn_relu_matmul", "decode_attention",
-           "lstm_step")
+           "lstm_step", "greedy_nms")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"

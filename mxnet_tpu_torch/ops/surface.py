@@ -2,15 +2,18 @@
 ``mxnet_tpu/ops/surface.py``), the parts the port carries: tensor
 utilities (reshape_like, round, hypot, the slice and scatter
 assignments), the KL sparsity regularizer, multi-precision SGD, the
-contrib ``quadratic``, the cuDNN-era ``CuDNNBatchNorm`` name and the
-per-element samplers. The image, quantization, box and sparse-storage
-ops of that module are not ported (ROADMAP A5 lists them).
+contrib ``quadratic`` and the box ops ``box_iou`` and
+``bipartite_matching`` (greedy matching: M1 on CUDA, ``ops/nms.py``),
+the cuDNN-era ``CuDNNBatchNorm`` name and the per-element samplers. The
+image, quantization and eager sparse-storage ops of that module are not
+ported (ROADMAP A5 lists them).
 """
 from __future__ import annotations
 
 import torch
 
 from .registry import register_op, alias
+from .nms import bipartite_match
 from .random_ops import (gen_of, uniform_, normal_, exponential_,
                          standard_gamma, poisson, gamma_poisson)
 from .shape_ops import _nd_index, _scatter_into
@@ -135,6 +138,52 @@ def scatter_set_nd(lhs, rhs, indices, shape=None, **kw):
 @register_op("_contrib_quadratic", aliases=["quadratic"])
 def quadratic(data, a=0.0, b=0.0, c=0.0, **kw):
     return a * torch.square(data) + b * data + c
+
+
+@register_op("_contrib_box_iou", aliases=["box_iou"])
+def box_iou(lhs, rhs, format="corner", **kw):
+    """Pairwise IoU: lhs (..., N, 4), rhs (..., M, 4) -> (..., N, M), in
+    corner or center format; the union floored at 1e-12 (not the
+    MultiBox ops' IoU, which is 0 where the union is <= 0)."""
+    def corners(b):
+        if format == "center":
+            x, y, w, h = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+            return x - w / 2, y - h / 2, x + w / 2, y + h / 2
+        return b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+
+    lx1, ly1, lx2, ly2 = (t[..., :, None] for t in corners(lhs))
+    rx1, ry1, rx2, ry2 = (t[..., None, :] for t in corners(rhs))
+    iw = torch.clamp_min(torch.minimum(lx2, rx2) - torch.maximum(lx1, rx1),
+                         0.0)
+    ih = torch.clamp_min(torch.minimum(ly2, ry2) - torch.maximum(ly1, ry1),
+                         0.0)
+    inter = iw * ih
+    area_l = torch.clamp_min((lx2 - lx1) * (ly2 - ly1), 0.0)
+    area_r = torch.clamp_min((rx2 - rx1) * (ry2 - ry1), 0.0)
+    return inter / torch.clamp_min(area_l + area_r - inter, 1e-12)
+
+
+@register_op("_contrib_bipartite_matching", aliases=["bipartite_matching"],
+             no_grad=True, num_outputs=2)
+def bipartite_matching(data, is_ascend=False, threshold=0.5, topk=-1, **kw):
+    """Greedy bipartite matching on score matrices data (..., N, M):
+    entries visited by score (ascending with ``is_ascend``, else
+    descending with the higher flat index first among ties), the first
+    ``topk * max(N, M)`` of them when ``topk`` > 0; an entry matches when
+    its row and column are free and its score is past ``threshold``.
+    Returns (row_match (..., N), col_match (..., M)) float32, -1 where
+    unmatched."""
+    n, m = data.shape[-2], data.shape[-1]
+    flat = data.reshape(-1, n * m).contiguous()
+    order = torch.sort(flat, dim=-1, stable=True).indices
+    if not is_ascend:
+        order = order.flip(-1)
+    k = n * m if topk is None or int(topk) <= 0 \
+        else min(int(topk) * max(n, m), n * m)
+    row, col = bipartite_match(flat, order.contiguous(), n, m, k,
+                               float(threshold), bool(is_ascend))
+    return row.reshape(data.shape[:-2] + (n,)), \
+        col.reshape(data.shape[:-2] + (m,))
 
 
 def _mp_grad(grad, rescale_grad, clip_gradient):

@@ -20,13 +20,14 @@ import zlib
 import numpy as np
 
 __all__ = ["Case", "CASES", "SAMPLERS", "SAMPLER_PARAMS",
-           "MULTINOMIAL_PROBS", "NEW_NAMES", "STAY_MISSING", "EXACT", "ARITH",
+           "MULTINOMIAL_PROBS", "NEW_NAMES", "CONTRIB_NAMES", "BOX_OPS",
+           "STAY_MISSING", "EXACT", "ARITH",
            "SPECIAL", "FAMILIES", "case_seed", "cotangent", "cases_of",
            "run_port", "sampler_dists", "bilinear_weight",
            "padded_sequence_symbol"]
 
 EXACT, ARITH, SPECIAL = 0.0, 1e-5, 1e-4
-FAMILIES = ("math", "index", "sort", "linalg", "random", "nn")
+FAMILIES = ("math", "index", "sort", "linalg", "random", "nn", "contrib")
 
 
 class Case:
@@ -584,22 +585,247 @@ def sampler_dists(name):
     return []
 
 
+# ---------------------------------------------------------------------------
+# contrib (ROADMAP A2): the SSD box ops and the detection / vision ops.
+# Boxes are drawn with duplicates and scores with equal values, so every
+# sort meets ties; the class ids, keep masks and matches compare exactly
+# (integers at ARITH), boxes and targets at ARITH.
+# ---------------------------------------------------------------------------
+def _corners(rs, n, dup=2):
+    """``n`` corner boxes in [0, 1], the last ``dup`` copies of the
+    first ones."""
+    xy = rs.uniform(0.0, 0.6, (n, 2))
+    wh = rs.uniform(0.1, 0.4, (n, 2))
+    b = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+    b[n - dup:] = b[:dup]
+    return b
+
+
+def _anchor(rs, a=24):
+    return _corners(rs, a, dup=3)[None]
+
+
+def _labels(rs, b=3, l=3):
+    """(b, l, 5) rows [cls, box], -1-padded: a padded slot in the first
+    item, a duplicate box in the second, no ground truth in the last."""
+    lab = np.full((b, l, 5), -1.0, np.float32)
+    for i in range(b - 1):
+        k = l - 1 if i == 0 else l
+        lab[i, :k, 0] = rs.randint(0, 3, k)
+        lab[i, :k, 1:] = _corners(rs, k, dup=1 if i else 0)
+    return lab
+
+
+def _mbt(rs):
+    anchor, label = _anchor(rs), _labels(rs)
+    a = anchor.shape[1]
+    anchor[0, 5] = label[1, 0, 1:]           # an anchor on a ground truth
+    cls = rs.standard_normal((3, 4, a)).astype(np.float32)
+    cls[:, :, 7] = cls[:, :, 2]              # equal background probs
+    return [anchor, label, cls]
+
+
+def _mbd(rs, a=24):
+    logits = rs.standard_normal((2, 4, a)).astype(np.float32)
+    logits[:, :, 9] = logits[:, :, 3]        # equal scores, equal boxes
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    loc = (0.3 * rs.standard_normal((2, a, 4))).astype(np.float32)
+    loc[:, 9] = loc[:, 3]
+    anchor = _anchor(rs, a)
+    anchor[0, 9] = anchor[0, 3]
+    return [prob, loc.reshape(2, a * 4), anchor]
+
+
+def _nms_records(rs, lead=(2, 3), n=12, center=False):
+    """(..., n, 6) records [id, score, box]; duplicates and equal scores."""
+    rec = np.zeros(lead + (n, 6), np.float32)
+    rec[..., 0] = rs.randint(0, 2, lead + (n,))
+    rec[..., 1] = np.round(rs.uniform(0, 1, lead + (n,)), 1)
+    for ix in np.ndindex(*lead):
+        bx = _corners(rs, n, dup=3)
+        if center:
+            bx = np.concatenate([(bx[:, :2] + bx[:, 2:]) / 2,
+                                 bx[:, 2:] - bx[:, :2]], 1)
+        rec[ix + (slice(None), slice(2, 6))] = bx
+        rec[ix + (slice(n - 3, n), slice(0, 2))] = rec[ix + (slice(0, 3),
+                                                           slice(0, 2))]
+    return rec
+
+
+def _box_pairs(rs, center=False):
+    lhs = np.stack([_corners(rs, 5, dup=1) for _ in range(2)])
+    rhs = np.stack([_corners(rs, 6, dup=0) for _ in range(2)])
+    rhs[:, 0] = lhs[:, 0]                    # a duplicate across sides
+    if center:
+        lhs, rhs = (np.concatenate([(x[..., :2] + x[..., 2:]) / 2,
+                                    x[..., 2:] - x[..., :2]], -1)
+                    for x in (lhs, rhs))
+    return [lhs.astype(np.float32), rhs.astype(np.float32)]
+
+
+def _proposal(rs, a=6, h=5, w=6, b=2):
+    logits = rs.standard_normal((b, 2, a, h, w)).astype(np.float32)
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).reshape(b, 2 * a, h, w)
+    prob[:, a + 1] = prob[:, a]              # equal fg scores
+    deltas = (0.2 * rs.standard_normal((b, 4 * a, h, w))).astype(np.float32)
+    info = np.array([[40, 48, 1.0], [36, 44, 1.5]], np.float32)[:b]
+    return [prob.astype(np.float32), deltas, info]
+
+
+_PROPOSAL = {"scales": (2, 4), "ratios": (0.5, 1, 2), "feature_stride": 8,
+             "rpn_pre_nms_top_n": 30, "rpn_post_nms_top_n": 10,
+             "threshold": 0.7, "rpn_min_size": 4}
+
+
+def _psroi_rois(rs, r=4, b=2, h=8, w=9, scale=0.5):
+    x1 = rs.uniform(0, w / scale * 0.5, r)
+    y1 = rs.uniform(0, h / scale * 0.5, r)
+    x2 = x1 + rs.uniform(2, w / scale * 0.5, r)
+    y2 = y1 + rs.uniform(2, h / scale * 0.5, r)
+    rois = np.stack([rs.randint(0, b, r), x1, y1, x2, y2], 1)
+    return rois.astype(np.float32)
+
+
+def _psroi(rs, trans=True):
+    data = rs.standard_normal((2, 12, 8, 9)).astype(np.float32)
+    ins = [data, _psroi_rois(rs)]
+    if trans:
+        ins.append((0.5 * rs.standard_normal((4, 2, 2, 2)))
+                   .astype(np.float32))
+    return ins
+
+
+def _deform(rs):
+    data = rs.standard_normal((2, 4, 6, 7)).astype(np.float32)
+    offset = (1.5 * rs.standard_normal((2, 2 * 2 * 9, 6, 7))) \
+        .astype(np.float32)
+    weight = (0.3 * rs.standard_normal((6, 2, 3, 3))).astype(np.float32)
+    bias = rs.standard_normal(6).astype(np.float32)
+    return [data, offset, weight, bias]
+
+
+def _deform_strided(rs):
+    """Stride 2, dilation (1, 2), no padding: a (2, 2) output, one
+    deformable group, no bias."""
+    data = rs.standard_normal((2, 4, 6, 7)).astype(np.float32)
+    offset = (1.5 * rs.standard_normal((2, 18, 2, 2))).astype(np.float32)
+    weight = (0.3 * rs.standard_normal((6, 4, 3, 3))).astype(np.float32)
+    return [data, offset, weight]
+
+
+def _sketch(rs):
+    data = rs.standard_normal((3, 10)).astype(np.float32)
+    h = rs.randint(0, 6, (1, 10)).astype(np.float32)
+    h[0, 4] = -1.0                           # out of range: dropped
+    s = rs.choice([-1.0, 1.0], (1, 10)).astype(np.float32)
+    return [data, h, s]
+
+
+def _scores(rs, shape=(2, 5, 7)):
+    return [np.round(rs.uniform(0, 1, shape), 1).astype(np.float32)]
+
+
+_MB_ATTRS = {"sizes": (0.3, 0.5), "ratios": (1.0, 2.0, 0.5), "clip": True,
+             "steps": (0.2, 0.25), "offsets": (0.4, 0.6)}
+CASES += [
+    C("MultiBoxPrior", "contrib", lambda rs: [np.zeros((1, 3, 4, 5),
+                                                       np.float32)],
+      _MB_ATTRS, grad=[]),
+    C("MultiBoxPrior", "contrib", lambda rs: [np.zeros((2, 3, 3, 3),
+                                                       np.float32)],
+      {"sizes": (0.5,), "ratios": (1.0,)}, grad=[], tag="plain"),
+    C("MultiBoxTarget", "contrib", _mbt,
+      {"overlap_threshold": 0.5, "negative_mining_ratio": 3.0,
+       "negative_mining_thresh": 0.5, "minimum_negative_samples": 2},
+      grad=[]),
+    C("MultiBoxTarget", "contrib", _mbt,
+      {"overlap_threshold": 0.3, "ignore_label": -2.0,
+       "variances": (0.1, 0.1, 0.2, 0.2)}, grad=[], tag="nomine"),
+    C("MultiBoxDetection", "contrib", _mbd,
+      {"threshold": 0.2, "nms_threshold": 0.45, "nms_topk": 10}, grad=[]),
+    C("MultiBoxDetection", "contrib", _mbd,
+      {"threshold": 0.05, "nms_threshold": 0.3, "force_suppress": True,
+       "clip": False}, grad=[], tag="force"),
+    C("box_nms", "contrib", lambda rs: [_nms_records(rs)],
+      {"overlap_thresh": 0.5, "coord_start": 2, "score_index": 1,
+       "id_index": 0, "topk": 8, "valid_thresh": 0.1}, grad=[]),
+    C("box_nms", "contrib", lambda rs: [_nms_records(rs, (4,),
+                                                     center=True)],
+      {"overlap_thresh": 0.4, "in_format": "center",
+       "out_format": "corner"}, grad=[], tag="center"),
+    C("box_nms", "contrib", lambda rs: [_nms_records(rs, (3,))],
+      {"overlap_thresh": 0.3, "id_index": 0, "force_suppress": True,
+       "out_format": "center"}, grad=[], tag="force"),
+    C("_contrib_box_iou", "contrib", _box_pairs),
+    C("_contrib_box_iou", "contrib", lambda rs: _box_pairs(rs, True),
+      {"format": "center"}, tag="center"),
+    C("_contrib_bipartite_matching", "contrib", _scores,
+      {"threshold": 0.3}, grad=[]),
+    C("_contrib_bipartite_matching", "contrib", _scores,
+      {"is_ascend": True, "threshold": 0.6, "topk": 2}, grad=[],
+      tag="ascend"),
+    C("_contrib_bipartite_matching", "contrib",
+      lambda rs: _scores(rs, (6, 4)), {"threshold": 0.5}, grad=[],
+      tag="single"),
+    C("Proposal", "contrib", _proposal,
+      dict(_PROPOSAL, output_score=True), grad=[]),
+    C("MultiProposal", "contrib", _proposal, _PROPOSAL, grad=[]),
+    C("PSROIPooling", "contrib", lambda rs: _psroi(rs, False),
+      {"spatial_scale": 0.5, "output_dim": 3, "pooled_size": 2,
+       "group_size": 2}, grad=[0]),
+    C("DeformablePSROIPooling", "contrib", _psroi,
+      {"spatial_scale": 0.5, "output_dim": 3, "group_size": 2,
+       "pooled_size": 2, "part_size": 2, "sample_per_part": 2,
+       "trans_std": 0.1}, grad=[0, 2]),
+    C("DeformablePSROIPooling", "contrib", lambda rs: _psroi(rs, False),
+      {"spatial_scale": 0.5, "output_dim": 3, "group_size": 2,
+       "pooled_size": 2, "sample_per_part": 3, "no_trans": True},
+      grad=[0], tag="notrans"),
+    C("DeformableConvolution", "contrib", _deform,
+      {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6, "num_group": 2,
+       "num_deformable_group": 2}, grad=[0, 1, 2, 3]),
+    C("DeformableConvolution", "contrib", _deform_strided,
+      {"kernel": (3, 3), "stride": (2, 2), "dilate": (1, 2),
+       "num_filter": 6, "no_bias": True}, grad=[0, 1, 2], tag="nobias"),
+    C("Correlation", "contrib", _n((2, 3, 7, 8), (2, 3, 7, 8)),
+      {"kernel_size": 3, "max_displacement": 2, "pad_size": 2}),
+    C("Correlation", "contrib", _n((2, 3, 7, 8), (2, 3, 7, 8)),
+      {"kernel_size": 1, "max_displacement": 3, "stride1": 2, "stride2": 2,
+       "pad_size": 3, "is_multiply": False}, tag="subtract"),
+    C("Crop", "contrib", _n((2, 3, 6, 7)),
+      {"h_w": (3, 4), "offset": (1, 2)}),
+    C("Crop", "contrib", _n((2, 3, 6, 7), (2, 3, 4, 5)),
+      {"num_args": 2, "center_crop": True}, grad=[0, 1], tag="like"),
+    C("count_sketch", "contrib", _sketch, {"out_dim": 6}),
+    C("fft", "contrib", _n((3, 8))),
+    C("ifft", "contrib", _n((3, 16))),
+]
+
+# the canonical ops of the box cases (the rest of the contrib family is
+# the vision ops)
+BOX_OPS = ("MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection",
+           "box_nms", "_contrib_box_iou", "_contrib_bipartite_matching")
+
+# the 32 names of ROADMAP A2 (the contrib detection and vision ops)
+CONTRIB_NAMES = sorted([
+    "Correlation", "Crop", "DeformableConvolution",
+    "DeformablePSROIPooling", "MultiBoxDetection", "MultiBoxPrior",
+    "MultiBoxTarget", "MultiProposal", "PSROIPooling", "Proposal",
+    "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
+    "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
+    "_contrib_MultiBoxTarget", "_contrib_MultiProposal",
+    "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_box_nms",
+    "_contrib_box_non_maximum_suppression", "_contrib_count_sketch",
+    "_contrib_fft", "_contrib_ifft", "box_nms",
+    "box_non_maximum_suppression", "count_sketch", "fft", "ifft",
+    "box_iou", "_contrib_box_iou", "bipartite_matching",
+    "_contrib_bipartite_matching"])
+
 # the JAX package's op names the port does not carry yet, by the queue
 # item of ROADMAP.md that takes them
 STAY_MISSING = {
-    "A2": sorted([
-        "Correlation", "Crop", "DeformableConvolution",
-        "DeformablePSROIPooling", "MultiBoxDetection", "MultiBoxPrior",
-        "MultiBoxTarget", "MultiProposal", "PSROIPooling", "Proposal",
-        "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-        "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-        "_contrib_MultiBoxTarget", "_contrib_MultiProposal",
-        "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_box_nms",
-        "_contrib_box_non_maximum_suppression", "_contrib_count_sketch",
-        "_contrib_fft", "_contrib_ifft", "box_nms",
-        "box_non_maximum_suppression", "count_sketch", "fft", "ifft",
-        "box_iou", "_contrib_box_iou", "bipartite_matching",
-        "_contrib_bipartite_matching"]),
     "A6": sorted(["cast_storage", "sparse_retain", "_sparse_retain",
                   "square_sum", "_square_sum", "_sparse_adagrad_update"]),
     "A12": sorted([

@@ -68,6 +68,7 @@ OP_INPUTS = {
     "pick": (["data", "index"], []),
     "gather_nd": (["data", "indices"], []),
     "scatter_nd": (["data", "indices"], []),
+    "Crop": (None, []),
 }
 
 

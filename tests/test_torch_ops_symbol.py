@@ -1,9 +1,10 @@
 """The op set through the symbolic and imperative surfaces, against the
 JAX package's, on the CPU: the registry (the names still missing equal
-the listed 64 exactly; every one of the 206 names runs its case through
-its own name, resolves to the JAX package's op and records a gradient
-where that one does, and as a one-node symbol has the JAX package's
-JSON, arguments and inferred shapes), a symbol over 34 of the new ops
+the listed 32 exactly; every one of the 206 names, and of the 32 contrib
+detection and vision names, runs its case through its own name, resolves
+to the JAX package's op and records a gradient where that one does, and
+as a one-node symbol has the JAX package's JSON, arguments and inferred
+shapes), a symbol over 34 of the new ops
 (``tojson()``, ``list_arguments()``, ``infer_shape()`` and
 ``infer_shape_partial()`` equal, the JAX package's JSON binding in the
 port to the same outputs at rtol 1e-4), the padded-sequence symbol of
@@ -33,17 +34,20 @@ def _jax():
     return mx
 
 
-def test_missing_names_are_the_listed_64():
+def test_missing_names_are_the_listed_32():
     from mxnet_tpu.ops.registry import _OPS as JAX_OPS
     listed = [n for names in sweep.STAY_MISSING.values() for n in names]
-    assert len(listed) == len(set(listed)) == 64
+    assert len(listed) == len(set(listed)) == 32
+    assert sorted(sweep.STAY_MISSING) == ["A12", "A6", "A9"]
     assert sorted(set(JAX_OPS) - set(PORT_OPS)) == sorted(listed)
     assert not set(PORT_OPS) - set(JAX_OPS)
     assert len(sweep.NEW_NAMES) == len(set(sweep.NEW_NAMES)) == 206
-    assert len(JAX_OPS) - len(listed) == len(PORT_OPS)
+    assert len(sweep.CONTRIB_NAMES) == len(set(sweep.CONTRIB_NAMES)) == 32
+    assert not set(sweep.CONTRIB_NAMES) & set(sweep.NEW_NAMES)
+    assert len(JAX_OPS) - len(listed) == len(PORT_OPS) == 394
 
 
-@pytest.mark.parametrize("name", sweep.NEW_NAMES)
+@pytest.mark.parametrize("name", sweep.NEW_NAMES + sweep.CONTRIB_NAMES)
 def test_every_name(name):
     """Each name resolves to the JAX package's op (the same canonical
     name, the same ``no_grad``) and runs its first case through itself:
@@ -434,7 +438,7 @@ def _one_op_symbol(S, name):
         {f"in{i}": s for i, s in enumerate(shapes)}
 
 
-@pytest.mark.parametrize("name", sweep.NEW_NAMES)
+@pytest.mark.parametrize("name", sweep.NEW_NAMES + sweep.CONTRIB_NAMES)
 def test_every_name_as_a_symbol(name):
     """Each new name as a one-node symbol: ``tojson()``,
     ``list_arguments()`` and ``infer_shape()`` equal the JAX package's
