@@ -478,7 +478,10 @@ import time
 
 # data-sheet peaks of one H100 SXM (dense): bytes/s, and flop/s by type
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              # fp32 operations that are not FMAs (max, min, add, mul,
+              # div): one a lane a clock, half the FMA-counted peak
+              "float32_nonfma": 33.5e12}
 SEED = 0
 SPIN_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers queuing a run
 # Random ResNet-50 weights give near-ties between the top two classes
@@ -8861,13 +8864,18 @@ def op_set_phases(mt, torch, np, smi):
 # the kernels' checks compare the plain versions with themselves)
 SSD_DEVICE = "cuda:0"
 # 23a: N1 (images, boxes, threshold, force_suppress); M1 (B, N, M)
-SSD_N1_CASES = ((32, 8732, 0.45, False), (1, 6000, 0.7, True))
+# (32, 320) is what the SSD example's evaluate() gives N1: TinySSD's 8 x 8
+# x 4 + 4 x 4 x 4 anchors, a batch of 32
+SSD_N1_CASES = ((32, 8732, 0.45, False), (1, 6000, 0.7, True),
+                (32, 320, 0.45, False))
 SSD_M1_CASE = (4, 8732, 50)
 SSD_CLASSES = 21
 # fp32 operations of one IoU in N1's order (4 max/min, 6 subtractions
 # and clamps, 3 products, an addition, a subtraction, a division; the
-# compares left out): N1's bound counts the IoUs of each kept box with
-# the boxes after it
+# compares left out), none an FMA, so held to "float32_nonfma" (the
+# division counted as one operation, though __fdiv_rn takes several):
+# N1's bound counts the IoUs of each kept box with the later boxes it
+# can suppress, those of its class unless force_suppress
 SSD_IOU_OPS = 12
 # 23c: one feature map of SSD300's first scale, a batch of 8, VOC's 21
 # classes, 10 ground-truth slots
@@ -8942,20 +8950,28 @@ def n1_case(mt, torch, gen, b, n, thresh, force, smi):
     plain = nms.greedy_nms_keep_plain(*args)
     torch.cuda.synchronize()
     mism = int((keep != plain).sum())
-    kept_rows = torch.nonzero(plain)[:, 1]
-    pairs = int((n - 1 - kept_rows).sum())
+    if force:
+        later = (n - 1 - torch.arange(n, device=SSD_DEVICE)).expand(b, n)
+    else:
+        # boxes after each box with its class: a reversed cumulative count
+        # over a one-hot of the ids, less the box itself
+        oh = torch.nn.functional.one_hot(ids.long(), SSD_CLASSES)
+        after = oh.flip(1).cumsum(1).flip(1) - oh
+        later = torch.gather(after, 2, ids.long()[..., None])[..., 0]
+    pairs = int(later[plain].sum())
     nbytes = b * n * (16 + 4 + 1 + 1)
-    bms, by = bound_ms(nbytes, pairs * SSD_IOU_OPS, "float32")
+    bms, by = bound_ms(nbytes, pairs * SSD_IOU_OPS, "float32_nonfma")
     ms = time_ms(lambda: nms.greedy_nms_keep(*args), reps=5, inner=3,
                  warmup=1)
     plain_ms = time_ms(lambda: nms.greedy_nms_keep_plain(*args), reps=5,
                        inner=1, warmup=1)
     split = n1_split(torch, lambda: nms.greedy_nms_keep(*args))
-    row = {"phase": "n1_case", "images": b, "boxes": n, "thresh": thresh,
+    row = {"phase": "n1_case", "shape": [b, n], "thresh": thresh,
            "force_suppress": force, "kept": int(plain.sum()),
            "duplicates_valid": int(valid.sum()), "mismatches": mism,
            "max_abs_err": float(mism > 0), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "iou_pairs_needed": pairs,
+           "ops_peak": "float32_nonfma",
            "mask_mb": b * n * (-(-n // 64)) * 8 / 1e6,
            "device_ms_by_kernel": split, "card": smi}
     emit(row)
@@ -9316,8 +9332,9 @@ def ssd_phases(mt, torch, np, smi):
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None, "dtype": "float32", "per": per,
-                "cases": [{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "mismatches")}
+                "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "mismatches")}
                           for r in rows], "status": "ok"}
 
     return [

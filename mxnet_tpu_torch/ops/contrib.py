@@ -227,6 +227,23 @@ def _decode_boxes(anchors, loc_pred, variances, clip):
     return boxes
 
 
+def _nms_first(boxes, ids, valid, thresh, force_suppress, topk):
+    """``greedy_nms_keep`` where every row from ``topk`` on (when 0 <
+    topk < N) is invalid: such a row is never kept and so suppresses
+    nothing, and a row is suppressed only by earlier rows, so NMS over
+    the first ``topk`` rows with the rest padded False gives the same
+    bits, and a (topk x topk) suppression mask in place of (N x N)."""
+    n = boxes.shape[1]
+    if not 0 < topk < n:
+        return greedy_nms_keep(boxes.contiguous(), ids.contiguous(), valid,
+                               thresh, force_suppress)
+    keep = greedy_nms_keep(boxes[:, :topk].contiguous(),
+                           ids[:, :topk].contiguous(),
+                           valid[:, :topk].contiguous(), thresh,
+                           force_suppress)
+    return torch.cat([keep, keep.new_zeros(keep.shape[0], n - topk)], 1)
+
+
 @register_op("MultiBoxDetection", aliases=["_contrib_MultiBoxDetection"],
              no_grad=True)
 def multibox_detection(cls_prob, loc_pred, anchor, clip=True, threshold=0.01,
@@ -257,8 +274,8 @@ def multibox_detection(cls_prob, loc_pred, anchor, clip=True, threshold=0.01,
     if nms_topk > 0:
         valid = valid & (torch.arange(a, device=valid.device) < nms_topk)
     if 0 < nms_threshold <= 1:
-        keep = greedy_nms_keep(boxes, cid, valid, nms_threshold,
-                               bool(force_suppress))
+        keep = _nms_first(boxes, cid, valid, nms_threshold,
+                          bool(force_suppress), nms_topk)
     else:
         keep = valid
     row = torch.cat([cid[..., None], score[..., None], boxes], dim=-1)
@@ -290,9 +307,8 @@ def box_nms(data, overlap_thresh=0.5, topk=-1, coord_start=2, score_index=1,
     ids_s, valid_s = torch.gather(ids, 1, order), torch.gather(valid, 1, order)
     if int(topk) > 0:
         valid_s = valid_s & (torch.arange(n, device=data.device) < int(topk))
-    keep = greedy_nms_keep(boxes_s.contiguous(), ids_s.contiguous(), valid_s,
-                           float(overlap_thresh),
-                           bool(force_suppress) or ii < 0)
+    keep = _nms_first(boxes_s, ids_s, valid_s, float(overlap_thresh),
+                      bool(force_suppress) or ii < 0, int(topk))
     out = d_s
     if out_format == "center" and in_format == "corner":
         bx = d_s[..., cs:cs + 4]

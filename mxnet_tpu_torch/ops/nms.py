@@ -10,8 +10,9 @@ PyTorch runs a loop step as a launch or more, so on CUDA tensors
 raise on what they do not take); CPU and meta tensors take the plain
 versions. Each counts its launches through ``fused_bn_conv._count``.
 
-``_n1_plan`` / ``_m1_plan`` decide the route, grids and shared memory
-before a launch. The plain versions compute the same bits in another
+``_n1_plan`` / ``_m1_plan`` decide the route, the words a mask row and
+the sweep's shared memory before a launch; the C entries set their grids
+from those. The plain versions compute the same bits in another
 order: N1's resolves the boxes 64 at a time as the kernel does; M1's
 takes min(N, M) rounds of "the first entry in order whose
 row and column are free and whose score passes", which is the sequential
@@ -56,29 +57,22 @@ class N1Plan(NamedTuple):
     """How a greedy-NMS call runs, from device and shapes alone."""
     route: str          # "plain" (CPU, meta) or "cuda"
     words: int          # W = ceil(N / 64) suppression words a row
-    mask_grid: tuple    # (W, W, B) blocks of nms_mask
     threads: int        # nms_sweep's threads a block
     smem_bytes: int     # nms_sweep's dynamic shared memory (the bitset)
 
 
 class M1Plan(NamedTuple):
-    route: str          # "plain" or "cuda"
-    grid: tuple         # (B,) warps, one a batch item
-
-
-def _cdiv(a, b):
-    return -(-a // b)
+    route: str          # "plain" or "cuda" (a warp a batch item)
 
 
 @functools.lru_cache(maxsize=256)
 def _n1_plan(device, b, n):
     """N1's plan for ``b`` images of ``n`` boxes on ``device``: CPU and
-    meta -> "plain"; CUDA -> "cuda" with the grids and the bitset's
-    shared memory; raises on what the kernel cannot take."""
+    meta -> "plain"; CUDA -> "cuda" with the bitset's shared memory; raises on what the kernel cannot take."""
     dev = torch.device(device)
-    words = _cdiv(max(n, 1), _TB)
+    words = _fb._cdiv(max(n, 1), _TB)
     if dev.type in ("cpu", "meta"):
-        return N1Plan("plain", words, (), 0, 0)
+        return N1Plan("plain", words, 0, 0)
     if dev.type != "cuda":
         raise MXNetError(f"greedy_nms_keep: unsupported device {dev}")
     if not 1 <= b <= 65535 or not 1 <= n or words > 65535:
@@ -88,7 +82,7 @@ def _n1_plan(device, b, n):
     if smem > _SMEM_MAX:
         raise MXNetError(f"N1: {n} boxes need a {smem}-byte bitset, more "
                          f"than a block's {_SMEM_MAX} bytes")
-    return N1Plan("cuda", words, (words, words, b), _SWEEP_THREADS, smem)
+    return N1Plan("cuda", words, _SWEEP_THREADS, smem)
 
 
 @functools.lru_cache(maxsize=256)
@@ -96,7 +90,7 @@ def _m1_plan(device, b, n, m):
     """M1's plan for ``b`` score matrices of ``n x m`` on ``device``."""
     dev = torch.device(device)
     if dev.type in ("cpu", "meta"):
-        return M1Plan("plain", ())
+        return M1Plan("plain")
     if dev.type != "cuda":
         raise MXNetError(f"bipartite_match: unsupported device {dev}")
     if b < 1 or not 1 <= n < 2 ** 24 or not 1 <= m < 2 ** 24 \
@@ -104,7 +98,7 @@ def _m1_plan(device, b, n, m):
         raise MXNetError(f"M1: {b} matrices of {n} x {m} are out of the "
                          "kernel's range (rows and columns below 2^24, "
                          "exact as float32 matches)")
-    return M1Plan("cuda", (b,))
+    return M1Plan("cuda")
 
 
 def _check_nms(boxes, ids, valid):
@@ -230,7 +224,7 @@ def bipartite_match(scores, order, n, m, k, threshold, is_ascend):
     if scores.device.type == "meta":         # shape inference
         return (torch.empty((b, n), dtype=torch.float32, device="meta"),
                 torch.empty((b, m), dtype=torch.float32, device="meta"))
-    plan = _m1_plan(scores.device, b, n, m) if b else M1Plan("plain", ())
+    plan = _m1_plan(scores.device, b, n, m) if b else M1Plan("plain")
     if plan.route == "plain":
         return bipartite_match_plain(scores, order, n, m, k, threshold,
                                      is_ascend)

@@ -208,6 +208,27 @@ def test_n1_plain_equals_reference_loop(seed):
         np.testing.assert_array_equal(wrapped.numpy(), want)
 
 
+@pytest.mark.parametrize("topk", [1, 7, 64, 65, 149, 150, 400])
+def test_nms_over_the_first_topk_rows_equals_the_full_loop(topk):
+    """MultiBoxDetection and box_nms run N1 over the first ``topk`` rows
+    only: the same bits as the reference loop over all rows with the
+    rows from ``topk`` on invalid."""
+    from mxnet_tpu_torch.ops.contrib import _nms_first
+    rs = np.random.RandomState(topk)
+    b, n = 2, 150
+    xy = rs.uniform(0, 0.8, (b, n, 2)).astype(np.float32)
+    wh = rs.uniform(0.0, 0.4, (b, n, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    ids = rs.randint(0, 3, (b, n)).astype(np.float32)
+    valid = (rs.rand(b, n) < 0.8) & (np.arange(n) < topk)
+    for force in (False, True):
+        got = _nms_first(torch.from_numpy(boxes), torch.from_numpy(ids),
+                         torch.from_numpy(valid), 0.45, force, topk)
+        want = np.stack([_np_nms(boxes[i], ids[i], valid[i], 0.45, force)
+                         for i in range(b)])
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("seed", range(8))
 def test_m1_plain_equals_reference_loop(seed):
     rs = np.random.RandomState(seed)
@@ -235,11 +256,11 @@ def test_m1_plain_equals_reference_loop(seed):
 def test_plans_route_by_device():
     p = nms._n1_plan("cuda:0", 32, 8732)
     assert p.route == "cuda" and p.words == 137
-    assert p.mask_grid == (137, 137, 32) and p.smem_bytes == 137 * 8
+    assert p.threads == nms._SWEEP_THREADS and p.smem_bytes == 137 * 8
     for dev in ("cpu", "meta", torch.device("cpu")):
         assert nms._n1_plan(dev, 32, 8732).route == "plain"
         assert nms._m1_plan(dev, 4, 8732, 50).route == "plain"
-    assert nms._m1_plan("cuda", 4, 8732, 50) == nms.M1Plan("cuda", (4,))
+    assert nms._m1_plan("cuda", 4, 8732, 50) == nms.M1Plan("cuda")
     with pytest.raises(MXNetError):
         nms._n1_plan("cuda:0", 1, 64 * (nms._SMEM_MAX // 8 + 1))
     with pytest.raises(MXNetError):
