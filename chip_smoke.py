@@ -8869,6 +8869,16 @@ SSD_DEVICE = "cuda:0"
 SSD_N1_CASES = ((32, 8732, 0.45, False), (1, 6000, 0.7, True),
                 (32, 320, 0.45, False))
 SSD_M1_CASE = (4, 8732, 50)
+# M1's rounds mode (MultiBoxTarget's stage 1): SSD300's anchors against
+# 50 label slots a batch of 32, the SSD example's (16, 320, 1), and 100
+# slots (more than the 64 columns a warp sorts: a round a batch)
+SSD_M1_ROUNDS = ((32, 8732, 50), (16, 320, 1), (4, 2000, 100))
+# the first kernels' times (PR 20's final archive run, the same card):
+# N1 by case, M1's walk, and MultiBoxTarget's 50 plain rounds in 23e
+SSD_PR20_MS = {(32, 8732): 4.19, (1, 6000): 0.593, (32, 320): 0.0454,
+               "m1_walk": 0.0313, "MultiBoxTarget": "14.4-21.2",
+               "MultiBoxDetection": 0.371, "MultiBoxDetection_all": 4.09,
+               "Proposal": 0.985}
 SSD_CLASSES = 21
 # fp32 operations of one IoU in N1's order (4 max/min, 6 subtractions
 # and clamps, 3 products, an addition, a subtraction, a division; the
@@ -8919,9 +8929,11 @@ def ssd_sorted_boxes(torch, gen, b, n):
     return boxes.contiguous(), ids.contiguous(), valid
 
 
-def n1_split(torch, fn, calls=3):
-    """Device ms a call of each of N1's two kernels (torch.profiler over
-    ``calls`` calls; {} where the profiler sees no device time)."""
+def kernel_split(torch, fn, names, calls=3):
+    """Device ms a call of each kernel named in ``names`` and of the rest
+    of the call ("other"), from the device kernels torch.profiler sees
+    over ``calls`` calls ({} where it sees none)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if SSD_DEVICE.startswith("cuda")
@@ -8932,11 +8944,30 @@ def n1_split(torch, fn, calls=3):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or 0
-        for k in ("nms_mask", "nms_sweep"):
-            if k in e.key and t:
-                out[k] = t / 1e3 / calls
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if getattr(e, "device_type", None) != DeviceType.CUDA or not t:
+            continue
+        k = next((k for k in names if k in e.key), "other")
+        out[k] = out.get(k, 0.0) + t / 1e3 / calls
     return out
+
+
+# N1's kernels by route ("other": the class sort and its key); M1's rounds
+N1_KERNELS = ("n1_prep", "n1_segments", "n1_mask", "n1_sweep")
+M1_ROUND_KERNELS = ("column_tiles", "bipartite_rounds")
+
+
+def peak_extra_mb(torch, fn):
+    """Device memory one ``fn()`` call takes above what was allocated
+    before it, MB (its outputs included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
 
 
 def n1_case(mt, torch, gen, b, n, thresh, force, smi):
@@ -8965,14 +8996,21 @@ def n1_case(mt, torch, gen, b, n, thresh, force, smi):
                  warmup=1)
     plain_ms = time_ms(lambda: nms.greedy_nms_keep_plain(*args), reps=5,
                        inner=1, warmup=1)
-    split = n1_split(torch, lambda: nms.greedy_nms_keep(*args))
+    split = kernel_split(torch, lambda: nms.greedy_nms_keep(*args),
+                         N1_KERNELS)
+    plan = nms._n1_plan(boxes.device, b, n, force)
     row = {"phase": "n1_case", "shape": [b, n], "thresh": thresh,
-           "force_suppress": force, "kept": int(plain.sum()),
+           "force_suppress": force, "route": plan.route,
+           "group": plan.group, "launches_a_call": -(-b // plan.group),
+           "pr20_ms": SSD_PR20_MS.get((b, n)),
+           "peak_extra_mb": peak_extra_mb(
+               torch, lambda: nms.greedy_nms_keep(*args)),
+           "pr20_mask_mb": b * n * (-(-n // 64)) * 8 / 1e6,
+           "kept": int(plain.sum()),
            "duplicates_valid": int(valid.sum()), "mismatches": mism,
            "max_abs_err": float(mism > 0), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "iou_pairs_needed": pairs,
            "ops_peak": "float32_nonfma",
-           "mask_mb": b * n * (-(-n // 64)) * 8 / 1e6,
            "device_ms_by_kernel": split, "card": smi}
     emit(row)
     check(mism == 0, f"N1 at ({b}, {n}): {mism} keep bits differ")
@@ -9010,6 +9048,8 @@ def m1_case(mt, torch, np, gen, smi):
     plain_ms = time_ms(lambda: nms.bipartite_match_plain(*args), reps=5,
                        inner=1, warmup=1)
     row = {"phase": "m1_case", "shape": [b, n, m], "k": k,
+           "route": nms._m1_plan(scores.device, b, n, m).route,
+           "pr20_ms": SSD_PR20_MS["m1_walk"],
            "matches": int((row_p >= 0).sum()),
            "entries_needed": need.tolist(), "mismatches": mism,
            "max_abs_err": float((row_k - row_p).abs().max()), "ms": ms,
@@ -9020,14 +9060,123 @@ def m1_case(mt, torch, np, gen, smi):
     return row
 
 
+def n1_edge_cases(mt, torch, gen, smi):
+    """N1's kernels against the plain version where the redesign could
+    go wrong: every box of one class at (32, 8,732) (class-aware is one
+    chain of 137 chunks), IoUs exactly at the threshold (unit squares
+    sliding by 1/4 and 1/2: IoU 3/5 and 1/3, exact in float32), N = 1,
+    N not a multiple of 64, no valid box, NaN ids (each a segment of its
+    own), -0.0 beside 0.0 (one class), coordinates that are inf or NaN,
+    a threshold of 0 (every pair suppresses), and one image of 24,000
+    boxes (forced, its bits pass the mask's 64 MB); each class-aware and
+    forced. Mismatches counted, 0 required."""
+    nms = mt.ops.nms
+    dev = SSD_DEVICE
+    rows = []
+
+    def one(name, boxes, ids, valid, thresh, timed=False):
+        for force in (False, True):
+            args = (boxes, ids, valid, thresh, force)
+            keep = nms.greedy_nms_keep(*args)
+            plain = nms.greedy_nms_keep_plain(*args)
+            torch.cuda.synchronize()
+            mism = int((keep != plain).sum())
+            plan = nms._n1_plan(boxes.device, boxes.shape[0],
+                                boxes.shape[1], force)
+            row = {"phase": "n1_edge", "case": name,
+                   "shape": list(boxes.shape[:2]), "thresh": thresh,
+                   "force_suppress": force, "route": plan.route,
+                   "group": plan.group, "kept": int(plain.sum()),
+                   "mismatches": mism}
+            if timed:
+                row["ms"] = time_ms(lambda: nms.greedy_nms_keep(*args),
+                                    reps=3, inner=2, warmup=1)
+            rows.append(row)
+            emit(dict(row, card=smi))
+            check(mism == 0, f"N1 {name} force={force}: {mism} keep bits "
+                             "differ")
+
+    boxes, ids, valid = ssd_sorted_boxes(torch, gen, 32, 8732)
+    one("one_class", boxes, torch.zeros_like(ids), valid, 0.45, timed=True)
+    x = torch.arange(130, device=dev, dtype=torch.float32) * 0.25
+    sq = torch.stack([x, torch.zeros_like(x), x + 1, torch.ones_like(x)],
+                     -1)[None].contiguous()
+    z = torch.zeros(1, 130, device=dev)
+    on = torch.ones(1, 130, dtype=torch.bool, device=dev)
+    one("at_threshold_3/5", sq, z, on, float(torch.tensor(0.6).item()))
+    one("at_threshold_1/3", sq, z, on,
+        float((torch.tensor(1.0) / torch.tensor(3.0)).item()))
+    boxes, ids, valid = ssd_sorted_boxes(torch, gen, 5, 1)
+    one("n_1", boxes, ids, valid, 0.45)
+    boxes, ids, valid = ssd_sorted_boxes(torch, gen, 4, 1111)
+    one("n_1111", boxes, ids, valid, 0.5)
+    one("no_valid", boxes, ids, torch.zeros_like(valid), 0.5)
+    nan = torch.rand(ids.shape, device=dev, generator=gen) < 0.2
+    one("nan_ids", boxes, torch.where(nan, float("nan"), ids), valid, 0.5)
+    neg = (torch.rand(ids.shape, device=dev, generator=gen) < 0.5) \
+        & (ids == 0)
+    one("signed_zero", boxes, torch.where(neg, -0.0, ids).contiguous(),
+        valid, 0.5)
+    # coordinates that are not finite take the kernels' exact NaN path
+    u = torch.rand(ids.shape, device=dev, generator=gen)
+    odd = boxes.clone()
+    odd[..., 0] = torch.where(u < 0.01, float("inf"), odd[..., 0])
+    odd[..., 2] = torch.where((u > 0.5) & (u < 0.51), float("nan"),
+                              odd[..., 2])
+    odd[..., 3] = torch.where(u > 0.99, float("-inf"), odd[..., 3])
+    one("nonfinite", odd.contiguous(), ids, valid, 0.5)
+    one("thresh_0", boxes, ids, valid, 0.0)
+    # forced, one image whose IoU bits pass the mask route's 64 MB: a
+    # launch of its own
+    boxes, ids, valid = ssd_sorted_boxes(torch, gen, 1, 24000)
+    one("past_mask_budget", boxes, ids, valid, 0.7, timed=True)
+    return rows
+
+
+def m1_rounds_case(mt, torch, gen, b, a, l, smi):
+    """M1's rounds mode (MultiBoxTarget's stage 1) against the plain
+    rounds on IoUs rounded to two decimals (ties across anchors and
+    slots), a slot in five invalid (-1): matched, match_gt and match_iou
+    equal, times, and the bound: the IoU matrix read once and the three
+    outputs written."""
+    nms = mt.ops.nms
+    iou = torch.round(torch.rand(b, a, l, device=SSD_DEVICE,
+                                 generator=gen) * 100) / 100
+    if l > 1:
+        iou[:, :, ::5] = -1.0
+    got = nms.bipartite_rounds(iou)
+    want = nms.bipartite_rounds_plain(iou)
+    torch.cuda.synchronize()
+    mism = sum(int((x != y).sum()) for x, y in zip(got, want))
+    nbytes = iou.numel() * 4 + b * a * (1 + 8 + 4)
+    bms, by = bound_ms(nbytes, 0, "float32")
+    ms = time_ms(lambda: nms.bipartite_rounds(iou), reps=5, inner=5,
+                 warmup=1)
+    plain_ms = time_ms(lambda: nms.bipartite_rounds_plain(iou), reps=3,
+                       inner=1, warmup=1)
+    row = {"phase": "m1_rounds_case", "shape": [b, a, l],
+           "route": nms._m1_plan(iou.device, b, a, l, "rounds").route,
+           "matches": int(want[0].sum()), "mismatches": mism,
+           "max_abs_err": float((got[2] - want[2]).abs().max()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+           "bound_by": by, "device_ms_by_kernel": kernel_split(
+               torch, lambda: nms.bipartite_rounds(iou), M1_ROUND_KERNELS),
+           "card": smi}
+    emit(row)
+    check(mism == 0, f"M1 rounds at {(b, a, l)}: {mism} outputs differ")
+    return row
+
+
 def ssd_kernel_phase(mt, torch, np, smi):
     """23a: N1 and M1 on the card against their plain versions at the
-    users' sizes, ties included; each wrapper raises on what it does not
-    take."""
+    users' sizes, ties included, N1's edge cases, M1's walk and its
+    rounds mode; each wrapper raises on what it does not take."""
     gen = torch.Generator(device=SSD_DEVICE)
     gen.manual_seed(SEED + 23)
     n1 = [n1_case(mt, torch, gen, *c, smi) for c in SSD_N1_CASES]
-    m1 = m1_case(mt, torch, np, gen, smi)
+    edges = n1_edge_cases(mt, torch, gen, smi)
+    m1 = [m1_case(mt, torch, np, gen, smi)]
+    m1 += [m1_rounds_case(mt, torch, gen, *c, smi) for c in SSD_M1_ROUNDS]
     if SSD_DEVICE.startswith("cuda"):
         nms = mt.ops.nms
         z = torch.zeros(1, 8, 4, device=SSD_DEVICE, dtype=torch.float64)
@@ -9036,7 +9185,7 @@ def ssd_kernel_phase(mt, torch, np, smi):
             raise AssertionError("N1 accepted float64 on CUDA")
         except mt.MXNetError as e:
             emit({"phase": "n1_raises_on_unsupported_dtype", "error": str(e)})
-    return n1, m1
+    return n1, edges, m1
 
 
 def ssd_graph_symbol(S):
@@ -9140,7 +9289,8 @@ def ssd_capture_phase(mt, torch, np, smi):
     check(kept > 0 and matched > 0, "ssd_capture: nothing detected or "
                                     "matched")
     check(launches.get("greedy_nms_keep", 0) >= 2 * 7
-          and launches.get("bipartite_match", 0) >= 7,
+          and launches.get("bipartite_match", 0) >= 7
+          and launches.get("bipartite_rounds", 0) >= 7,
           f"ssd_capture: launches {launches}")
     return row
 
@@ -9149,7 +9299,8 @@ def ssd_train_phase(mt, torch, smi):
     """23d: the SSD example's ``train()`` at its defaults on the card,
     counts set to 0 just before it: the final evaluation's mean IoU and
     class accuracy (the JAX test's thresholds), ms a step (host clock,
-    the three evaluations included), each kernel's launches."""
+    the three evaluations included), each kernel's launches: N1 in each
+    evaluation, M1 (``MultiBoxTarget``'s rounds) in each step."""
     from mxnet_tpu_torch.examples.ssd import train as ssd
     logs = []
     mt.ops.fused_bn_conv.reset_launch_counts()
@@ -9168,14 +9319,18 @@ def ssd_train_phase(mt, torch, smi):
     check(iou > 0.5 and acc > 0.8, f"ssd_train: IoU {iou}, accuracy {acc}")
     check(launches["greedy_nms_keep"] >= 3,
           f"ssd_train: N1 launched {launches['greedy_nms_keep']} times")
+    check(launches["bipartite_rounds"] >= steps,
+          f"ssd_train: M1 (MultiBoxTarget's rounds) launched "
+          f"{launches['bipartite_rounds']} times")
     return row
 
 
 def ssd_timing_phase(mt, torch, np, smi):
-    """23e: times (CUDA events, median of 5) of the box and vision ops at
-    their users' sizes, each beside its bytes (or operations) bound; the
-    ops that run N1 also with its plain version in its place. A record,
-    not a claim."""
+    """23e: times (CUDA events, median of 5, of 3 for the box ops) of the
+    box and vision ops at their users' sizes, each beside its bytes (or
+    operations) bound and its peak extra memory; the ops that run N1 or
+    M1 also with the kernel's plain version in its place, and beside PR
+    20's times. A record, not a claim."""
     from mxnet_tpu_torch.ops import contrib, nms
     from mxnet_tpu_torch.ops.registry import get_op
     T = SSD_TIMING
@@ -9183,6 +9338,9 @@ def ssd_timing_phase(mt, torch, np, smi):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 231)
     rows = []
+
+    plain_of = {"greedy_nms_keep": nms.greedy_nms_keep_plain,
+                "bipartite_rounds": nms.bipartite_rounds_plain}
 
     def rec(name, shape, fn, nbytes, flops=0, plain=None, reps=5, inner=3,
             **extra):
@@ -9192,12 +9350,14 @@ def ssd_timing_phase(mt, torch, np, smi):
         peak = torch.cuda.max_memory_allocated() - base
         plain_ms = None
         if plain is not None:
-            real = contrib.greedy_nms_keep
-            contrib.greedy_nms_keep = nms.greedy_nms_keep_plain
+            # the op with its kernel wrapper ``plain`` swapped for the
+            # wrapper's plain version
+            real = getattr(contrib, plain)
+            setattr(contrib, plain, plain_of[plain])
             try:
                 plain_ms = time_ms(fn, reps=reps, inner=1, warmup=1)
             finally:
-                contrib.greedy_nms_keep = real
+                setattr(contrib, plain, real)
         bms, by = bound_ms(nbytes, flops, "float32")
         row = dict({"op": name, "shape": shape, "dtype": "float32",
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -9223,15 +9383,19 @@ def ssd_timing_phase(mt, torch, np, smi):
     rec("MultiBoxTarget", [[1, a, 4], [b, l, 5], [b, c, a]],
         lambda: mbt(anchor, label, logits, negative_mining_ratio=3.0),
         anchor.numel() * 4 + label.numel() * 4 + logits.numel() * 4
-        + out_bytes)
+        + out_bytes, plain="bipartite_rounds", reps=3,
+        pr20_ms=SSD_PR20_MS["MultiBoxTarget"])
     prob = torch.softmax(logits, dim=1)
     loc = 0.2 * torch.randn(b, a * 4, device=dev, generator=gen)
     mbd = get_op("MultiBoxDetection").fn
-    rec("MultiBoxDetection", [[b, c, a], [b, a * 4], [1, a, 4]],
-        lambda: mbd(prob, loc, anchor, nms_threshold=0.45,
-                    nms_topk=T["nms_topk"]),
-        prob.numel() * 4 + loc.numel() * 4 + anchor.numel() * 4
-        + b * a * 6 * 4, plain=True, nms_topk=T["nms_topk"])
+    for topk in (T["nms_topk"], -1):
+        rec("MultiBoxDetection", [[b, c, a], [b, a * 4], [1, a, 4]],
+            lambda: mbd(prob, loc, anchor, nms_threshold=0.45,
+                        nms_topk=topk),
+            prob.numel() * 4 + loc.numel() * 4 + anchor.numel() * 4
+            + b * a * 6 * 4, plain="greedy_nms_keep", nms_topk=topk,
+            reps=3, pr20_ms=SSD_PR20_MS["MultiBoxDetection" if topk > 0
+                                        else "MultiBoxDetection_all"])
     del logits, prob, loc, label
     # Proposal: Faster R-CNN's RPN at 600 x 800, stride 16
     pb, pa, ph, pw = T["proposal"]
@@ -9244,7 +9408,8 @@ def ssd_timing_phase(mt, torch, np, smi):
     rec("Proposal", [[pb, 2 * pa, ph, pw], [pb, 4 * pa, ph, pw]],
         lambda: prop(cls_prob, deltas, info),
         (cls_prob.numel() + deltas.numel()) * 4 + pb * 300 * 5 * 4,
-        plain=True, pre=6000, post=300)
+        plain="greedy_nms_keep", pre=6000, post=300,
+        pr20_ms=SSD_PR20_MS["Proposal"])
     # PSROIPooling: R-FCN's score maps (21 classes x 7 x 7), 300 rois
     d, p, r = T["psroi_dim"], T["psroi_pooled"], T["rois"]
     data = torch.randn(1, d * p * p, ph, pw, device=dev, generator=gen)
@@ -9288,8 +9453,8 @@ def ssd_timing_phase(mt, torch, np, smi):
 
 
 def ssd_phases(mt, torch, np, smi):
-    """Phase 23 (slice 20): 23a-23e, timed; the N1 and M1 entries of the
-    kernels line."""
+    """Phase 23 (slices 20-21): 23a-23e, timed; the N1 and M1 entries of
+    the kernels line."""
     from mxnet_tpu_torch.ops import sweep
     t0 = time.perf_counter()
     lap = {}
@@ -9297,7 +9462,7 @@ def ssd_phases(mt, torch, np, smi):
     def mark(name):
         lap[name] = time.perf_counter() - t0 - sum(lap.values())
 
-    n1, m1 = ssd_kernel_phase(mt, torch, np, smi)
+    n1, edges, m1 = ssd_kernel_phase(mt, torch, np, smi)
     mark("ssd_kernels")
     ops_sweep_phase(mt, torch, np, sweep.CONTRIB_NAMES, "ssd_sweep")
     mark("ssd_sweep")
@@ -9317,37 +9482,46 @@ def ssd_phases(mt, torch, np, smi):
              "ssd_train": "examples/ssd/train.py train() at its defaults "
                           "(counts set to 0 just before it)"}
 
-    def entry(name, wrapper, replaces, rows, per):
+    def entry(name, wrappers, replaces, rows, per, extra):
         main = rows[0]
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces,
-                "launches": cap["launches"].get(wrapper, 0)
-                + train["launches"].get(wrapper, 0),
-                "launches_by_path": {
-                    "ssd_capture": cap["launches"].get(wrapper, 0),
-                    "ssd_train": train["launches"].get(wrapper, 0)},
-                "paths": paths,
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "mismatches": sum(r["mismatches"] for r in rows),
-                "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": None, "dtype": "float32", "per": per,
-                "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                             "bound_ms", "bound_by",
-                                             "mismatches")}
-                          for r in rows], "status": "ok"}
+        by_path = {p: sum(run["launches"].get(w, 0) for w in wrappers)
+                   for p, run in (("ssd_capture", cap), ("ssd_train", train))}
+        return {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_by_wrapper": {
+                w: {p: run["launches"].get(w, 0) for p, run in
+                    (("ssd_capture", cap), ("ssd_train", train))}
+                for w in wrappers},
+            "paths": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "mismatches": sum(r["mismatches"] for r in rows + extra),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "dtype": "float32", "per": per,
+            "pr20_ms": main.get("pr20_ms"),
+            "cases": [{k: r.get(k) for k in (
+                "phase", "shape", "route", "ms", "plain_ms", "bound_ms",
+                "bound_by", "mismatches", "pr20_ms", "peak_extra_mb")}
+                for r in rows],
+            "timed_edges": [{k: r.get(k) for k in (
+                "case", "shape", "force_suppress", "route", "ms")}
+                for r in extra if "ms" in r], "status": "ok"}
 
     return [
-        entry("greedy_nms_keep (N1)", "greedy_nms_keep",
+        entry("greedy_nms_keep (N1)", ["greedy_nms_keep"],
               "mxnet_tpu/ops/contrib.py:326-329 (the lax.fori_loop of "
               "_greedy_nms_keep :314; no pallas_call)", n1,
               "one call over 32 images of 8,732 boxes, class-aware at "
-              "0.45"),
-        entry("bipartite_match (M1)", "bipartite_match",
+              "0.45", edges),
+        entry("bipartite_match + bipartite_rounds (M1)",
+              ["bipartite_match", "bipartite_rounds"],
               "mxnet_tpu/ops/surface.py:455-468 (the lax.fori_loop of "
-              "bipartite_matching :437; no pallas_call)", [m1],
-              "one call over 4 score matrices of 8,732 x 50, descending "
-              "at 0.5"),
+              "bipartite_matching :437) and contrib.py:210-225 "
+              "(MultiBoxTarget's lax.scan of rounds); no pallas_call", m1,
+              "the walk: one call over 4 score matrices of 8,732 x 50, "
+              "descending at 0.5 (the rounds' rows in cases)", []),
     ]
 
 

@@ -81,6 +81,7 @@ from . import gradient_compression, kvstore
 from . import kvstore as kv
 from .checkpoint import CheckpointManager
 from . import telemetry, sparse, recordio, data
+from .sparse import sparse_report
 from .data import data_report
 from . import parallel, rnn
 from . import profiler
@@ -101,7 +102,8 @@ __all__ = ["MXNetError", "base", "config", "context", "Context", "cpu", "gpu",
            "fault_report", "callback", "checkpoint", "metric_device",
            "model", "executor", "monitor", "mon", "kvstore", "kv",
            "gradient_compression", "CheckpointManager",
-           "telemetry", "sparse", "recordio", "data", "data_report",
+           "telemetry", "sparse", "sparse_report", "recordio", "data",
+           "data_report",
            "parallel", "rnn", "profiler", "memory_report",
            "serving_report", "attribute", "AttrScope", "Symbol",
            "Executor", "DataBatch", "DataIter"]

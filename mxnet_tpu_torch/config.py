@@ -8,7 +8,7 @@ from __future__ import annotations
 import contextlib
 import os
 
-__all__ = ["get", "override", "register"]
+__all__ = ["get", "override", "register", "show", "variables"]
 
 _REGISTRY = {}
 
@@ -47,6 +47,22 @@ def override(name, value):
             os.environ.pop(name, None)
         else:
             os.environ[name] = old
+
+
+def variables():
+    """{name: (default, current, doc)} for every registered variable."""
+    return {name: (d, get(name), doc)
+            for name, (d, _t, doc) in sorted(_REGISTRY.items())}
+
+
+def show():
+    """Print the table of registered variables and return it."""
+    lines = [f"{'variable':<36}{'default':<18}{'current':<18}description"]
+    for name, (default, current, doc) in variables().items():
+        lines.append(f"{name:<36}{str(default):<18}{str(current):<18}{doc}")
+    out = "\n".join(lines)
+    print(out)
+    return out
 
 
 register("MXTPU_PALLAS_FUSION", "auto", str,

@@ -8,11 +8,16 @@ checkpoint written by either package loads in the other.
 from __future__ import annotations
 
 import logging
+from collections import namedtuple
 
 from . import ndarray as nd
 from . import symbol as sym
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "BatchEndParam"]
+
+# what a batch-end callback receives (the reference's typename)
+BatchEndParam = namedtuple("BatchEndParam",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -37,16 +37,14 @@ import logging
 import os
 import time
 import warnings
-from collections import namedtuple
 
 import numpy as np
 
 from .. import metric as metric_mod
+from ..model import BatchEndParam
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
-BatchEndParam = namedtuple("BatchEndParams",
-                           ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def _as_list(obj):

@@ -7,10 +7,10 @@
 Each op takes the JAX package's name, aliases, attributes and layouts
 and computes its function in the same order of operations, batched over
 the JAX package's ``vmap`` axes. The greedy NMS of ``MultiBoxDetection``,
-``box_nms`` and ``Proposal`` is N1 on CUDA (``ops/nms.py``); the rest is
-plain PyTorch: ``MultiBoxTarget``'s L-round bipartite scan (an argmax
-over A x L a round) and its hard-negative mining (a double sort) among
-it. Every sort reproduces ``jnp.argsort``'s stable order, and nothing
+``box_nms`` and ``Proposal`` is N1 on CUDA, and ``MultiBoxTarget``'s
+L-round bipartite matching M1's rounds mode (``ops/nms.py``); the rest is
+plain PyTorch, ``MultiBoxTarget``'s hard-negative mining (a double sort)
+among it. Every sort reproduces ``jnp.argsort``'s stable order, and nothing
 reads a value on the host or copies one to the device, so each op runs
 inside a captured program. Constants made from attributes (anchor sizes,
 variances, base anchors) are built on the device from Python scalars.
@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register_op
-from .nms import box_iou_corner, greedy_nms_keep
+from .nms import bipartite_rounds, box_iou_corner, greedy_nms_keep
 
 _f32 = torch.float32
 
@@ -117,32 +117,6 @@ def _encode_loc(anchors, gt):
     ], dim=-1)
 
 
-def _bipartite_rounds(iou):
-    """MultiBoxTarget's greedy global matching, L rounds over iou (B, A,
-    L): each round takes the first largest entry of the free anchors and
-    ground truths and matches it when above 1e-6. Returns (matched (B,
-    A), match_gt (B, A) int64, -1 where not, match_iou (B, A))."""
-    b, a, l = iou.shape
-    dev = iou.device
-    bi = torch.arange(b, device=dev)
-    a_used = torch.zeros((b, a), dtype=torch.bool, device=dev)
-    g_used = torch.zeros((b, l), dtype=torch.bool, device=dev)
-    m_gt = torch.full((b, a), -1, dtype=torch.int64, device=dev)
-    m_iou = torch.full((b, a), -1.0, dtype=iou.dtype, device=dev)
-    for _ in range(l):
-        masked = torch.where(a_used[:, :, None] | g_used[:, None, :],
-                             -1.0, iou).reshape(b, a * l)
-        flat = torch.argmax(masked, dim=1)
-        ai, gi = flat // l, flat % l
-        val = masked[bi, flat]
-        ok = val > 1e-6
-        a_used[bi, ai] = a_used[bi, ai] | ok
-        g_used[bi, gi] = g_used[bi, gi] | ok
-        m_gt[bi, ai] = torch.where(ok, gi, m_gt[bi, ai])
-        m_iou[bi, ai] = torch.where(ok, val, m_iou[bi, ai])
-    return a_used, m_gt, m_iou
-
-
 @register_op("MultiBoxTarget", aliases=["_contrib_MultiBoxTarget"],
              no_grad=True, num_outputs=3)
 def multibox_target(anchor, label, cls_pred, overlap_threshold=0.5,
@@ -164,7 +138,7 @@ def multibox_target(anchor, label, cls_pred, overlap_threshold=0.5,
     iou = torch.where(valid[:, None, :], iou, -1.0)
 
     # stage 1: greedy global bipartite matching, at most L rounds
-    matched, match_gt, match_iou = _bipartite_rounds(iou)
+    matched, match_gt, match_iou = bipartite_rounds(iou)
 
     # stage 2: per-anchor threshold matching for still-unmatched anchors
     best_gt = torch.argmax(iou, dim=2)

@@ -121,8 +121,12 @@ def topk_indices(x, k):
     changes. Every entry above it is taken, and of those equal to it the
     lowest-indexed ones that fill k: a second ``topk`` over an int32 key
     (n + 1 above the k-th value; n - i at it; 0 below) picks them. The k
-    taken, put in index order, are then stably sorted by value."""
+    taken, put in index order, are then stably sorted by value. ``k`` 0
+    takes none."""
     n = x.shape[-1]
+    if k == 0:
+        return torch.empty(x.shape[:-1] + (0,), dtype=torch.int64,
+                           device=x.device)
     kth = torch.topk(x, k, dim=-1, sorted=True).values[..., k - 1:k]
     rank = torch.arange(n, 0, -1, device=x.device, dtype=torch.int32)
     key = torch.where(x > kth, n + 1,

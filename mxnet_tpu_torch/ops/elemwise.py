@@ -17,8 +17,75 @@ def _cbrt(x):
     return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
 
 
+class _Abs(torch.autograd.Function):
+    """``|x|`` with JAX's gradient: the cotangent where ``x >= 0`` (0 and
+    -0 included), its negation elsewhere (``torch.abs`` gives 0 at 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_(x):
+    return _Abs.apply(x) if x.is_floating_point() else torch.abs(x)
+
+
+class _Pow(torch.autograd.Function):
+    """``x ** y`` with JAX's gradients (``lax.pow``'s float rules): base
+    ``y x^(y-1)`` everywhere (NaN at x = y = 0, where ``torch.pow`` gives
+    0), exponent ``log(x or 1) x^y``."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        out = torch.pow(x, y)
+        ctx.save_for_backward(x, y, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, out = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g * (y * torch.pow(x, y - 1))).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            one = torch.ones((), dtype=x.dtype, device=x.device)
+            gy = (g * (torch.log(torch.where(x == 0, one, x)) * out)) \
+                .sum_to_size(y.shape)
+        return gx, gy
+
+
+def power(x, y):
+    if x.is_floating_point() and y.is_floating_point() \
+            and x.dtype == y.dtype:
+        return _Pow.apply(x, y)
+    return torch.pow(x, y)
+
+
+def hypot(x, y):
+    """``jnp.hypot`` operation for operation, so its gradient is JAX's
+    (finite at (0, 0), where ``torch.hypot``'s is NaN)."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    if not y.is_floating_point():
+        y = y.to(x.dtype)
+    x, y = abs_(x), abs_(y)
+    inf = torch.isposinf(x) | torch.isposinf(y)
+    hi, lo = torch.maximum(x, y), torch.minimum(x, y)
+    one = torch.ones((), dtype=hi.dtype, device=hi.device)
+    r = hi * torch.sqrt(1 + torch.square(lo / torch.where(hi == 0, one, hi)))
+    out = torch.where(hi == 0, hi, r)
+    return torch.where(inf, torch.full((), float("inf"), dtype=out.dtype,
+                                       device=out.device), out)
+
+
 _UNARY = {
-    "abs": torch.abs, "sign": torch.sign, "square": torch.square,
+    "abs": abs_, "sign": torch.sign, "square": torch.square,
     "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
     "negative": torch.neg, "relu": torch.relu, "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
@@ -83,10 +150,10 @@ _BINARY = {
     "broadcast_mul": (torch.mul, ["elemwise_mul", "_mul", "_Mul"]),
     "broadcast_div": (torch.div, ["elemwise_div", "_div", "_Div"]),
     "broadcast_mod": (torch.fmod, ["_mod"]),
-    "broadcast_power": (torch.pow, ["_power", "_Power", "pow"]),
+    "broadcast_power": (power, ["_power", "_Power", "pow"]),
     "broadcast_maximum": (torch.maximum, ["_maximum", "maximum"]),
     "broadcast_minimum": (torch.minimum, ["_minimum", "minimum"]),
-    "broadcast_hypot": (torch.hypot, []),
+    "broadcast_hypot": (hypot, []),
     "arctan2": (torch.atan2, []),
 }
 for _name, (_fn, _al) in _BINARY.items():

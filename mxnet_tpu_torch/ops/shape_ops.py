@@ -92,7 +92,21 @@ def slice_axis(data, axis=0, begin=0, end=None, **kw):
 
 @register_op("clip")
 def clip(data, a_min=None, a_max=None, **kw):
-    return torch.clamp(data, a_min, a_max)
+    """``jnp.clip``: a maximum with ``a_min``, then a minimum with
+    ``a_max``, so a value at a bound takes half the cotangent (the tie
+    rule of both), where ``torch.clamp`` passes all of it."""
+    if not data.is_floating_point():
+        return torch.clamp(data, a_min, a_max)
+    out = data
+    if a_min is not None:
+        out = torch.maximum(out, torch.full((), float(a_min),
+                                            dtype=data.dtype,
+                                            device=data.device))
+    if a_max is not None:
+        out = torch.minimum(out, torch.full((), float(a_max),
+                                            dtype=data.dtype,
+                                            device=data.device))
+    return out
 
 
 @register_op("one_hot")

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from . import elemwise as _elemwise
 from .registry import register_op, alias
 from .nms import bipartite_match
 from .random_ops import (gen_of, uniform_, normal_, exponential_,
@@ -62,12 +63,12 @@ def round_(data, **kw):
 
 @register_op("_hypot", aliases=["hypot"])
 def hypot(lhs, rhs, **kw):
-    return torch.hypot(lhs, rhs)
+    return _elemwise.hypot(lhs, rhs)
 
 
 @register_op("_hypot_scalar", aliases=["hypot_scalar"])
 def hypot_scalar(data, scalar=0.0, **kw):
-    return torch.hypot(data, torch.full((), scalar, dtype=data.dtype,
+    return _elemwise.hypot(data, torch.full((), scalar, dtype=data.dtype,
                                         device=data.device))
 
 

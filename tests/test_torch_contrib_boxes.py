@@ -8,10 +8,13 @@ package's, on the CPU, from the seeded inputs of ``ops/sweep.py``:
 boxes, targets and IoUs at rtol 1e-5 / atol 1e-6 (box_iou's gradient at
 1e-4), class ids, keep masks and matches exactly. Every case meets ties
 (duplicate boxes, equal scores), and a few pinned ones check the tie
-order itself. N1's and M1's plain versions (``ops/nms.py``) equal a
-direct numpy transcription of the reference loops (contrib.py:326-329,
-surface.py:456-468), and ``_n1_plan`` / ``_m1_plan`` route a CUDA device
-to the kernel and the CPU and meta devices to the plain versions."""
+order itself. N1's and M1's plain versions (``ops/nms.py``), and the
+kernels' decompositions written here in plain PyTorch (the class
+segments, the chunks' rounds, M1's rounds by columns), equal a direct
+numpy transcription of the reference loops (contrib.py:326-329,
+surface.py:456-468, contrib.py:210-225), and ``_n1_plan`` / ``_m1_plan``
+route a CUDA device to each kernel form and the CPU and meta devices to
+the plain versions."""
 import numpy as np
 import pytest
 import torch
@@ -254,21 +257,75 @@ def test_m1_plain_equals_reference_loop(seed):
 
 
 def test_plans_route_by_device():
+    """CPU and meta take the plain versions; CUDA each kernel form: N1
+    class-aware a block a segment, dealt to ~1,056 blocks, all images in
+    one launch; forced the mask and a sweep, a launch a group of images
+    whose bits take up to 64 MB, or a launch an image where one image's
+    bits take more; up to 512 boxes ordered in the kernel, beyond by the
+    sort; M1's walk and rounds with their shared memory. What no kernel
+    takes raises."""
     p = nms._n1_plan("cuda:0", 32, 8732)
-    assert p.route == "cuda" and p.words == 137
-    assert p.threads == nms._SWEEP_THREADS and p.smem_bytes == 137 * 8
+    assert p == nms.N1Plan("segments", "sort", 32, 33, 256, 137 * 64)
+    assert nms._n1_plan("cuda:0", 32, 320) == nms.N1Plan(
+        "segments", "rank", 32, 33, 256, 5 * 64)
+    assert nms._n1_plan("cuda:0", 1, 3) == nms.N1Plan(
+        "segments", "rank", 1, 3, 256, 64)
+    assert nms._n1_plan("cuda:0", 1, 6000, True) == nms.N1Plan(
+        "mask", "sort", 1, 1, 512, 16 * 94)
+    assert nms._n1_plan("cuda:0", 32, 320, True) == nms.N1Plan(
+        "mask", "rank", 32, 1, 512, 16 * 5)
+    # 8,732 boxes: 9.57 MB of bits an image, 7 images a launch
+    assert nms._n1_plan("cuda:0", 32, 8732, True) == nms.N1Plan(
+        "mask", "sort", 7, 1, 512, 16 * 137)
+    # 30,000 boxes: 112.6 MB of bits for one image, a launch an image
+    assert nms._n1_plan("cuda:0", 2, 30000, True) == nms.N1Plan(
+        "mask", "sort", 1, 1, 512, 16 * 469)
+    assert nms._n1_plan("cuda:0", 2, 512).order == "rank"
+    assert nms._n1_plan("cuda:0", 2, 513).order == "sort"
     for dev in ("cpu", "meta", torch.device("cpu")):
         assert nms._n1_plan(dev, 32, 8732).route == "plain"
         assert nms._m1_plan(dev, 4, 8732, 50).route == "plain"
-    assert nms._m1_plan("cuda", 4, 8732, 50) == nms.M1Plan("cuda")
+        assert nms._m1_plan(dev, 32, 8732, 50, "rounds").route == "plain"
+    assert nms._m1_plan("cuda", 4, 8732, 50) == nms.M1Plan(
+        "walk", 512, 8 * 50 + 4 * (273 + 2))
+    assert nms._m1_plan("cuda", 32, 8732, 50, "rounds") == nms.M1Plan(
+        "rounds", 1024, 25 * 50 + 4 * 273)
+    assert nms._m1_plan("cuda", 16, 320, 1, "rounds").route == "rounds"
     with pytest.raises(MXNetError):
-        nms._n1_plan("cuda:0", 1, 64 * (nms._SMEM_MAX // 8 + 1))
+        nms._n1_plan("cuda:0", 1, 64 * (nms._SMEM_MAX - nms._N1_STATIC + 1))
+    with pytest.raises(MXNetError):
+        nms._n1_plan("cuda:0", 1, 64 * 13441, True)
+    with pytest.raises(MXNetError):
+        nms._n1_plan("cuda:0", 1, 2 ** 31)
     with pytest.raises(MXNetError):
         nms._n1_plan("cuda:0", 70000, 10)
     with pytest.raises(MXNetError):
         nms._m1_plan("cuda:0", 1, 2 ** 24, 3)
     with pytest.raises(MXNetError):
+        nms._m1_plan("cuda:0", 1, 2 ** 23, 2 ** 23)
+    with pytest.raises(MXNetError):
+        nms._m1_plan("cuda:0", 1, 10, 10, "sorted")
+    with pytest.raises(MXNetError):
         nms._n1_plan("mps", 1, 10)
+
+
+@pytest.mark.parametrize("b, n", [(1, 6000), (32, 8732), (640, 1280),
+                                  (3, 23168), (1, 23169), (65535, 7)])
+def test_n1_mask_groups_fit_the_budget(b, n):
+    """Forced suppression on CUDA takes the mask route a group of images
+    at a time: the group's bits fit 64 MB and one image more would not
+    (unless the group is every image); an image whose bits alone pass
+    64 MB goes a launch of its own."""
+    chunks = -(-n // 64)
+    per = n * chunks * 8
+    p = nms._n1_plan("cuda:0", b, n, True)
+    assert p.route == "mask" and 1 <= p.group <= b
+    if per > nms._N1_MASK_BUDGET:
+        assert p.group == 1
+        return
+    assert p.group * per <= nms._N1_MASK_BUDGET
+    assert p.group == b or (p.group + 1) * per > nms._N1_MASK_BUDGET
+    assert nms._n1_plan("cuda:0", b, n, False).group == b
 
 
 def test_meta_tensors_give_shapes():
@@ -284,3 +341,306 @@ def test_meta_tensors_give_shapes():
         torch.empty(3, 20, dtype=torch.int64, device="meta"), 4, 5, 20,
         0.5, False)
     assert row.shape == (3, 4) and col.shape == (3, 5)
+    matched, gt, miou = nms.bipartite_rounds(
+        torch.empty(3, 20, 4, device="meta"))
+    assert matched.shape == gt.shape == miou.shape == (3, 20)
+    assert matched.dtype == torch.bool and gt.dtype == torch.int64
+
+
+# --- the decompositions of the redesigned kernels, in plain PyTorch -------
+# N1's and M1's kernels take these steps on the card; each is written
+# here in plain PyTorch and held against the numpy loops of the reference
+TB = 64                     # boxes a chunk (the kernels' TB)
+
+
+def _n1_segments_plain(ids, valid, order, force_suppress):
+    """n1_prep's segment table, image by image: the (start, end) sorted
+    positions of each run of valid boxes whose ids are equal (any ids
+    under ``force_suppress``), a NaN id a run of its own."""
+    out = []
+    for i in range(ids.shape[0]):
+        o = order[i].tolist()
+        v = valid[i, order[i]].tolist()
+        d = ids[i, order[i]].tolist()
+        starts = [p for p in range(len(o)) if v[p] and (
+            p == 0 or not v[p - 1]
+            or (not force_suppress and not d[p] == d[p - 1]))]
+        out.append(list(zip(starts, starts[1:] + [sum(v)])))
+    return out
+
+
+def _resolve_rounds(sup, cand):
+    """N1's resolve of one chunk: ``sup`` (n, n) bool, the IoU
+    bits of its rows (symmetric, the diagonal False), ``cand`` (n,) its
+    boxes not yet removed. A round keeps every undecided box that no
+    undecided earlier box suppresses and drops the later boxes the kept
+    ones suppress."""
+    n = cand.shape[0]
+    idx = torch.arange(n)
+    pred = sup & (idx[None, :] < idx[:, None])
+    succ = sup & (idx[None, :] > idx[:, None])
+    undec, kept = cand.clone(), torch.zeros_like(cand)
+    while bool(undec.any()):
+        new = undec & ~(pred & undec[None, :]).any(1)
+        kept |= new
+        undec &= ~new & ~(succ & new[:, None]).any(0)
+    return kept
+
+
+def _greedy_nms_segments_plain(boxes, ids, valid, thresh, force_suppress):
+    """The keep mask as N1 computes it, in plain PyTorch: ``n1_order``,
+    the segment table, each segment resolved 64 boxes at a time (the
+    chunk's bits, the rounds, then the kept boxes against the later boxes
+    not yet removed), the keep bits scattered back to the boxes' own
+    positions."""
+    keep = torch.zeros_like(valid)
+    order = nms.n1_order(ids, valid, force_suppress)
+    segs = _n1_segments_plain(ids, valid, order, force_suppress)
+    for i, image in enumerate(segs):
+        for s0, s1 in image:
+            pos = order[i, s0:s1]
+            sb = boxes[i, pos]
+            removed = torch.zeros(s1 - s0, dtype=torch.bool)
+            for c0 in range(0, s1 - s0, TB):
+                c1 = min(c0 + TB, s1 - s0)
+                cb = sb[c0:c1]
+                sup = nms.box_iou_corner(cb, cb) >= thresh
+                sup.fill_diagonal_(False)
+                kept = _resolve_rounds(sup, ~removed[c0:c1])
+                keep[i, pos[c0:c1][kept]] = True
+                if c1 < s1 - s0:
+                    hit = nms.box_iou_corner(cb[kept], sb[c1:]) >= thresh
+                    removed[c1:] |= hit.any(0)
+    return keep
+
+
+def _first_max(v, idx):
+    """The entry of ``v`` that ``torch.argmax`` takes (NaN first), and
+    its index in ``idx``."""
+    nan = torch.isnan(v)
+    j = int(torch.nonzero(nan)[0]) if bool(nan.any()) \
+        else int(torch.argmax(v))
+    return v[j], int(idx[j])
+
+
+def _bipartite_rounds_columns_plain(iou):
+    """``bipartite_rounds_plain``'s result as M1's rounds mode finds it,
+    in plain PyTorch: each ground truth keeps its best free anchor; the
+    free columns sorted by (the value, the lower anchor, the lower
+    column) are taken in turn as successive rounds until one whose anchor
+    was taken in this batch, or a pick not above 1e-6, or min(A, L)
+    matches; then the free columns whose anchor was taken are rescanned,
+    but for those at or below 1e-6, which cannot match again (the
+    kernel's batches up to 64 columns; beyond, it takes one column a
+    batch, which picks the same)."""
+    b, a, l = iou.shape
+    matched = torch.zeros((b, a), dtype=torch.bool)
+    m_gt = torch.full((b, a), -1, dtype=torch.int64)
+    m_iou = torch.full((b, a), -1.0, dtype=iou.dtype)
+    anchors = torch.arange(a)
+    for i in range(b):
+        free_a = torch.ones(a, dtype=torch.bool)
+        free_l = [True] * l
+        best = [_first_max(iou[i, :, j], anchors) for j in range(l)]
+        matches, done = 0, False
+        while not done:
+            # NaN first, then the larger value, the lower anchor, column
+            cols = sorted((j for j in range(l) if free_l[j]), key=lambda j: (
+                not bool(torch.isnan(best[j][0])),
+                -float(best[j][0]) if not torch.isnan(best[j][0]) else 0.0,
+                best[j][1], j))
+            done = not cols
+            for j in cols:
+                v, ai = best[j]
+                if not bool(v > 1e-6):
+                    done = True
+                    break
+                if not bool(free_a[ai]):
+                    break
+                matched[i, ai], m_gt[i, ai], m_iou[i, ai] = True, j, v
+                free_a[ai], free_l[j] = False, False
+                matches += 1
+                if matches == min(a, l):
+                    done = True
+                    break
+            for c in range(l):
+                # a column at or below 1e-6 cannot match again: no rescan
+                if not done and free_l[c] and not bool(free_a[best[c][1]]) \
+                        and not bool(best[c][0] <= 1e-6):
+                    best[c] = _first_max(iou[i, free_a, c], anchors[free_a])
+    return matched, m_gt, m_iou
+
+
+def _nms_inputs(rs, b, n, classes, dup=0.2, valid_p=0.8):
+    xy = rs.uniform(0, 0.8, (b, n, 2)).astype(np.float32)
+    wh = rs.uniform(0.0, 0.4, (b, n, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    src = (rs.rand(b, n) * np.arange(n)).astype(int)
+    d = rs.rand(b, n) < dup
+    boxes[d] = np.take_along_axis(boxes, src[..., None].repeat(4, -1), 1)[d]
+    ids = rs.randint(0, classes, (b, n)).astype(np.float32)
+    ids[d] = np.take_along_axis(ids, src, 1)[d]
+    valid = rs.rand(b, n) < valid_p
+    return boxes, ids, valid
+
+
+def _segments_against_loop(boxes, ids, valid, thresh):
+    for force in (False, True):
+        got = _greedy_nms_segments_plain(
+            torch.from_numpy(boxes), torch.from_numpy(ids),
+            torch.from_numpy(valid), thresh, force).numpy()
+        want = np.stack([_np_nms(boxes[i], ids[i], valid[i], thresh, force)
+                         for i in range(boxes.shape[0])])
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("classes", [1, 3, 21])
+def test_n1_segments_equal_reference_loop(seed, classes):
+    """N1's decomposition (the class ordering, the segments, 64-box chunks
+    resolved in rounds, kept boxes against the later boxes not yet
+    removed, the bits scattered back) equals the reference's loop: one
+    class, a few, many; duplicates (box and class) and ties; some
+    segments longer than a chunk."""
+    rs = np.random.RandomState(100 + seed)
+    n = int(rs.randint(1, 200))
+    boxes, ids, valid = _nms_inputs(rs, 2, n, classes)
+    thresh = float(rs.choice([0.3, 0.45, 0.5, 0.7]))
+    _segments_against_loop(boxes, ids, valid, thresh)
+
+
+@pytest.mark.parametrize("case", ["nan_ids", "signed_zero", "all_invalid",
+                                  "one_box", "one_valid", "ragged_chunks",
+                                  "at_threshold", "threshold_le_0"])
+def test_n1_segments_edge_cases(case):
+    """A NaN id is a segment of its own (it equals no id: it suppresses
+    nothing and nothing suppresses it); -0.0 and 0.0 are one class; no
+    valid box; N = 1; N not a multiple of 64; IoUs exactly at the
+    threshold; a threshold <= 0, where pairs that do not overlap
+    suppress too."""
+    rs = np.random.RandomState(7)
+    thresh = 0.45
+    if case == "nan_ids":
+        boxes, ids, valid = _nms_inputs(rs, 2, 90, 3, dup=0.5)
+        ids[rs.rand(2, 90) < 0.3] = np.nan
+    elif case == "signed_zero":
+        boxes, ids, valid = _nms_inputs(rs, 2, 90, 2, dup=0.5)
+        ids[(ids == 0) & (rs.rand(2, 90) < 0.5)] = -0.0
+    elif case == "all_invalid":
+        boxes, ids, valid = _nms_inputs(rs, 2, 70, 3)
+        valid[:] = False
+    elif case == "one_box":
+        boxes, ids, valid = _nms_inputs(rs, 3, 1, 3, valid_p=0.6)
+    elif case == "one_valid":
+        boxes, ids, valid = _nms_inputs(rs, 2, 130, 3)
+        valid[:] = False
+        valid[:, 77] = True
+    elif case == "ragged_chunks":
+        boxes, ids, valid = _nms_inputs(rs, 2, 193, 1, dup=0.3,
+                                        valid_p=1.0)
+    elif case == "at_threshold":
+        # unit squares sliding by 1/4: IoU 3/5 and 1/3, both exact in
+        # float32 arithmetic here and on the card, at thresholds equal
+        # to them
+        x = np.arange(130, dtype=np.float32) * 0.25
+        boxes = np.stack([x, np.zeros_like(x), x + 1, np.ones_like(x)],
+                         -1)[None].astype(np.float32)
+        ids = np.zeros((1, 130), np.float32)
+        valid = np.ones((1, 130), bool)
+        for t in (np.float32(0.6), np.float32(1) / np.float32(3)):
+            _segments_against_loop(boxes, ids, valid, float(t))
+        return
+    else:
+        boxes, ids, valid = _nms_inputs(rs, 2, 80, 3, dup=0.0)
+        boxes[:, :, 2:] = boxes[:, :, :2] + 0.01
+        thresh = 0.0
+    _segments_against_loop(boxes, ids, valid, thresh)
+
+
+def test_n1_order_groups_classes_in_score_order():
+    """``n1_order``: the valid boxes first, each class together in its
+    boxes' order, -0.0 with 0.0, NaN ids kept apart by the segment table;
+    under force_suppress the valid boxes in order."""
+    ids = torch.tensor([[2.0, -0.0, float("nan"), 0.0, 2.0, float("nan"),
+                         1.0, 0.0]])
+    valid = torch.tensor([[True, True, True, True, False, True, True,
+                           True]])
+    order = nms.n1_order(ids, valid, False)
+    segs = _n1_segments_plain(ids, valid, order, False)[0]
+    groups = [sorted(order[0, a:b].tolist()) for a, b in segs]
+    assert sorted(groups) == [[0], [1, 3, 7], [2], [5], [6]]
+    assert order[0, -1].item() == 4
+    for a, b in segs:
+        assert order[0, a:b].tolist() == sorted(order[0, a:b].tolist())
+    order = nms.n1_order(ids, valid, True)
+    assert order[0].tolist() == [0, 1, 2, 3, 5, 6, 7, 4]
+    assert _n1_segments_plain(ids, valid, order, True) == [[(0, 7)]]
+
+
+def _np_rounds(iou):
+    """contrib.py:210-225: the L rounds as a Python loop, one item."""
+    a, l = iou.shape
+    a_used, g_used = np.zeros(a, bool), np.zeros(l, bool)
+    m_gt, m_iou = -np.ones(a, np.int64), -np.ones(a, np.float32)
+    for _ in range(l):
+        masked = np.where(a_used[:, None] | g_used[None, :],
+                          np.float32(-1), iou)
+        flat = int(np.argmax(masked))
+        ai, gi = flat // l, flat % l
+        if masked[ai, gi] > np.float32(1e-6):
+            a_used[ai], g_used[gi] = True, True
+            m_gt[ai], m_iou[ai] = gi, masked[ai, gi]
+    return a_used, m_gt, m_iou
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_m1_rounds_equal_reference_rounds(seed):
+    """M1's rounds mode (each ground truth's best free anchor, the best
+    column a round, rescans of the columns whose anchor it took) and the
+    plain rounds equal the reference's rounds in numpy: IoUs rounded to
+    one decimal (ties across anchors and columns), invalid slots (-1),
+    more slots than anchors, one slot, duplicates of a column."""
+    rs = np.random.RandomState(seed)
+    b = 3
+    a, l = [(12, 5), (4, 9), (30, 1), (7, 7), (25, 12), (3, 3), (40, 6),
+            (1, 4)][seed]
+    iou = np.round(rs.uniform(-0.2, 1.0, (b, a, l)), 1).astype(np.float32)
+    iou = np.maximum(iou, 0).astype(np.float32)
+    iou[:, :, rs.rand(l) < 0.25] = -1.0
+    if l > 2:
+        iou[:, :, 1] = iou[:, :, 0]
+    got_c = _bipartite_rounds_columns_plain(torch.from_numpy(iou))
+    got_p = nms.bipartite_rounds_plain(torch.from_numpy(iou))
+    got_w = nms.bipartite_rounds(torch.from_numpy(iou))
+    for i in range(b):
+        want = _np_rounds(iou[i])
+        for got in (got_c, got_p, got_w):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g[i].numpy(), w)
+
+
+def test_target_many_slots_tied_ious_against_jax():
+    """MultiBoxTarget with 12 label slots, duplicated ground truths and
+    anchors (tied IoUs across anchors and across slots) and padded slots:
+    the matches (loc_mask, cls_target) equal the JAX package's exactly,
+    the regression targets at the box tolerance (their arithmetic rounds
+    an ulp apart)."""
+    rs = np.random.RandomState(21)
+    xy = rs.uniform(0, 0.6, (40, 2))
+    anchor = np.concatenate([xy, xy + rs.uniform(0.1, 0.4, (40, 2))], 1)
+    anchor[20:26] = anchor[:6]
+    anchor = anchor[None].astype(np.float32)
+    label = -np.ones((2, 12, 5), np.float32)
+    for i, k in enumerate((10, 7)):
+        label[i, :k, 0] = rs.randint(0, 4, k)
+        label[i, :k, 1:] = anchor[0, rs.randint(0, 40, k)]
+        label[i, 1] = label[i, 0]
+    cls = rs.standard_normal((2, 5, 40)).astype(np.float32)
+    for ratio in (-1.0, 3.0):
+        got, want = _both("MultiBoxTarget", anchor, label, cls,
+                          overlap_threshold=0.5,
+                          negative_mining_ratio=ratio)
+        np.testing.assert_allclose(got[0], want[0], **BOX_TOL)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        assert (got[1] > 0).sum() >= 4

@@ -43,3 +43,28 @@ def test_topk_tie_order_against_jax(seed):
                                is_ascend=asc)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("ret_typ", ["value", "indices", "mask", "both"])
+@pytest.mark.parametrize("is_ascend", [False, True])
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_topk_k0_against_jax(ret_typ, is_ascend, axis):
+    """``k=0`` (C-12): empty values and indices of length 0 along
+    ``axis`` and an all-zero mask, as the JAX package gives them."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from mxnet_tpu.ops.registry import get_op as jget
+    from mxnet_tpu_torch.ops.registry import get_op
+    x = np.random.RandomState(3).randint(0, 4, (2, 5)).astype(np.float32)
+    got = get_op("topk").fn(torch.from_numpy(x), axis=axis, k=0,
+                            ret_typ=ret_typ, is_ascend=is_ascend)
+    want = jget("topk").fn(jnp.asarray(x), axis=axis, k=0, ret_typ=ret_typ,
+                           is_ascend=is_ascend)
+    if ret_typ != "both":
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)

@@ -454,3 +454,30 @@ def test_every_name_as_a_symbol(name):
     assert p.list_arguments() == j.list_arguments()
     assert p.list_auxiliary_states() == j.list_auxiliary_states()
     assert p.infer_shape(**shapes) == j.infer_shape(**shapes)
+
+
+def test_reference_top_level_names():
+    """C-14: ``sparse_report``, ``model.BatchEndParam`` (the JAX
+    package's typename, the one the Module's callbacks receive) and
+    ``config.show()`` / ``config.variables()`` in the JAX package's
+    shape."""
+    import mxnet_tpu as mx
+    assert mt.sparse_report is mt.sparse.sparse_report
+    assert "sparse_report" in mt.__all__
+    assert isinstance(mt.sparse_report(), dict) \
+        and isinstance(mx.sparse_report(), dict)
+    bep = mt.model.BatchEndParam
+    assert bep.__name__ == mx.model.BatchEndParam.__name__
+    assert bep._fields == mx.model.BatchEndParam._fields
+    assert mt.module.base_module.BatchEndParam is bep
+    vs = mt.config.variables()
+    assert vs and all(isinstance(v, tuple) and len(v) == 3
+                      for v in vs.values())
+    assert list(vs) == sorted(vs)
+    assert all(vs[n][1] == mt.config.get(n) for n in vs)
+    head = mx.config.show().splitlines()[0]
+    table = mt.config.show().splitlines()
+    assert table[0] == head and len(table) == len(vs) + 1
+    name = "MXTPU_SERVING_MAX_QUEUE"
+    with mt.config.override(name, 7):
+        assert mt.config.variables()[name][1] == 7
